@@ -1,0 +1,234 @@
+"""Batched, masked log-mel spectrogram frontend (PyTorch).
+
+Same numerics as ``wav2letter_pytorch_tpu.data.features``: optional
+dither, pre-emphasis 0.97, reflect centre padding by n_fft // 2 at each
+sample's own length, a windowed real DFT (symmetric window centred in an
+n_fft = 2^ceil(log2(window)) frame), power, a Slaney mel filterbank,
+``log1p(mel + 2^-24)``, then per-feature normalisation over each sample's
+valid frames (unbiased std) with padding frames zeroed.
+
+The framing -> DFT -> power -> mel -> log part is kernel K1
+(``ops/stft_mel.py``): a CUDA kernel on the card, its plain PyTorch
+version on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.stft_mel import stft_mel_log
+
+DITHER = 1e-5
+PREEMPH = 0.97
+LOG_ZERO_GUARD = 2.0 ** -24
+NORM_EPS = 1e-5
+
+
+# --------------------------------------------------------------------------
+# Mel filterbank (Slaney mel scale, Slaney normalisation; librosa's default)
+# --------------------------------------------------------------------------
+
+def hz_to_mel(hz):
+    hz = np.asanyarray(hz, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    linear = hz / f_sp
+    log = (min_log_mel
+           + np.log(np.maximum(hz, min_log_hz) / min_log_hz) / logstep)
+    return np.where(hz >= min_log_hz, log, linear)
+
+
+def mel_to_hz(mel):
+    mel = np.asanyarray(mel, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    linear = mel * f_sp
+    log = min_log_hz * np.exp(logstep * (mel - min_log_mel))
+    return np.where(mel >= min_log_mel, log, linear)
+
+
+def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Triangular mel filterbank [n_mels, 1 + n_fft//2] from 0 Hz to
+    Nyquist, Slaney-normalised."""
+    n_bins = 1 + n_fft // 2
+    fft_freqs = np.linspace(0.0, sample_rate / 2.0, n_bins)
+    mel_pts = np.linspace(hz_to_mel(0.0), hz_to_mel(sample_rate / 2.0),
+                          n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (hz_pts[2:] - hz_pts[:-2])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def get_window(name: str, length: int) -> np.ndarray:
+    """Symmetric (periodic=False) window of ``length`` samples."""
+    n = np.arange(length, dtype=np.float64)
+    denom = max(length - 1, 1)
+    if name == 'hamming':
+        w = 0.54 - 0.46 * np.cos(2 * np.pi * n / denom)
+    elif name == 'hann':
+        w = 0.5 - 0.5 * np.cos(2 * np.pi * n / denom)
+    elif name == 'blackman':
+        w = (0.42 - 0.5 * np.cos(2 * np.pi * n / denom)
+             + 0.08 * np.cos(4 * np.pi * n / denom))
+    elif name == 'bartlett':
+        w = 1.0 - np.abs(2.0 * n / denom - 1.0)
+    elif name in ('none', None):
+        w = np.ones(length)
+    else:
+        raise ValueError(f'unknown window: {name!r}')
+    return w.astype(np.float32)
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Audio/feature settings; the defaults are ``configs/audio/
+    standard_16k.yaml`` of the JAX package (16 kHz, 20 ms Hamming window,
+    10 ms hop)."""
+    sample_rate: int = 16000
+    window_size: float = 0.02     # seconds
+    window_stride: float = 0.01   # seconds
+    window: str = 'hamming'
+
+    @property
+    def window_size_samples(self) -> int:
+        return int(self.sample_rate * self.window_size)
+
+    @property
+    def hop_samples(self) -> int:
+        return int(self.sample_rate * self.window_stride)
+
+    @property
+    def n_fft(self) -> int:
+        return 2 ** math.ceil(math.log2(self.window_size_samples))
+
+
+def num_frames(num_samples: int, hop: int) -> int:
+    """Frame count for a centre-padded STFT: 1 + floor(T / hop)."""
+    return 1 + num_samples // hop
+
+
+class SpectrogramFrontend(nn.Module):
+    """Log-mel extractor: ``forward(audio [B, T], sample_lengths [B])``
+    returns ``(features [B, n_frames, n_mels], frame_lengths [B])``.
+
+    The DFT bases and the filterbank are buffers, so ``.to(device)`` moves
+    them with the module.
+    """
+
+    def __init__(self, audio_conf: AudioConfig = AudioConfig(),
+                 n_mels: int = 64, dither: float = DITHER,
+                 device: str | torch.device = 'cpu'):
+        super().__init__()
+        self.conf = audio_conf
+        self.n_mels = n_mels
+        self.dither = dither
+        self.hop = audio_conf.hop_samples
+        self.n_fft = n_fft = audio_conf.n_fft
+        win_len = audio_conf.window_size_samples
+
+        window = get_window(audio_conf.window, win_len)
+        # Centre the window inside the n_fft frame (torch.stft semantics
+        # when win_length < n_fft).
+        left = (n_fft - win_len) // 2
+        padded = np.zeros(n_fft, dtype=np.float32)
+        padded[left:left + win_len] = window
+        # Windowed real DFT bases: frames @ dft_re == Re rfft(frames * window).
+        k = np.arange(n_fft)[:, None]
+        f = np.arange(1 + n_fft // 2)[None, :]
+        ang = 2.0 * np.pi * k * f / n_fft
+        dft_re = (np.cos(ang) * padded[:, None]).astype(np.float32)
+        dft_im = (-np.sin(ang) * padded[:, None]).astype(np.float32)
+        fb_t = mel_filterbank(audio_conf.sample_rate, n_fft, n_mels).T.copy()
+
+        self.register_buffer('window', torch.from_numpy(padded).to(device))
+        self.register_buffer('dft_re', torch.from_numpy(dft_re).to(device))
+        self.register_buffer('dft_im', torch.from_numpy(dft_im).to(device))
+        self.register_buffer('fb_t', torch.from_numpy(fb_t).to(device))
+
+    def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
+        return 1 + sample_lengths.to(torch.int32) // self.hop
+
+    def center_pad(self, audio: torch.Tensor,
+                   sample_lengths: torch.Tensor) -> torch.Tensor:
+        """Reflect-pad each row by n_fft // 2 at its own length:
+        ``[B, T]`` -> ``[B, T + n_fft]``. The left edge reflects the row's
+        start; samples ``L .. L + pad - 1`` (after the left pad) become the
+        reflection of the row about its last valid sample ``L - 1``."""
+        B, _ = audio.shape
+        pad = self.n_fft // 2
+        left = audio[:, 1:pad + 1].flip(1)
+        base = torch.cat([left, audio, audio.new_zeros(B, pad)], dim=1)
+        L = sample_lengths.to(torch.int64)[:, None]
+        p = L + torch.arange(pad, device=audio.device)[None, :]
+        period = torch.clamp(2 * L - 2, min=1)
+        m = p % period
+        # Reflected index, clamped into the row as an out-of-range gather
+        # is in JAX (only reachable for an empty row).
+        ref_idx = ((L - 1) - (m - (L - 1)).abs()).clamp(min=0)
+        right = torch.gather(audio, 1, ref_idx)
+        return base.scatter(1, pad + p, right)
+
+    def forward(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """``generator`` enables dithering (training); evaluation passes
+        none."""
+        return self.normalize(self.log_mel(audio, sample_lengths, generator),
+                              sample_lengths)
+
+    def log_mel(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Raw log-mel features [B, n_frames, n_mels], before
+        normalisation (padding frames not yet zeroed)."""
+        padded = self.prepare(audio, sample_lengths, generator)
+        return stft_mel_log(padded, num_frames(audio.shape[1], self.hop),
+                            self.hop, self.dft_re, self.dft_im, self.fb_t)
+
+    def prepare(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Dither (with a generator), pre-emphasis and centre padding:
+        ``[B, T]`` -> the ``[B, T + n_fft]`` input of kernel K1."""
+        audio = audio.to(torch.float32)
+        B, T = audio.shape
+        sample_lengths = sample_lengths.to(device=audio.device,
+                                           dtype=torch.int32)
+        if generator is not None and self.dither > 0:
+            valid = (torch.arange(T, device=audio.device)[None, :]
+                     < sample_lengths[:, None])
+            noise = torch.randn(audio.shape, generator=generator,
+                                device=audio.device)
+            audio = audio + self.dither * noise * valid
+
+        # Pre-emphasis: x[t] - 0.97 * x[t-1], first sample unchanged.
+        audio = torch.cat([audio[:, :1],
+                           audio[:, 1:] - PREEMPH * audio[:, :-1]], dim=1)
+        return self.center_pad(audio, sample_lengths)
+
+    def normalize(self, feats: torch.Tensor, sample_lengths: torch.Tensor):
+        """Per-feature normalisation of raw log-mel ``feats`` over each
+        sample's valid frames (unbiased std), then padding frames zeroed.
+        Returns ``(features, frame_lengths)``."""
+        flens = self.frame_lengths(sample_lengths.to(feats.device))
+        mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
+                < flens[:, None])
+        maskf = mask[:, :, None].to(feats.dtype)
+        count = torch.clamp(flens, min=1).to(feats.dtype)[:, None, None]
+        mean = torch.sum(feats * maskf, dim=1, keepdim=True) / count
+        var = torch.sum((feats - mean) ** 2 * maskf, dim=1,
+                        keepdim=True) / torch.clamp(count - 1.0, min=1.0)
+        feats = (feats - mean) / (torch.sqrt(var) + NORM_EPS)
+        return feats * maskf, flens

@@ -1,0 +1,124 @@
+"""Wav2Letter: a 1-D convolutional CTC acoustic model (PyTorch).
+
+Same model as ``wav2letter_pytorch_tpu.models.wav2letter``: ``mid_layers``
+blocks of reflect-SAME padding -> Conv1d -> BatchNorm (torch momentum 0.9,
+eps 1e-3) -> clamp(0, 20), then a 1x1 conv head to the labels and
+log_softmax. ``out_lengths = input_lengths // prod(strides)``. Evaluation
+only so far: dropout (a no-op in eval mode) comes with training.
+
+The public layout is the JAX one, ``[B, T, F]`` in and ``[B, T', L]`` out;
+inside, activations are ``[B, C, T]`` for ``F.conv1d``. Parameter keys are
+the reference torch layout (``conv1ds.conv1d_{i}.conv1.*``,
+``conv1ds.conv1d_{i}.batch_norm.*``, head ``conv1ds.conv1d_{mid}.conv1.*``),
+which ``weights.state_dict_from_flax`` produces from a JAX checkpoint.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .base import hardtanh_0_20, same_pad_amount
+
+# configs/model/wav2letter.yaml of the JAX package: the full 20-layer stack.
+WAV2LETTER_LAYERS = (
+    dict(output_size=256, kernel_size=11, stride=2, dilation=1, dropout=0.2),
+    dict(output_size=256, kernel_size=11, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=256, kernel_size=11, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=256, kernel_size=11, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=384, kernel_size=13, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=384, kernel_size=13, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=384, kernel_size=13, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=512, kernel_size=17, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=512, kernel_size=17, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=512, kernel_size=17, stride=1, dilation=1, dropout=0.2),
+    dict(output_size=640, kernel_size=21, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=640, kernel_size=21, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=640, kernel_size=21, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=768, kernel_size=25, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=768, kernel_size=25, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=768, kernel_size=25, stride=1, dilation=1, dropout=0.3),
+    dict(output_size=896, kernel_size=29, stride=1, dilation=2, dropout=0.4),
+    dict(output_size=896, kernel_size=29, stride=1, dilation=2, dropout=0.4),
+    dict(output_size=896, kernel_size=29, stride=1, dilation=2, dropout=0.4),
+    dict(output_size=1024, kernel_size=1, stride=1, dilation=1, dropout=0.4),
+)
+
+
+class Conv1dBlock(nn.Module):
+    """Reflect-pad SAME conv block with BN and clamp, on [B, C, T]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, use_bn: bool = True,
+                 use_activation: bool = True):
+        super().__init__()
+        self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
+                                                        dilation)
+        self.use_activation = use_activation
+        self.conv1 = nn.Conv1d(in_channels, out_channels, kernel_size,
+                               stride=stride, dilation=dilation)
+        # torch's momentum is the weight of the NEW batch statistics.
+        self.batch_norm = (nn.BatchNorm1d(out_channels, momentum=0.9,
+                                          eps=1e-3) if use_bn else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        left, right = same_pad_amount(x.shape[-1], self.kernel_size,
+                                      self.stride, self.dilation)
+        if left or right:
+            x = F.pad(x, (left, right), mode='reflect')
+        x = self.conv1(x)
+        if self.batch_norm is not None:
+            x = self.batch_norm(x)
+        if self.use_activation:
+            x = hardtanh_0_20(x)
+        return x
+
+
+class Wav2Letter(nn.Module):
+    """Wav2Letter conv stack -> log_softmax over labels.
+
+    ``layers`` is the full layer spec, truncated to ``mid_layers`` blocks
+    before the 1x1 head. With a ``generator``, conv weights are drawn
+    xavier-uniform from it and biases start at zero (the JAX package's
+    default init); the module is built on the CPU and then moved to
+    ``device``.
+    """
+
+    def __init__(self, num_labels: int, input_size: int = 64,
+                 layers=WAV2LETTER_LAYERS, mid_layers: int = 20,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device = 'cpu'):
+        super().__init__()
+        specs = list(layers)[:mid_layers]
+        blocks = []
+        cin = input_size
+        for i, spec in enumerate(specs):
+            blocks.append((f'conv1d_{i}', Conv1dBlock(
+                cin, int(spec['output_size']), int(spec['kernel_size']),
+                stride=int(spec.get('stride', 1)),
+                dilation=int(spec.get('dilation', 1)))))
+            cin = int(spec['output_size'])
+        blocks.append((f'conv1d_{len(specs)}', Conv1dBlock(
+            cin, num_labels, 1, use_bn=False, use_activation=False)))
+        self.conv1ds = nn.Sequential(OrderedDict(blocks))
+        self.scaling_factor = 1
+        for spec in specs:
+            self.scaling_factor *= int(spec.get('stride', 1))
+        if generator is not None:
+            for block in self.conv1ds:
+                nn.init.xavier_uniform_(block.conv1.weight,
+                                        generator=generator)
+                nn.init.zeros_(block.conv1.bias)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor, input_lengths=None):
+        """x: [B, T, F] features. Returns (log_probs [B, T', L],
+        out_lengths [B] int32 or None)."""
+        y = self.conv1ds(x.transpose(1, 2))
+        log_probs = F.log_softmax(y.transpose(1, 2).contiguous(), dim=-1)
+        if input_lengths is None:
+            return log_probs, None
+        return log_probs, input_lengths.to(torch.int32) // self.scaling_factor
