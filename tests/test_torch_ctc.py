@@ -19,6 +19,7 @@ from wav2letter_pytorch_tpu.ops.ctc_pallas import ctc_loss_pallas
 from wav2letter_pytorch_tpu_torch.ops.ctc import ctc_loss
 from wav2letter_pytorch_tpu_torch.ops.ctc_kernel import (ctc_alpha,
                                                          ctc_alpha_reference,
+                                                         ctc_beta,
                                                          ctc_loss_kernel)
 
 torch.set_num_threads(1)
@@ -136,11 +137,18 @@ def test_plain_k2_float64_oracle():
 
 
 def test_k2_wrapper_refuses_gradients_and_counts_only_launches():
+    """``ctc_alpha`` itself carries no gradient: gradients go through the
+    ``CTCLoss`` Function of ``ctc_loss_kernel`` (K2 forward, K3 backward).
+    Plain runs on the CPU are not counted as launches."""
     lp, ll, tg, tl = _case(np.random.default_rng(5))
     x = torch.from_numpy(lp).requires_grad_()
-    with pytest.raises(NotImplementedError, match='no backward'):
-        ctc_alpha(x, torch.from_numpy(ll), torch.from_numpy(tg),
-                  torch.from_numpy(tl))
-    before = ctc_alpha.launches
+    args = (torch.from_numpy(ll), torch.from_numpy(tg), torch.from_numpy(tl))
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    nll = ctc_alpha(x, *args)
+    assert nll.grad_fn is None and not nll.requires_grad
+    loss = ctc_loss_kernel(x, *args)
+    assert loss.grad_fn is not None
+    loss.backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     _port(ctc_alpha, lp, ll, tg, tl)
-    assert ctc_alpha.launches == before  # plain path on the CPU
+    assert (ctc_alpha.launches, ctc_beta.launches) == before

@@ -109,6 +109,35 @@ def test_loader_matches_jax_loader(corpus, frame_hop, num_buckets,
                     assert a[k] == b[k], k
 
 
+@pytest.mark.parametrize('seed,drop_last', [(0, False), (0, True),
+                                            (3, False), (3, True)])
+def test_shuffled_epochs_match_jax_loader(corpus, seed, drop_last):
+    """Epochs 0..2 shuffled: the same samples in the same batches as the
+    JAX loader, peek_batch included (exact: both shuffle with numpy)."""
+    jsonl, _, _ = corpus
+    ours = BucketBatchLoader(
+        ManifestDataset(str(jsonl), SR, 'english_lowercase'), 2, 160,
+        num_buckets=2, prefetch=0, shuffle=True, seed=seed,
+        drop_last=drop_last)
+    ref = JaxLoader(
+        JaxDataset(str(jsonl), {'sample_rate': SR}, 'english_lowercase'), 2,
+        num_buckets=2, frame_hop=160, prefetch=0, shuffle=True, seed=seed,
+        drop_last=drop_last)
+    orders = []
+    for _ in range(3):
+        np.testing.assert_array_equal(ours.peek_batch()['audio'],
+                                      ref.peek_batch()['audio'])
+        got, want = list(ours), list(ref)
+        assert [b['paths'] for b in got] == [b['paths'] for b in want]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a['audio'], b['audio'])
+            np.testing.assert_array_equal(a['batch_mask'], b['batch_mask'])
+        assert all(b['batch_mask'].min() == 1 for b in got) or not drop_last
+        orders.append([p for b in got for p in b['paths']])
+    assert ours.epoch == ref.epoch == 3
+    assert orders[0] != orders[1]  # each epoch its own order
+
+
 def test_prefetch_thread_yields_the_same_batches(corpus):
     jsonl, _, _ = corpus
     ds = ManifestDataset(str(jsonl), SR, 'english_lowercase')

@@ -35,7 +35,8 @@ def _port_sources():
 def test_every_module_imports_with_the_jax_package_blocked():
     """A None entry in sys.modules makes any import of that name fail."""
     mods = _port_modules() + ['chip_smoke']
-    assert 'wav2letter_pytorch_tpu_torch.evaluate' in mods
+    assert {'wav2letter_pytorch_tpu_torch.evaluate',
+            'wav2letter_pytorch_tpu_torch.train'} <= set(mods)
     code = ('import sys\n'
             f'for name in {FORBIDDEN!r}:\n'
             '    sys.modules[name] = None\n'
@@ -73,7 +74,7 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
 
 
 def test_kernel_sources_and_build_hash():
-    assert _build.kernel_sources() == ['ctc_alpha', 'stft_mel']
+    assert _build.kernel_sources() == ['ctc_alpha', 'ctc_beta', 'stft_mel']
     a = _build._library_path('stft_mel')
     b = _build._library_path('ctc_alpha')
     assert a != b and a.startswith(_build.BUILD_DIR)

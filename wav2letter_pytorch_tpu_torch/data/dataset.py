@@ -102,14 +102,27 @@ class BucketBatchLoader:
     ``audio_lengths`` [B] i32, ``targets`` [B, S] i32 (zero-padded),
     ``target_lengths`` [B] i32, ``batch_mask`` [B] f32, plus the host-side
     lists ``texts`` and ``paths``.
+
+    With ``shuffle``, epoch ``e`` visits the samples in the order
+    ``np.random.default_rng(seed + e).shuffle`` gives, as the JAX loader
+    does, so both see the same batches (``tests/test_torch_data.py``).
+    ``epoch`` is the epoch the next ``iter()`` runs (each ``iter()``
+    advances it); a resumed run sets it. ``drop_last`` drops each bucket's
+    short final batch.
     """
 
     def __init__(self, dataset: ManifestDataset, batch_size: int,
                  frame_hop: int, num_buckets: int = 4,
-                 max_duration: float | None = None, prefetch: int = 2):
+                 max_duration: float | None = None, prefetch: int = 2,
+                 shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.prefetch = prefetch
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
 
         metas = [dataset.sample_meta(i) for i in range(len(dataset))]
         self.lengths = np.array([m[0] for m in metas], dtype=np.int64)
@@ -139,17 +152,21 @@ class BucketBatchLoader:
         return len(self.bucket_edges) - 1
 
     def __len__(self):
-        return sum(1 for _ in self._batch_indices())
+        """Batch count of the first epoch's order (metadata only)."""
+        return sum(1 for _ in self._batch_indices(0))
 
-    def _batch_indices(self):
+    def _batch_indices(self, epoch: int):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
         buckets: dict[int, list[int]] = {}
-        for idx in range(len(self.dataset)):
+        for idx in order:
             b = self._bucket_of(int(self.lengths[idx]))
-            buckets.setdefault(b, []).append(idx)
+            buckets.setdefault(b, []).append(int(idx))
             if len(buckets[b]) == self.batch_size:
                 yield b, buckets.pop(b)
         for b, rest in sorted(buckets.items()):
-            if rest:
+            if rest and not self.drop_last:
                 yield b, rest
 
     def _make_batch(self, bucket: int, indices: list[int]):
@@ -185,18 +202,30 @@ class BucketBatchLoader:
                     target_lengths=target_lengths, batch_mask=batch_mask,
                     texts=texts, paths=paths)
 
+    def peek_batch(self):
+        """First batch of the upcoming epoch, without advancing ``epoch``
+        or starting the prefetch thread; None for an empty loader."""
+        for b, idxs in self._batch_indices(self.epoch):
+            return self._make_batch(b, idxs)
+        return None
+
     def __iter__(self):
+        epoch = self.epoch
+        self.epoch += 1
         if self.prefetch <= 0:
-            for b, idxs in self._batch_indices():
+            for b, idxs in self._batch_indices(epoch):
                 yield self._make_batch(b, idxs)
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
+        closed = threading.Event()
 
         def worker():
             try:
-                for b, idxs in self._batch_indices():
+                for b, idxs in self._batch_indices(epoch):
+                    if closed.is_set():
+                        return
                     q.put(self._make_batch(b, idxs))
                 q.put(stop)
             except BaseException as e:  # re-raised on the consumer side
@@ -204,12 +233,20 @@ class BucketBatchLoader:
 
         thread = threading.Thread(target=worker, daemon=True)
         thread.start()
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            if isinstance(item, BaseException):
-                thread.join()
-                raise item
-            yield item
-        thread.join()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # Also on an early close(): unblock the worker and wait for it.
+            closed.set()
+            while thread.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()

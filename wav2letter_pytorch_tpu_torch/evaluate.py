@@ -25,41 +25,16 @@ from .data.features import AudioConfig, SpectrogramFrontend
 from .data.label_sets import resolve_labels
 from .decoding.decoder import GreedyDecoder
 from .models.wav2letter import WAV2LETTER_LAYERS, Wav2Letter
-from .ops.ctc_kernel import ctc_loss_kernel
 from .runtime import resolve_device
 from .training.metrics import RatioAccumulator
+from .training.trainer import eval_step, masked_ctc_mean, to_device
+
+__all__ = ['build', 'evaluate', 'eval_step', 'main', 'make_loader',
+           'masked_ctc_mean', 'to_device']
 
 LABELS = 'english_lowercase'
 N_MELS = 64
 MAX_DURATION = 16.7  # seconds: cap on the padded audio length
-
-
-def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
-                    batch_mask):
-    """torch 'mean' CTC reduction restricted to real (unmasked) rows."""
-    per = ctc_loss_kernel(log_probs, out_lens, targets, target_lengths,
-                          reduction='none')
-    tl = torch.clamp(target_lengths, min=1).to(torch.float32)
-    weighted = per / tl * batch_mask
-    return torch.sum(weighted) / torch.clamp(torch.sum(batch_mask), min=1.0)
-
-
-@torch.no_grad()
-def eval_step(model: Wav2Letter, frontend: SpectrogramFrontend, batch):
-    """One batch of tensors on the device -> (loss, argmax ids [B, T'] int32,
-    out_lens [B])."""
-    feats, flens = frontend(batch['audio'], batch['audio_lengths'])
-    log_probs, out_lens = model(feats, flens)
-    loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
-                           batch['target_lengths'], batch['batch_mask'])
-    ids = torch.argmax(log_probs, dim=-1).to(torch.int32)
-    return loss, ids, out_lens
-
-
-def to_device(batch: dict, device: torch.device) -> dict:
-    """The numpy arrays of a loader batch as tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
-            if isinstance(v, np.ndarray)}
 
 
 def make_loader(manifest: str, batch_size: int, frontend: SpectrogramFrontend,

@@ -2,9 +2,16 @@
 
 Same model as ``wav2letter_pytorch_tpu.models.wav2letter``: ``mid_layers``
 blocks of reflect-SAME padding -> Conv1d -> BatchNorm (torch momentum 0.9,
-eps 1e-3) -> clamp(0, 20), then a 1x1 conv head to the labels and
-log_softmax. ``out_lengths = input_lengths // prod(strides)``. Evaluation
-only so far: dropout (a no-op in eval mode) comes with training.
+eps 1e-3) -> dropout -> clamp(0, 20), then a 1x1 conv head to the labels
+and log_softmax. ``out_lengths = input_lengths // prod(strides)``.
+
+Train mode (``model.train()``) follows flax: BatchNorm normalises with the
+biased batch variance and updates its running statistics as
+``0.1 * old + 0.9 * batch`` with that same biased variance (torch's own
+``BatchNorm1d`` would store the unbiased one); dropout keeps each
+activation with probability ``1 - rate``, scales it by ``1 / (1 - rate)``,
+and draws from the ``generator`` passed to ``forward`` (``rate == -1``
+disables it). In eval mode both are as in torch.
 
 The public layout is the JAX one, ``[B, T, F]`` in and ``[B, T', L]`` out;
 inside, activations are ``[B, C, T]`` for ``F.conv1d``. Parameter keys are
@@ -48,23 +55,54 @@ WAV2LETTER_LAYERS = (
 )
 
 
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``BatchNorm1d`` (same parameters, buffers and state-dict keys) whose
+    train-mode running statistics follow flax: the biased batch variance,
+    the one it normalises with, goes into ``running_var``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
+            # torch's momentum is the weight of the NEW batch statistics.
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    the kept values by ``1 / (1 - rate)``; the mask is drawn from
+    ``generator`` (torch's default generator when None)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class Conv1dBlock(nn.Module):
-    """Reflect-pad SAME conv block with BN and clamp, on [B, C, T]."""
+    """Reflect-pad SAME conv block with BN, dropout and clamp, on
+    [B, C, T]."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, dilation: int = 1, use_bn: bool = True,
-                 use_activation: bool = True):
+                 stride: int = 1, dilation: int = 1, dropout: float = -1.0,
+                 use_bn: bool = True, use_activation: bool = True):
         super().__init__()
         self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
                                                         dilation)
+        self.dropout = dropout
         self.use_activation = use_activation
         self.conv1 = nn.Conv1d(in_channels, out_channels, kernel_size,
                                stride=stride, dilation=dilation)
-        # torch's momentum is the weight of the NEW batch statistics.
-        self.batch_norm = (nn.BatchNorm1d(out_channels, momentum=0.9,
-                                          eps=1e-3) if use_bn else None)
+        self.batch_norm = (FlaxBatchNorm1d(out_channels, momentum=0.9,
+                                           eps=1e-3) if use_bn else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         left, right = same_pad_amount(x.shape[-1], self.kernel_size,
                                       self.stride, self.dilation)
         if left or right:
@@ -72,6 +110,8 @@ class Conv1dBlock(nn.Module):
         x = self.conv1(x)
         if self.batch_norm is not None:
             x = self.batch_norm(x)
+        if self.training and self.dropout != -1 and self.dropout > 0:
+            x = dropout(x, self.dropout, generator)
         if self.use_activation:
             x = hardtanh_0_20(x)
         return x
@@ -99,7 +139,8 @@ class Wav2Letter(nn.Module):
             blocks.append((f'conv1d_{i}', Conv1dBlock(
                 cin, int(spec['output_size']), int(spec['kernel_size']),
                 stride=int(spec.get('stride', 1)),
-                dilation=int(spec.get('dilation', 1)))))
+                dilation=int(spec.get('dilation', 1)),
+                dropout=float(spec.get('dropout', -1.0)))))
             cin = int(spec['output_size'])
         blocks.append((f'conv1d_{len(specs)}', Conv1dBlock(
             cin, num_labels, 1, use_bn=False, use_activation=False)))
@@ -114,10 +155,14 @@ class Wav2Letter(nn.Module):
                 nn.init.zeros_(block.conv1.bias)
         self.to(device)
 
-    def forward(self, x: torch.Tensor, input_lengths=None):
+    def forward(self, x: torch.Tensor, input_lengths=None,
+                generator: torch.Generator | None = None):
         """x: [B, T, F] features. Returns (log_probs [B, T', L],
-        out_lengths [B] int32 or None)."""
-        y = self.conv1ds(x.transpose(1, 2))
+        out_lengths [B] int32 or None). ``generator`` feeds dropout in
+        train mode."""
+        y = x.transpose(1, 2)
+        for block in self.conv1ds:
+            y = block(y, generator)
         log_probs = F.log_softmax(y.transpose(1, 2).contiguous(), dim=-1)
         if input_lengths is None:
             return log_probs, None

@@ -7,8 +7,9 @@ near +1e30 (``NEG_INF`` is finite) and ``zero_infinity`` zeroes anything
 at or above 0.5e30; 'mean' divides each loss by max(target_length, 1) and
 averages over the batch.
 
-This is the plain version of kernel K2 (``ops/ctc_kernel.py``): a Python
-loop over time, run on whatever device its inputs are on.
+This is the plain version of kernels K2 (``ctc_forward_alphas``) and K3
+(``ctc_beta_reference``) of ``ops/ctc_kernel.py``: Python loops over time,
+run on whatever device their inputs are on.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ def _extend_targets(targets: torch.Tensor, blank: int):
 
 def ctc_forward_alphas(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
                        targets: torch.Tensor, target_lengths: torch.Tensor,
-                       blank: int = 0):
+                       blank: int = 0, return_all: bool = False):
     """Alpha recursion; returns the final alphas [B, 2S+1]: row b holds
     log alpha at step ``logit_lengths[b] - 1`` (updates freeze once t
-    passes each sample's length).
+    passes each sample's length). With ``return_all``, returns
+    ``(final, alphas)`` where ``alphas`` [B, T, 2S+1] holds every step's
+    alphas (rows past a sample's length repeat its final alphas).
     """
     B, T, _ = log_probs.shape
     targets = targets.to(torch.int64)
@@ -68,6 +71,7 @@ def ctc_forward_alphas(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
                                   torch.full_like(lp0[:, 1], NEG_INF))
     neg = torch.full((B, 1), NEG_INF, dtype=log_probs.dtype,
                      device=log_probs.device)
+    every = [alpha]
     for t in range(1, T):
         lp_ext = gather_ext(log_probs[:, t])
         shift1 = torch.cat([neg, alpha[:, :-1]], dim=1)
@@ -76,7 +80,66 @@ def ctc_forward_alphas(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
                                                                  NEG_INF))
         new = torch.logaddexp(torch.logaddexp(alpha, shift1), shift2) + lp_ext
         alpha = torch.where((t < logit_lengths)[:, None], new, alpha)
+        every.append(alpha)
+    if return_all:
+        return alpha, torch.stack(every, dim=1)
     return alpha
+
+
+def ctc_beta_reference(log_probs: torch.Tensor, alphas: torch.Tensor,
+                       neg_log_lik: torch.Tensor, logit_lengths: torch.Tensor,
+                       targets: torch.Tensor, target_lengths: torch.Tensor,
+                       grad_nll: torch.Tensor, blank: int = 0) -> torch.Tensor:
+    """Plain version of kernel K3: d(loss)/d``log_probs`` [B, T, L] for a
+    per-sample loss ``neg_log_lik`` [B] (= -log Z, from the alphas
+    [B, T, 2S+1] of ``ctc_forward_alphas(..., return_all=True)``) with
+    upstream gradient ``grad_nll`` [B].
+
+    Reverse recursion from each row's last frame ``logit_lengths[b] - 1``:
+    beta starts at 0 on the read positions (final blank 2S_b, final label
+    2S_b - 1 when S_b > 0) and
+    ``beta_t[s] = logaddexp(logaddexp(beta_{t+1}[s] + e_{t+1}(s),
+    beta_{t+1}[s+1] + e_{t+1}(s+1)), skip[s+2] ? beta_{t+1}[s+2] +
+    e_{t+1}(s+2) : NEG_INF)``. The occupation posterior
+    ``gamma_t(s) = exp(alpha_t(s) + beta_t(s) + nll)`` is d log Z / d
+    e_t(s); summed over the lattice positions of each label it gives
+    d log Z / d log_probs[t, label], and the result is ``-grad_nll`` times
+    that. Frames at or past a row's length get zero, and so does every
+    frame of a row whose ``grad_nll`` is 0 (a ``zero_infinity`` row):
+    gamma is never multiplied into 0 * inf.
+    """
+    B, T, L = log_probs.shape
+    dev, dtype = log_probs.device, log_probs.dtype
+    targets = targets.to(device=dev, dtype=torch.int64)
+    ext, allow_skip = _extend_targets(targets, blank)
+    N = ext.shape[1]
+    tl = target_lengths.to(device=dev, dtype=torch.int64)
+    last = torch.clamp(logit_lengths.to(device=dev, dtype=torch.int64),
+                       1, T) - 1
+    pos = torch.arange(N, device=dev)[None, :]
+    final_sel = (pos == 2 * tl[:, None]) | ((pos == 2 * tl[:, None] - 1)
+                                            & (tl > 0)[:, None])
+    beta = torch.where(final_sel, torch.zeros((), dtype=dtype, device=dev),
+                       torch.full((), NEG_INF, dtype=dtype, device=dev))
+    logz = -neg_log_lik.to(dtype)
+    live = (grad_nll != 0).to(device=dev)
+    neg = torch.full((B, 1), NEG_INF, dtype=dtype, device=dev)
+    neg_b = torch.full_like(beta, NEG_INF)
+    grad = torch.zeros((B, T, L), dtype=dtype, device=dev)
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            u = beta + torch.gather(log_probs[:, t + 1], 1, ext)
+            s1 = torch.cat([u[:, 1:], neg], dim=1)
+            s2 = torch.cat([torch.where(allow_skip, u, neg_b)[:, 2:], neg,
+                            neg], dim=1)
+            new = torch.logaddexp(torch.logaddexp(u, s1), s2)
+            beta = torch.where((t < last)[:, None], new, beta)
+        gamma = torch.exp(alphas[:, t] + beta - logz[:, None])
+        gamma = torch.where(((t <= last) & live)[:, None], gamma,
+                            torch.zeros_like(gamma))
+        grad[:, t] = torch.zeros((B, L), dtype=dtype, device=dev).scatter_add(
+            1, ext, gamma)
+    return -(grad_nll.to(dtype)[:, None, None] * grad)
 
 
 def read_neg_log_likelihood(final: torch.Tensor,
