@@ -40,10 +40,25 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    must fall below 0.7x its first value within a stated number of steps.
 10. Train-step time and utterances per second at B=32 of ~8 s, peak
    memory, and a profiler breakdown with the device-busy share.
-11. One ``{"kernels": [...]}`` line: per kernel its launches on the
-   training path, max error against the plain version, time, plain time,
-   roofline bound and the time of the nearest single PyTorch call (timed
-   here only).
+11. K4/K5 (depthwise forward, input and weight gradient) against their
+   plain versions and a float64 oracle on the TPU check grid and the
+   QuartzNet main path's C1 shape; K6/K7 (fused separable unit, forward and
+   the three gradients) likewise, with ragged lengths, masks on and off,
+   on the TPU grid and the QuartzNet main path's unit shapes.
+12. QuartzNet-15x5 eval: ``evaluate.main model=quartznet`` at full width on
+   the same 64 WAVs, B=32, seeded weights; per forward K4 must launch once
+   and K6 76 times; the card's eval step against the CPU's.
+13. QuartzNet-15x5 training: ``train.main model=quartznet
+   optimizer=novograd``, 4 steps over 2 epochs, then ``--resume`` for 2
+   more; K1-K7 must launch. One full-width train step on the card against
+   a CPU float64 step on the card's ReLU branches; the loss falls on a
+   repeated batch.
+14. QuartzNet eval-step and train-step time, utterances per second, peak
+   memory and profiler breakdown.
+15. One ``{"kernels": [...]}`` line: per kernel its launches on the
+   training path (K1-K3 Wav2Letter's, K4-K7 QuartzNet's), max error
+   against the plain version, time, plain time, roofline bound and the time
+   of the nearest PyTorch library call (timed here only).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 before printing any result.
@@ -56,6 +71,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,12 +87,25 @@ from wav2letter_pytorch_tpu_torch.config import load_config
 from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
+from wav2letter_pytorch_tpu_torch.models.base import get_same_padding
+from wav2letter_pytorch_tpu_torch.models.jasper import Activation
 from wav2letter_pytorch_tpu_torch.ops.ctc import (ctc_beta_reference,
                                                   ctc_loss, reduce_ctc)
 from wav2letter_pytorch_tpu_torch.ops.ctc_kernel import (ctc_alpha,
                                                          ctc_alpha_reference,
                                                          ctc_beta,
                                                          ctc_loss_kernel)
+from wav2letter_pytorch_tpu_torch.ops.depthwise import (
+    depthwise_dgrad, depthwise_fwd, depthwise_fwd_reference, depthwise_wgrad,
+    depthwise_wgrad_reference)
+from wav2letter_pytorch_tpu_torch.ops.depthwise import \
+    out_length as dw_out_length
+from wav2letter_pytorch_tpu_torch.ops.sep_conv import (mask_lengths, sep_bwd,
+                                                       sep_bwd_reference,
+                                                       sep_fwd,
+                                                       sep_fwd_reference)
+from wav2letter_pytorch_tpu_torch.ops.sep_conv import \
+    out_length as sep_out_length
 from wav2letter_pytorch_tpu_torch.optim import constant_lr
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          build_labels,
@@ -109,6 +138,37 @@ K3_RTOL = 1e-5
 # the float32 recursion itself is 1.0e-3 off at the main path and 2.5e-3 at
 # T=800 (H100; on the grid the plain version on the CPU reads the same).
 K3_ORACLE_RTOL = 5e-3
+# K4-K7 against their plain versions, max |d| / max |plain| of each output
+# (y, dx, dw; dwdw, dwpw): the same float32 arithmetic in other orders
+# (FMA chains and fixed-order partial sums in the kernels).
+SEP_DW_RTOL = 1e-5
+# ... and against a float64 oracle (the plain version in float64, its
+# gradients by autograd): the float32 plain version's own error there, on
+# the CPU (tools/plain_oracle_errors.py), is at most 4.09e-7 (K4/K5) and
+# 8.45e-7 (K6/K7) over these grids; the gates leave 10x for the kernels'
+# summation orders.
+DW_PLAIN_ORACLE, SEP_PLAIN_ORACLE = 4.1e-7, 8.5e-7
+DW_ORACLE_RTOL = 10 * DW_PLAIN_ORACLE
+SEP_ORACLE_RTOL = 10 * SEP_PLAIN_ORACLE
+# (B, T, C, K, stride, dilation): scripts/run_tpu_checks.py's depthwise
+# grid, then QuartzNet's C1 at the main path (64 mels, 808 frames).
+DW_GRID = [(4, 400, 256, 33, 1, 1), (4, 400, 512, 74, 1, 1),
+           (4, 801, 64, 33, 2, 1), (2, 400, 512, 87, 1, 2)]
+DW_MAIN = (32, 808, 64, 33, 2, 1)
+# (B, T, Cin, Cout, K, dilation): run_tpu_checks.py's separable grid, then
+# QuartzNet's unit shapes at the main path (B1/B2, B3's first, B5, C2).
+SEP_GRID = [(4, 400, 256, 256, 33, 1), (4, 400, 512, 512, 74, 1),
+            (2, 400, 512, 512, 87, 2)]
+SEP_MAIN = [(32, 404, 256, 256, 33, 1), (32, 404, 256, 512, 51, 1),
+            (32, 404, 512, 512, 75, 1), (32, 404, 512, 512, 87, 2)]
+# QuartzNet-15x5's K6 units per forward at B=32, T=404: (Cin, Cout, K,
+# dilation) -> count; 76 in all.
+SEP_PATH_UNITS = {(256, 256, 33, 1): 15, (256, 256, 39, 1): 15,
+                  (256, 512, 51, 1): 1, (512, 512, 51, 1): 14,
+                  (512, 512, 63, 1): 15, (512, 512, 75, 1): 15,
+                  (512, 512, 87, 2): 1}
+QN = ['model=quartznet']    # QuartzNet-15x5, all 18 blocks, full width
+QN_UNITS = 76               # K6 launches per QuartzNet forward
 # Card vs CPU train step (full width, B=2 x 1 s): float32 convolutions
 # summed in another order through 20 layers and their backward.
 STEP_LOSS_RTOL = 1e-3
@@ -116,6 +176,17 @@ STEP_UPDATE_RTOL = 1e-3     # relative global norm of the update difference
 MAX_BRANCH_FLIPS = 32       # clamp branches taken differently (of ~1.2 M);
                             # 6 and 11 seen on the H100, ~3x the larger
 STEP_BN_RTOL = 1e-3         # relative global norm of the BN stats difference
+# QuartzNet's update against the float64 step on the card's branches: the
+# float32 floor at this depth is ~1e-3 (9.76e-4 measured on the H100 with
+# NovoGrad, whose per-tensor normalisation gives every tensor's error the
+# same weight), so the gate is relative to the CPU float32 step's own error
+# against float64 on the CPU's branches, measured in the same run.
+JASPER_UPDATE_FLOOR_RATIO = 3.0
+JASPER_UPDATE_RTOL = 1e-2   # and an absolute cap
+# QuartzNet: ReLU branches taken differently on the card and the CPU, as a
+# share of all ReLU inputs (3.3 M at B=2 x 1 s): 105 of them (3.2e-5) on an
+# H100, ~3x Wav2Letter-20's share (6-11 of 1.2 M); the gate leaves ~30x.
+RELU_FLIP_SHARE = 1e-3
 # It trains: AdamW at this lr on one repeated batch, dropout off, a fixed
 # number of steps; the last loss must be below this share of the first.
 OVERFIT_LR, OVERFIT_STEPS, OVERFIT_RATIO = 3e-4, 40, 0.7
@@ -155,21 +226,40 @@ def check(ok: bool, msg: str):
         fail(msg)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls (inputs stay in L2 as they do on the main path,
-    where each kernel's input was written just before)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = True) -> float:
+    """Mean time of ``fn`` in ms, by CUDA events around ``iters`` calls
+    (inputs stay in L2 as they do on the main path, where each kernel's
+    input was written just before). ``queued``: the calls wait behind a
+    ~0.1 s spin of the card (``torch.cuda._sleep``), so every launch is on
+    the stream before the first one runs and the events time the device
+    alone. Back to back (``queued=False``) they also time the host's launch
+    cost wherever a call's host side takes longer than its kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_rows(prof) -> list:
+    """Kernel and memcpy rows of a profile: operator rows repeat their
+    kernels' time, and a user annotation's device row (the optimizer's
+    ``Optimizer.step#...`` and ``Optimizer.zero_grad#...``) spans its
+    kernels and the gaps between them."""
+    return [e for e in prof.key_averages()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and getattr(e, 'self_device_time_total', 0) > 0
+            and not getattr(e, 'is_user_annotation', False)
+            and not e.key.startswith(('Optimizer.', 'ProfilerStep'))]
 
 
 def card_line() -> str:
@@ -198,8 +288,18 @@ def phase_build():
     print(f'built {sorted(paths)} in {time.time() - t0:.1f} s')
     for name, path in sorted(paths.items()):
         with open(path + '.log') as f:
-            ptxas = [l.strip() for l in f if 'Used' in l or 'spill' in l]
-        print(f'  {name}: ' + ' | '.join(ptxas))
+            lines = f.read().splitlines()
+        # ptxas -v: "Function properties for <mangled>", its stack and spill
+        # line, then "Used N registers, ... smem"; name each kernel.
+        ptxas = []
+        for line in lines:
+            m = re.search(r'Function properties for '
+                          r'\S*?([a-z][a-z0-9_]*_kernel)', line)
+            if m:
+                ptxas.append(m.group(1) + ':')
+            elif 'Used' in line or 'spill' in line:
+                ptxas.append(line.replace('ptxas info    :', '').strip())
+        print(f'  {name}: ' + ' '.join(ptxas))
     for name in paths:
         _build.load(name)
 
@@ -420,6 +520,122 @@ def phase_k3(k2_main):
     return max(errs)
 
 
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |a - ref| / max |ref| (scale-free)."""
+    return ((a.double() - ref.double()).abs().max()
+            / ref.double().abs().max()).item()
+
+
+def dw_inputs(B, T, C, K, s, d, seed, device):
+    """x [B, T, C], w [K, C], cotangent g [B, T_out, C] (seeded numpy) and
+    the padding."""
+    rng = np.random.default_rng(seed)
+    p = get_same_padding(K, s, d)
+    t_out = dw_out_length(T, K, s, d, p)
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((K, C))).astype(np.float32)
+    g = rng.standard_normal((B, t_out, C)).astype(np.float32)
+    return ([torch.from_numpy(a).to(device) for a in (x, w, g)], p)
+
+
+def dw_plain(x, w, g, s, d, p):
+    """(y, dx, dw) of the plain K4 in x's dtype, gradients by autograd."""
+    x = x.detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    y = depthwise_fwd_reference(x, w, s, d, p)
+    dx, dw = torch.autograd.grad(y, (x, w), g.to(y.dtype))
+    return y.detach(), dx, dw
+
+
+def dw_kernel(x, w, g, s, d, p):
+    """(y, dx, dw) of the wrappers: K4, K4 on the stuffed cotangent, K5."""
+    return (depthwise_fwd(x, w, s, d, p),
+            depthwise_dgrad(g, w, x.shape[1], s, d, p),
+            depthwise_wgrad(x, g, w.shape[0], s, d, p))
+
+
+def phase_k4_k5():
+    errs = {'K4': [], 'K5': []}
+    for i, shape in enumerate(DW_GRID + [DW_MAIN]):
+        B, T, C, K, s, d = shape
+        (x, w, g), p = dw_inputs(*shape, 20 + i, DEVICE)
+        got = dw_kernel(x, w, g, s, d, p)
+        plain = dw_plain(x, w, g, s, d, p)
+        oracle = dw_plain(x.double(), w.double(), g.double(), s, d, p)
+        torch.cuda.synchronize()
+        r = [rel_err(a, b) for a, b in zip(got, plain)]
+        o = [rel_err(a, b) for a, b in zip(got, oracle)]
+        ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
+        errs['K4'] += ab[:2]
+        errs['K5'].append(ab[2])
+        name = 'main path' if shape == DW_MAIN else f'grid{i}'
+        check(max(r) < SEP_DW_RTOL and max(o) < DW_ORACLE_RTOL
+              and all(bool(torch.isfinite(t).all()) for t in got),
+              f'K4/K5 {name} (B,T,C,K,s,d)={shape}: y, dx, dw vs plain '
+              f'{r[0]:.2e} {r[1]:.2e} {r[2]:.2e} (gate {SEP_DW_RTOL}); vs '
+              f'float64 oracle {o[0]:.2e} {o[1]:.2e} {o[2]:.2e} (gate '
+              f'{DW_ORACLE_RTOL})')
+    return max(errs['K4']), max(errs['K5'])
+
+
+def sep_inputs(B, T, Cin, Cout, K, d, seed, device, masked=True):
+    """x, float lens (ragged, with a .5), wdw, wpw, cotangent g, and the
+    padding (seeded numpy)."""
+    rng = np.random.default_rng(seed)
+    p = get_same_padding(K, 1, d)
+    t_out = sep_out_length(T, K, d, p)
+    x = rng.standard_normal((B, T, Cin)).astype(np.float32)
+    wdw = (0.1 * rng.standard_normal((K, Cin))).astype(np.float32)
+    wpw = (rng.standard_normal((Cin, Cout)) / np.sqrt(Cin)).astype(
+        np.float32)
+    g = rng.standard_normal((B, t_out, Cout)).astype(np.float32)
+    lens = (rng.integers(T // 2, T + 1, size=B) + 0.5).astype(np.float32)
+    lens[0] = T
+    t = [torch.from_numpy(a).to(device) for a in (x, wdw, wpw, g)]
+    l1, l2 = (mask_lengths(torch.from_numpy(lens).to(device), K, d, p)
+              if masked else (None, None))
+    return t, l1, l2, p
+
+
+def sep_plain(x, l1, l2, wdw, wpw, g, d, p):
+    """(y, dx, dwdw, dwpw) of the plain K6 in x's dtype, autograd."""
+    ins = [t.detach().requires_grad_() for t in (x, wdw, wpw)]
+    y = sep_fwd_reference(ins[0], l1, l2, ins[1], ins[2], d, p)
+    grads = torch.autograd.grad(y, ins, g.to(y.dtype))
+    return (y.detach(), *grads)
+
+
+def phase_k6_k7():
+    errs = {'K6': [], 'K7': []}
+    cases = ([(sh, m) for sh in SEP_GRID for m in (True, False)]
+             + [(sh, True) for sh in SEP_MAIN])
+    for i, (shape, masked) in enumerate(cases):
+        B, T, Cin, Cout, K, d = shape
+        (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 40 + i, DEVICE,
+                                                 masked)
+        got = (sep_fwd(x, l1, l2, wdw, wpw, d, p),
+               *sep_bwd(x, l1, l2, wdw, wpw, g, d, p))
+        plain = (sep_fwd_reference(x, l1, l2, wdw, wpw, d, p),
+                 *sep_bwd_reference(x, l1, l2, wdw, wpw, g, d, p))
+        oracle = sep_plain(x.double(), l1, l2, wdw.double(), wpw.double(),
+                           g.double(), d, p)
+        torch.cuda.synchronize()
+        r = [rel_err(a, b) for a, b in zip(got, plain)]
+        o = [rel_err(a, b) for a, b in zip(got, oracle)]
+        ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
+        errs['K6'].append(ab[0])
+        errs['K7'] += ab[1:]
+        name = 'main path' if shape in SEP_MAIN else f'grid{i // 2}'
+        check(max(r) < SEP_DW_RTOL and max(o) < SEP_ORACLE_RTOL
+              and all(bool(torch.isfinite(t).all()) for t in got),
+              f'K6/K7 {name} (B,T,Cin,Cout,K,d)={shape} masks '
+              f'{"on" if masked else "off"}: y, dx, dwdw, dwpw vs plain '
+              + ' '.join(f'{v:.2e}' for v in r) + f' (gate {SEP_DW_RTOL}); '
+              'vs float64 oracle ' + ' '.join(f'{v:.2e}' for v in o)
+              + f' (gate {SEP_ORACLE_RTOL})')
+    return max(errs['K6']), max(errs['K7'])
+
+
 def write_corpus(root: str) -> tuple[str, int]:
     """N_UTTS seeded ~8 s WAVs (tones + noise) with random transcripts;
     returns (manifest path, longest transcript in labels)."""
@@ -441,24 +657,25 @@ def write_corpus(root: str) -> tuple[str, int]:
     return manifest, longest
 
 
-def phase_main_path(manifest: str):
+def phase_main_path(manifest: str, overrides=(), what='Wav2Letter-20'):
+    """evaluate.main over the corpus; returns the kernels' launches."""
     argv = ['--test-manifest', manifest, '--device', str(DEVICE),
-            '--seed', '0', '--batch-size', str(BATCH)]
+            '--seed', '0', '--batch-size', str(BATCH), *overrides]
     out = io.StringIO()
-    stft_mel_log.launches = 0
-    ctc_alpha.launches = 0
+    counters = (stft_mel_log, ctc_alpha, depthwise_fwd, sep_fwd)
+    for fn in counters:
+        fn.launches = 0
     with contextlib.redirect_stdout(out):
         rc = port_eval.main(argv)
     torch.cuda.synchronize()
-    launches = {'stft_mel_log': stft_mel_log.launches,
-                'ctc_alpha': ctc_alpha.launches}
+    launches = {fn.__name__: fn.launches for fn in counters}
     line = out.getvalue().strip().splitlines()[-1]
-    print('evaluate.main: ' + line)
+    print(f'evaluate.main ({what}): ' + line)
     result = json.loads(line)
-    print(f'main-path launches: {launches}')
+    print(f'main-path launches ({what}): {launches}')
     check(rc == 0, 'evaluate.main returned 0')
-    check(all(n > 0 for n in launches.values()),
-          f'both kernels launched on the main path: {launches}')
+    check(launches['stft_mel_log'] > 0 and launches['ctc_alpha'] > 0,
+          f'K1 and K2 launched on the {what} eval path: {launches}')
     check(result['num_utterances'] == N_UTTS
           and set(result) == {'loss', 'num_utterances', 'cer', 'wer'}
           and all(math.isfinite(result[k]) for k in ('loss', 'cer', 'wer'))
@@ -468,10 +685,11 @@ def phase_main_path(manifest: str):
     return launches
 
 
-def phase_cpu_reference():
-    """The eval step on the card vs the same step on the CPU (plain K1/K2,
-    ATen convs) with the same full-width weights, on a small input."""
-    model, fe, _ = port_eval.build(DEVICE, seed=0)
+def phase_cpu_reference(overrides=(), what='Wav2Letter-20'):
+    """The eval step on the card vs the same step on the CPU (plain
+    kernels, ATen convs) with the same full-width weights, on a small
+    input."""
+    model, fe, _ = port_eval.build(DEVICE, seed=0, overrides=overrides)
     rng = np.random.default_rng(5)
     T = 16000
     audio = (0.1 * rng.standard_normal((2, T))).astype(np.float32)
@@ -486,20 +704,24 @@ def phase_cpu_reference():
         b = port_eval.to_device(batch, dev)
         loss, ids, _ = port_eval.eval_step(m, f, b)
         with torch.no_grad():
-            logp, _ = m(*f(b['audio'], b['audio_lengths']))
-        outs[dev.type] = (float(loss), logp.cpu(), ids.cpu())
+            out, _ = m(*f(b['audio'], b['audio_lengths']))
+        outs[dev.type] = (float(loss), out.cpu(), ids.cpu())
     (lc, pc, ic), (lr, pr, ir) = outs[DEVICE.type], outs['cpu']
     err = (pc - pr).abs().max().item()
     rel = abs(lc - lr) / abs(lr)
+    kind = 'probability' if getattr(model, 'eval_emits_probs', False) \
+        else 'log-prob'
     check(math.isfinite(lc) and rel < 1e-3 and err < 1e-2,
-          f'eval step, Wav2Letter-20 full width, B=2 x 1 s: card vs CPU '
-          f'loss {lc:.6f} vs {lr:.6f} (rel {rel:.2e}, gate 1e-3), log-prob '
+          f'eval step, {what} full width, B=2 x 1 s: card vs CPU '
+          f'loss {lc:.6f} vs {lr:.6f} (rel {rel:.2e}, gate 1e-3), {kind} '
           f'max err {err:.2e} (gate 1e-2), argmax agreement '
           f'{(ic == ir).float().mean().item():.4f}')
 
 
-def phase_timing(manifest: str, card: str):
-    model, fe, labels = port_eval.build(DEVICE, seed=0)
+def phase_timing(manifest: str, card: str, overrides=(),
+                 what='Wav2Letter-20'):
+    model, fe, labels = port_eval.build(DEVICE, seed=0, overrides=overrides)
+    print(f'{what}: {sum(p.numel() for p in model.parameters())} parameters')
     loader = port_eval.make_loader(manifest, BATCH, fe)
     batches = [port_eval.to_device(b, DEVICE) for b in loader]
     for b in batches:  # warm-up (cuDNN plans, allocator)
@@ -515,7 +737,7 @@ def phase_timing(manifest: str, card: str):
     torch.cuda.synchronize()
     per_batch = (time.perf_counter() - t0) / (reps * len(batches))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'eval step (frontend + model + CTC + argmax), B={BATCH}, '
+    print(f'{what} eval step (frontend + model + CTC + argmax), B={BATCH}, '
           f'{tuple(batches[0]["audio"].shape)} audio: {per_batch * 1e3:.3f} '
           f'ms/batch, {BATCH / per_batch:.1f} utt/s, peak memory '
           f'{peak:.3f} GiB [{card}]')
@@ -523,22 +745,33 @@ def phase_timing(manifest: str, card: str):
     result = port_eval.evaluate(model, fe, loader,
                                 port_eval.GreedyDecoder(labels), DEVICE)
     wall = time.perf_counter() - t0
-    print(f'evaluate() end to end (WAV read, H2D, eval step, decode, WER): '
+    print(f'{what} evaluate() end to end (WAV read, H2D, eval step, '
+          f'decode, WER): '
           f'{wall:.3f} s for {result["num_utterances"]} utterances, '
           f'{result["num_utterances"] / wall:.1f} utt/s [{card}]')
 
     profile_top(lambda: [port_eval.eval_step(model, fe, b)
-                         for b in batches], f'{len(batches)} eval steps')
+                         for b in batches],
+                f'{what}, {len(batches)} eval steps')
     return per_batch
+
+
+def depth_overrides(overrides) -> list:
+    """Wav2Letter-20 unless another model group is named."""
+    if any(o.startswith('model=') for o in overrides):
+        return []
+    return [f'model.mid_layers={MID_LAYERS}']
 
 
 def train_config(*overrides, no_dropout: bool = False) -> dict:
     cfg = load_config(['data.train_manifest=unused',
                        'data.val_manifest=unused',
-                       f'model.mid_layers={MID_LAYERS}', *overrides])
+                       *depth_overrides(overrides), *overrides])
     if no_dropout:
-        for layer in cfg['model']['layers']:
+        for layer in cfg['model'].get('layers', []):
             layer['dropout'] = -1.0
+        for block in cfg['model'].get('jasper_blocks', []):
+            block['dropout'] = 0.0
     return cfg
 
 
@@ -567,31 +800,38 @@ def read_losses(run_dir: str) -> dict:
     return losses
 
 
-def phase_train_main(manifest: str, root: str):
-    """train.main on cuda: 2 epochs x 2 steps, then --resume for 2 more."""
-    run_dir = os.path.join(root, 'train_run')
+TRAIN_COUNTERS = (stft_mel_log, ctc_alpha, ctc_beta, depthwise_fwd,
+                  depthwise_wgrad, sep_fwd, sep_bwd)
+
+
+def phase_train_main(manifest: str, root: str, overrides=(),
+                     what='Wav2Letter-20',
+                     kernels=('stft_mel_log', 'ctc_alpha', 'ctc_beta')):
+    """train.main on cuda: 2 epochs x 2 steps, then --resume for 2 more;
+    ``kernels`` must have launched in the first run."""
+    run_dir = os.path.join(root, f'train_run_{len(os.listdir(root))}')
     base = [f'data.train_manifest={manifest}',
             f'data.val_manifest={manifest}', f'data.batch_size={BATCH}',
-            f'model.mid_layers={MID_LAYERS}', 'trainer.log_every_n_steps=1',
-            'trainer.checkpoint.keep_last=1',
+            *depth_overrides(overrides), *overrides,
+            'trainer.log_every_n_steps=1', 'trainer.checkpoint.keep_last=1',
             f'trainer.default_root_dir={run_dir}', '--device', str(DEVICE)]
-    stft_mel_log.launches = ctc_alpha.launches = ctc_beta.launches = 0
+    for fn in TRAIN_COUNTERS:
+        fn.launches = 0
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
         rc = port_train.main(base + ['trainer.max_epochs=2',
                                      'trainer.max_steps=4'])
     torch.cuda.synchronize()
-    launches = {'stft_mel_log': stft_mel_log.launches,
-                'ctc_alpha': ctc_alpha.launches,
-                'ctc_beta': ctc_beta.launches}
+    launches = {fn.__name__: fn.launches for fn in TRAIN_COUNTERS}
     wall = time.time() - t0
-    print('train.main: ' + ' | '.join(out.getvalue().strip().splitlines()))
-    print(f'training-path launches (4 steps, 2 validations): {launches}; '
-          f'{wall:.1f} s wall')
+    print(f'train.main ({what}): ' + ' | '.join(
+        out.getvalue().strip().splitlines()))
+    print(f'{what} training-path launches (4 steps, 2 validations): '
+          f'{launches}; {wall:.1f} s wall')
     check(rc == 0, 'train.main returned 0')
-    check(all(n > 0 for n in launches.values()),
-          f'K1, K2 and K3 launched on the training path: {launches}')
+    check(all(launches[k] > 0 for k in kernels),
+          f'{", ".join(kernels)} launched on the {what} training path')
     ck = Checkpointer(os.path.join(run_dir, 'checkpoints'))
     losses = read_losses(run_dir)
     check(ck.latest_step() == 4 and ck.load_extra() == {'epoch': 2}
@@ -609,7 +849,7 @@ def phase_train_main(manifest: str, root: str):
         rc = port_train.main(base + ['trainer.max_epochs=3',
                                      'trainer.max_steps=6', '--resume'])
     torch.cuda.synchronize()
-    print('train.main --resume: ' + ' | '.join(
+    print(f'train.main --resume ({what}): ' + ' | '.join(
         out.getvalue().strip().splitlines()))
     losses = read_losses(run_dir)
     check(rc == 0 and 'Resumed from step 4' in out.getvalue()
@@ -773,9 +1013,150 @@ def phase_train_cpu_reference(root: str):
           f'new BN stats {bn:.2e} (gate {STEP_BN_RTOL})')
 
 
-def phase_overfit(root: str):
+class BranchRelu(torch.autograd.Function):
+    """ReLU whose backward passes the gradient where ``mask`` says (the
+    branches another evaluation took) instead of where ``x > 0``."""
+
+    @staticmethod
+    def forward(ctx, x, mask):
+        ctx.save_for_backward(mask)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (mask,) = ctx.saved_tensors
+        return grad * mask, None
+
+
+def activations(model) -> dict:
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, Activation)}
+
+
+def jasper_float64_update(cfg, state: dict, batch: dict,
+                          branches: dict) -> dict:
+    """The state dict after the same train step run on the CPU in float64,
+    every ReLU taking the branch recorded in ``branches`` (module name ->
+    bool mask of its input > 0)."""
+    labels = build_labels(cfg['model'])
+    model = build_model(cfg['model'], len(labels))
+    model.load_state_dict(state)
+    model.double().train()
+    opt, _ = build_optimizer(model.parameters(), cfg['model'], 1, 1)
+    fe = build_frontend(cfg['model'], dither=0.0)
+    b = port_eval.to_device(batch, torch.device('cpu'))
+    with torch.no_grad():
+        feats, flens = fe(b['audio'], b['audio_lengths'])
+
+    def force(name):
+        def hook(module, inputs, out):
+            return BranchRelu.apply(inputs[0], branches[name].double())
+        return hook
+    hooks = [m.register_forward_hook(force(n))
+             for n, m in activations(model).items()]
+    try:
+        log_probs, out_lens = model(feats.double(), flens)
+    finally:
+        for h in hooks:
+            h.remove()
+    port_eval.masked_ctc_mean(log_probs, out_lens, b['targets'],
+                              b['target_lengths'],
+                              b['batch_mask'].double()).backward()
+    opt.step()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_jasper_train_cpu_reference(root: str, overrides, what: str):
+    """One full-width Jasper-family train step on the card vs the CPU (same
+    weights and batch, dither and dropout off, the config's optimizer).
+    ReLU has no derivative at 0, so, as with Wav2Letter's clamp, the update
+    is held against the CPU step in float64 on the card's ReLU branches,
+    the loss and new BatchNorm statistics against the CPU's float32 step,
+    and the update also against the CPU float32 step on the parameters no
+    branch flip reaches (the blocks above the deepest flipped block, and
+    the head)."""
+    cfg = train_config(*overrides, no_dropout=True)
+    rng = np.random.default_rng(6)
+    T = 16000
+    batch = dict(audio=modulated_tones(rng, 2, T),
+                 audio_lengths=np.array([T, 12000], np.int32),
+                 targets=rng.integers(1, 29, (2, 16)).astype(np.int32),
+                 target_lengths=np.array([16, 9], np.int32),
+                 batch_mask=np.ones(2, np.float32))
+    res = {}
+    for dev in (DEVICE, torch.device('cpu')):
+        tr = make_trainer(cfg, os.path.join(root, f'jstep_{dev.type}'), dev,
+                          dither=0.0)
+        branches = {}
+
+        def record(name):
+            def hook(module, inputs, out):
+                branches[name] = (inputs[0] > 0).cpu()
+            return hook
+        hooks = [m.register_forward_hook(record(n))
+                 for n, m in activations(tr.model).items()]
+        before = {k: v.detach().cpu().clone()
+                  for k, v in tr.model.state_dict().items()}
+        loss, _, _ = tr.train_step(port_eval.to_device(batch, dev))
+        after = {k: v.detach().cpu().clone()
+                 for k, v in tr.model.state_dict().items()}
+        for h in hooks:
+            h.remove()
+        res[dev.type] = (float(loss), before, after, branches)
+        del tr
+    (lc, bc, ac, zc), (lr_, br, ar, zr) = res[DEVICE.type], res['cpu']
+    ref = jasper_float64_update(cfg, br, batch, zc)
+    ref_cpu = jasper_float64_update(cfg, br, batch, zr)
+    flips = {n: int((zc[n] != zr[n]).sum()) for n in zr}
+    n_flips = sum(flips.values())
+    n_units = sum(z.numel() for z in zr.values())
+    params = [k for k in ar if k.endswith(('.weight', '.bias'))]
+    stats = [k for k in ar if k.endswith(('running_mean', 'running_var'))]
+
+    def rel_norm(keys, x, y):
+        num = sum(float(((x(k) - y(k)) ** 2).sum()) for k in keys)
+        return math.sqrt(num / sum(float((y(k) ** 2).sum()) for k in keys))
+    upd = rel_norm(params, lambda k: (ac[k] - bc[k]).double(),
+                   lambda k: ref[k] - br[k].double())
+    upd_cpu = rel_norm(params, lambda k: (ac[k] - bc[k]).double(),
+                       lambda k: (ar[k] - br[k]).double())
+    # The float32 floor: the CPU's own float32 step against the float64
+    # step on the CPU's branches.
+    floor = rel_norm(params, lambda k: (ar[k] - br[k]).double(),
+                     lambda k: ref_cpu[k] - br[k].double())
+    deepest = max((int(n.split('.')[1]) for n, f in flips.items() if f),
+                  default=-1)
+    clean = [k for k in params if not k.startswith('jasper_encoder.')
+             or int(k.split('.')[1]) > deepest]
+    upd_clean = rel_norm(clean, lambda k: (ac[k] - bc[k]).double(),
+                         lambda k: (ar[k] - br[k]).double())
+    n_clean = sum(ar[k].numel() for k in clean)
+    bn = rel_norm(stats, lambda k: ac[k].double(), lambda k: ar[k].double())
+    same_init = all(torch.equal(bc[k], br[k]) for k in br)
+    loss_rel = abs(lc - lr_) / abs(lr_)
+    check(same_init and math.isfinite(lc) and loss_rel < STEP_LOSS_RTOL
+          and upd < JASPER_UPDATE_FLOOR_RATIO * floor
+          and upd < JASPER_UPDATE_RTOL and bn < STEP_BN_RTOL
+          and n_flips <= RELU_FLIP_SHARE * n_units
+          and upd_clean < STEP_UPDATE_RTOL,
+          f'train step, {what} full width, B=2 x 1 s: card vs CPU loss '
+          f'{lc:.6f} vs {lr_:.6f} (rel {loss_rel:.2e}, gate {STEP_LOSS_RTOL});'
+          f' update of all {len(params)} parameters vs the CPU float64 step '
+          f'on the card\'s ReLU branches: relative global norm of the '
+          f'difference {upd:.2e} (gates {JASPER_UPDATE_FLOOR_RATIO} x the '
+          f'CPU float32 step\'s own {floor:.2e} against float64 on its '
+          f'branches, and {JASPER_UPDATE_RTOL}); vs the CPU '
+          f'float32 step {upd_cpu:.2e} with {n_flips} of {n_units} ReLU '
+          f'branches taken differently (gate {RELU_FLIP_SHARE} of them), and '
+          f'{upd_clean:.2e} (gate {STEP_UPDATE_RTOL}) on the {n_clean} '
+          f'parameters no flip reaches (deepest flipped block {deepest}); '
+          f'new BN stats {bn:.2e} (gate {STEP_BN_RTOL})')
+
+
+def phase_overfit(root: str, overrides=(), what='Wav2Letter-20',
+                  lr=OVERFIT_LR, steps=OVERFIT_STEPS):
     """Full width, one repeated batch (B=8, ~2 s), dropout off, AdamW."""
-    cfg = train_config(no_dropout=True)
+    cfg = train_config(*overrides, no_dropout=True)
     rng = np.random.default_rng(8)
     n = 32000
     t = np.arange(n) / 16000
@@ -789,28 +1170,30 @@ def phase_overfit(root: str):
     batch = port_eval.to_device(dict(
         audio=audio, audio_lengths=lens, targets=targets, target_lengths=tl,
         batch_mask=np.ones(8, np.float32)), DEVICE)
-    tr = make_trainer(cfg, os.path.join(root, 'overfit'), DEVICE,
+    tr = make_trainer(cfg, os.path.join(root, f'overfit_{what}'), DEVICE,
                       optimizer=lambda p: torch.optim.AdamW(
-                          p, lr=OVERFIT_LR, weight_decay=0.0))
-    losses = [float(tr.train_step(batch)[0]) for _ in range(OVERFIT_STEPS)]
-    print('overfit losses: ' + ' '.join(f'{v:.3f}' for v in losses))
+                          p, lr=lr, weight_decay=0.0))
+    losses = [float(tr.train_step(batch)[0]) for _ in range(steps)]
+    print(f'{what} overfit losses: ' + ' '.join(f'{v:.3f}' for v in losses))
     first_below = next(i for i, v in enumerate(losses + [0.0])
                        if v < OVERFIT_RATIO * losses[0])
     check(losses[-1] < OVERFIT_RATIO * losses[0],
-          f'it trains: AdamW lr {OVERFIT_LR}, loss {losses[0]:.4f} -> '
-          f'{losses[-1]:.4f} after {OVERFIT_STEPS - 1} steps (gate < '
+          f'{what} trains: AdamW lr {lr}, loss {losses[0]:.4f} -> '
+          f'{losses[-1]:.4f} after {steps - 1} steps (gate < '
           f'{OVERFIT_RATIO} x first; first below it at step {first_below})')
 
 
-def phase_train_timing(manifest: str, root: str, card: str):
-    """Train step (default config: dither, dropout, SGD) at B=32 of ~8 s."""
+def phase_train_timing(manifest: str, root: str, card: str, overrides=(),
+                       what='Wav2Letter-20'):
+    """Train step (the config's defaults: dither, dropout, its optimizer) at
+    B=32 of ~8 s."""
     cfg = train_config(f'data.train_manifest={manifest}',
                        f'data.val_manifest={manifest}',
-                       f'data.batch_size={BATCH}')
+                       f'data.batch_size={BATCH}', *overrides)
     labels = build_labels(cfg['model'])
     loader, _ = port_train.get_data_loaders(labels, cfg['data'])
     batches = [port_eval.to_device(b, DEVICE) for b in loader]
-    tr = make_trainer(cfg, os.path.join(root, 'timing'), DEVICE)
+    tr = make_trainer(cfg, os.path.join(root, f'timing_{what}'), DEVICE)
     for b in batches:  # warm-up (cuDNN plans, allocator)
         tr.train_step(b)
     torch.cuda.synchronize()
@@ -824,12 +1207,13 @@ def phase_train_timing(manifest: str, root: str, card: str):
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - t0) / (reps * len(batches))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'train step (frontend + model fwd/bwd + CTC K2/K3 + SGD), B={BATCH}, '
-          f'{tuple(batches[0]["audio"].shape)} audio: {per_step * 1e3:.3f} '
-          f'ms/step, {BATCH / per_step:.1f} utt/s, peak memory {peak:.3f} GiB '
-          f'[{card}]')
+    opt = type(tr.optimizer).__name__
+    print(f'{what} train step (frontend + model fwd/bwd + CTC K2/K3 + '
+          f'{opt}), B={BATCH}, {tuple(batches[0]["audio"].shape)} audio: '
+          f'{per_step * 1e3:.3f} ms/step, {BATCH / per_step:.1f} utt/s, peak '
+          f'memory {peak:.3f} GiB [{card}]')
     profile_top(lambda: [tr.train_step(b) for b in batches],
-                f'{len(batches)} train steps')
+                f'{what}, {len(batches)} train steps')
     return per_step
 
 
@@ -841,16 +1225,15 @@ def profile_top(fn, what: str):
         fn()
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e6
-    # Kernel and memcpy rows only: operator rows repeat their kernels' time.
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, 'device_type', '')).endswith('CUDA')
-              and getattr(e, 'self_device_time_total', 0) > 0]
+    events = kernel_rows(prof)
     busy = sum(e.self_device_time_total for e in events)
     if busy <= 0:
         print('profiler: no device time recorded (not measured)')
         return
+    launches = sum(e.count for e in events)
     print(f'profiler, {what}: device busy {busy / 1e3:.3f} ms of '
-          f'{window / 1e3:.3f} ms wall ({100 * busy / window:.1f}%)')
+          f'{window / 1e3:.3f} ms wall ({100 * busy / window:.1f}%), '
+          f'{launches} kernel launches')
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f'  {100 * e.self_device_time_total / busy:5.1f}%  '
               f'{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} '
@@ -863,6 +1246,9 @@ def k1_numbers(fe, padded, nf):
     nm = fe.fb_t.shape[1]
     args = (padded, nf, fe.hop, fe.dft_re, fe.dft_im, fe.fb_t)
     ms = cuda_ms(lambda: stft_mel_log(*args))
+    print(f'K1 {ms:.4f} ms queued, '
+          f'{cuda_ms(lambda: stft_mel_log(*args), queued=False):.4f} ms back '
+          'to back')
     plain_ms = cuda_ms(lambda: stft_mel_log_reference(*args), iters=5)
 
     def library():
@@ -893,6 +1279,8 @@ def k2_numbers(args):
     lp, ll, tg, tl = args
     B, T, L = lp.shape
     ms = cuda_ms(lambda: ctc_alpha(*args, store_alphas=True))
+    b2b = cuda_ms(lambda: ctc_alpha(*args, store_alphas=True), queued=False)
+    print(f'K2 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
     eval_ms = cuda_ms(lambda: ctc_alpha(*args))
     plain_ms = cuda_ms(lambda: ctc_alpha_reference(*args, store_alphas=True),
                        iters=3, warmup=1)
@@ -927,6 +1315,9 @@ def k3_numbers(args):
     nll, alphas = ctc_alpha(*args, store_alphas=True)
     g = (1.0 / (B * torch.clamp(tl, min=1).float())).contiguous()
     ms = cuda_ms(lambda: ctc_beta(lp, alphas, nll, ll, tg, tl, g))
+    b2b = cuda_ms(lambda: ctc_beta(lp, alphas, nll, ll, tg, tl, g),
+                  queued=False)
+    print(f'K3 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
     nll_p, al_p = ctc_alpha_reference(*args, store_alphas=True)
     plain_ms = cuda_ms(lambda: ctc_beta_reference(lp, al_p, nll_p, ll, tg, tl,
                                                   g), iters=3, warmup=1)
@@ -950,15 +1341,129 @@ def k3_numbers(args):
     return ms, plain_ms, library_ms, nbytes, ops
 
 
+def k4_numbers():
+    """K4 at QuartzNet's C1 (B=32, 808 frames, 64 mels, K=33, stride 2);
+    the library yardstick is cuDNN's depthwise conv (groups = C)."""
+    B, T, C, K, s, d = DW_MAIN
+    (x, w, g), p = dw_inputs(*DW_MAIN, 30, DEVICE)
+    t_out = g.shape[1]
+    ms = cuda_ms(lambda: depthwise_fwd(x, w, s, d, p))
+    b2b = cuda_ms(lambda: depthwise_fwd(x, w, s, d, p), queued=False)
+    print(f'K4 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
+    plain_ms = cuda_ms(lambda: depthwise_fwd_reference(x, w, s, d, p),
+                       iters=5)
+    xt, wt = x.transpose(1, 2), w.t().unsqueeze(1).contiguous()
+
+    def library():
+        return torch.nn.functional.conv1d(xt, wt, stride=s, padding=p,
+                                          dilation=d, groups=C)
+    lib_err = (library().transpose(1, 2)
+               - depthwise_fwd(x, w, s, d, p)).abs().max().item()
+    library_ms = cuda_ms(library)
+    nbytes = 4 * (B * T * C + K * C + B * t_out * C)
+    ops = 2 * B * t_out * C * K
+    print(f'K4 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
+          f'cuDNN agrees to {lib_err:.2e}')
+    return ms, plain_ms, library_ms, nbytes, ops
+
+
+def k5_numbers():
+    """K5 at C1's shape; the yardstick is cuDNN's weight gradient
+    (torch.nn.grad.conv1d_weight, one convolution_backward call)."""
+    B, T, C, K, s, d = DW_MAIN
+    (x, w, g), p = dw_inputs(*DW_MAIN, 31, DEVICE)
+    t_out = g.shape[1]
+    ms = cuda_ms(lambda: depthwise_wgrad(x, g, K, s, d, p))
+    b2b = cuda_ms(lambda: depthwise_wgrad(x, g, K, s, d, p), queued=False)
+    print(f'K5 {ms:.4f} ms queued (both launches), {b2b:.4f} ms back to '
+          'back')
+    plain_ms = cuda_ms(lambda: depthwise_wgrad_reference(x, g, K, s, d, p),
+                       iters=5)
+    xt, gt = x.transpose(1, 2), g.transpose(1, 2)
+
+    def library():
+        return torch.nn.grad.conv1d_weight(xt, (C, 1, K), gt, stride=s,
+                                           padding=p, dilation=d, groups=C)
+    lib_err = rel_err(library()[:, 0, :].t(),
+                      depthwise_wgrad(x, g, K, s, d, p))
+    library_ms = cuda_ms(library)
+    nbytes = 4 * (B * T * C + B * t_out * C + K * C)
+    ops = 2 * B * t_out * C * K
+    print(f'K5 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
+          f'cuDNN agrees to {lib_err:.2e} (relative)')
+    return ms, plain_ms, library_ms, nbytes, ops
+
+
+def sep_library(x, wdw, wpw, d, p):
+    """cuDNN: the depthwise conv (groups = Cin), then the 1x1 conv."""
+    cin = x.shape[2]
+    h = torch.nn.functional.conv1d(x.transpose(1, 2),
+                                   wdw.t().unsqueeze(1).contiguous(),
+                                   padding=p, dilation=d, groups=cin)
+    return torch.nn.functional.conv1d(h, wpw.t().unsqueeze(2).contiguous())
+
+
+def k6_k7_numbers():
+    """K6 and K7 at each of QuartzNet's unit shapes (B=32, 404 frames,
+    ragged lengths), averaged over the 76 launches of a forward: per
+    launch ms, plain ms, library ms (cuDNN: the depthwise and 1x1 convs;
+    for K7 their backward, forward + backward minus forward), bytes and
+    operations."""
+    B, T = BATCH, 404
+    tot6 = np.zeros(5)
+    tot7 = np.zeros(5)
+    for i, ((cin, cout, K, d), count) in enumerate(SEP_PATH_UNITS.items()):
+        (x, wdw, wpw, g), l1, l2, p = sep_inputs(B, T, cin, cout, K, d,
+                                                 60 + i, DEVICE)
+        t_out = g.shape[1]
+        ms6 = cuda_ms(lambda: sep_fwd(x, l1, l2, wdw, wpw, d, p), iters=10)
+        plain6 = cuda_ms(lambda: sep_fwd_reference(x, l1, l2, wdw, wpw, d,
+                                                   p), iters=3, warmup=1)
+        lib6 = cuda_ms(lambda: sep_library(x, wdw, wpw, d, p), iters=10)
+        ms7 = cuda_ms(lambda: sep_bwd(x, l1, l2, wdw, wpw, g, d, p),
+                      iters=10)
+        plain7 = cuda_ms(lambda: sep_bwd_reference(x, l1, l2, wdw, wpw, g, d,
+                                                   p), iters=3, warmup=1)
+        ins = [t.detach().requires_grad_() for t in (x, wdw, wpw)]
+        gt = g.transpose(1, 2)
+
+        def lib_fwd():
+            return sep_library(*ins, d, p)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), ins, gt)
+        lib7 = max(cuda_ms(lib_fwd_bwd, iters=10) - cuda_ms(lib_fwd,
+                                                            iters=10), 0.0)
+        ops6 = 2 * B * t_out * cin * (K + cout)
+        bytes6 = 4 * (B * T * cin + K * cin + cin * cout + B * t_out * cout
+                      + 2 * B)
+        ops7 = 2 * B * t_out * cin * (3 * K + 2 * cout)
+        bytes7 = 4 * (2 * B * T * cin + B * t_out * cout + 2 * K * cin
+                      + 2 * cin * cout + 2 * B)
+        tot6 += count * np.array([ms6, plain6, lib6, bytes6, ops6])
+        tot7 += count * np.array([ms7, plain7, lib7, bytes7, ops7])
+        print(f'K6/K7 at (Cin, Cout, K, d)=({cin}, {cout}, {K}, {d}) x{count}'
+              f': K6 {ms6:.4f} ms ({ops6 / ms6 / 1e9:.1f} TFLOP/s; plain '
+              f'{plain6:.3f}, cuDNN {lib6:.4f}), K7 {ms7:.4f} ms '
+              f'({ops7 / ms7 / 1e9:.1f} TFLOP/s; plain {plain7:.3f}, cuDNN '
+              f'backward {lib7:.4f})')
+    n = sum(SEP_PATH_UNITS.values())
+    print(f'K6 per forward: {tot6[0]:.3f} ms over {n} launches '
+          f'({tot6[4] / 1e12:.3f} TFLOP); K7 per backward: {tot7[0]:.3f} ms '
+          f'({tot7[4] / 1e12:.3f} TFLOP)')
+    return tuple(tot6 / n), tuple(tot7 / n)
+
+
 def kernel_entry(name, source, replaces, launches, err, numbers):
     ms, plain_ms, library_ms, nbytes, ops = numbers
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS * 1e3
     return {'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
+            'replaces': replaces, 'launches': int(launches),
+            'max_abs_err': float(err), 'ms': float(ms),
+            'plain_ms': float(plain_ms), 'bound_ms': float(max(t_bytes, t_ops)),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': library_ms}
+            'library_ms': float(library_ms)}
 
 
 def main() -> int:
@@ -972,11 +1477,14 @@ def main() -> int:
     card = card_line()
     phase_build()
     k1_err, k1_main = phase_k1()
+    k4_err, k5_err = phase_k4_k5()
+    k6_err, k7_err = phase_k6_k7()
     with tempfile.TemporaryDirectory() as root:
         manifest, longest = write_corpus(root)
         s_main = -(-longest // 16) * 16  # the loader's target padding
         k2_err, k2_main = phase_k2(s_main)
         k3_err = phase_k3(k2_main)
+        # Wav2Letter-20
         phase_main_path(manifest)
         phase_cpu_reference()
         phase_timing(manifest, card)
@@ -986,19 +1494,55 @@ def main() -> int:
         phase_overfit(root)
         torch.cuda.empty_cache()
         phase_train_timing(manifest, root, card)
+        torch.cuda.empty_cache()
+        # QuartzNet-15x5
+        qn = dict(overrides=QN, what='QuartzNet-15x5')
+        ev = phase_main_path(manifest, **qn)
+        n_batches = N_UTTS // BATCH
+        check(ev['depthwise_fwd'] == n_batches
+              and ev['sep_fwd'] == QN_UNITS * n_batches,
+              f'QuartzNet forward launches K4 once and K6 {QN_UNITS} times: '
+              f'{ev["depthwise_fwd"]} and {ev["sep_fwd"]} over {n_batches} '
+              'batches')
+        phase_cpu_reference(**qn)
+        phase_timing(manifest, card, **qn)
+        qn_launches = phase_train_main(
+            manifest, root, overrides=QN + ['optimizer=novograd'],
+            what='QuartzNet-15x5', kernels=tuple(
+                fn.__name__ for fn in TRAIN_COUNTERS))
+        torch.cuda.empty_cache()
+        phase_jasper_train_cpu_reference(root, QN + ['optimizer=novograd'],
+                                         'QuartzNet-15x5')
+        phase_overfit(root, **qn, lr=1e-3, steps=60)
+        torch.cuda.empty_cache()
+        phase_train_timing(manifest, root, card,
+                           overrides=QN + ['optimizer=novograd'],
+                           what='QuartzNet-15x5')
+    k6_numbers, k7_numbers = k6_k7_numbers()
+    src = 'wav2letter_pytorch_tpu_torch/csrc/'
+    tpu = 'wav2letter_pytorch_tpu/ops/'
     kernels = [
-        kernel_entry('stft_mel_log', 'wav2letter_pytorch_tpu_torch/csrc/'
-                     'stft_mel.cu', 'wav2letter_pytorch_tpu/ops/'
-                     'stft_pallas.py:44', launches['stft_mel_log'], k1_err,
-                     k1_numbers(*k1_main)),
-        kernel_entry('ctc_alpha', 'wav2letter_pytorch_tpu_torch/csrc/'
-                     'ctc_alpha.cu', 'wav2letter_pytorch_tpu/ops/'
-                     'ctc_pallas.py:62', launches['ctc_alpha'], k2_err,
+        kernel_entry('stft_mel_log', src + 'stft_mel.cu',
+                     tpu + 'stft_pallas.py:44', launches['stft_mel_log'],
+                     k1_err, k1_numbers(*k1_main)),
+        kernel_entry('ctc_alpha', src + 'ctc_alpha.cu',
+                     tpu + 'ctc_pallas.py:62', launches['ctc_alpha'], k2_err,
                      k2_numbers(k2_main)),
-        kernel_entry('ctc_beta', 'wav2letter_pytorch_tpu_torch/csrc/'
-                     'ctc_beta.cu', 'wav2letter_pytorch_tpu/ops/'
-                     'ctc_pallas.py:86', launches['ctc_beta'], k3_err,
+        kernel_entry('ctc_beta', src + 'ctc_beta.cu',
+                     tpu + 'ctc_pallas.py:86', launches['ctc_beta'], k3_err,
                      k3_numbers(k2_main)),
+        kernel_entry('depthwise_fwd', src + 'depthwise.cu',
+                     tpu + 'depthwise_pallas.py:76',
+                     qn_launches['depthwise_fwd'], k4_err, k4_numbers()),
+        kernel_entry('depthwise_wgrad', src + 'depthwise.cu',
+                     tpu + 'depthwise_pallas.py:94',
+                     qn_launches['depthwise_wgrad'], k5_err, k5_numbers()),
+        kernel_entry('sep_fwd', src + 'sep_conv.cu',
+                     tpu + 'sep_conv_pallas.py:69', qn_launches['sep_fwd'],
+                     k6_err, k6_numbers),
+        kernel_entry('sep_bwd', src + 'sep_conv.cu',
+                     tpu + 'sep_conv_pallas.py:93', qn_launches['sep_bwd'],
+                     k7_err, k7_numbers),
     ]
     print(f'total {time.time() - t_start:.1f} s [{card}]')
     print(json.dumps({'kernels': kernels}))

@@ -74,7 +74,8 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
 
 
 def test_kernel_sources_and_build_hash():
-    assert _build.kernel_sources() == ['ctc_alpha', 'ctc_beta', 'stft_mel']
+    assert _build.kernel_sources() == ['ctc_alpha', 'ctc_beta', 'depthwise',
+                                      'sep_conv', 'stft_mel']
     a = _build._library_path('stft_mel')
     b = _build._library_path('ctc_alpha')
     assert a != b and a.startswith(_build.BUILD_DIR)

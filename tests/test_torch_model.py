@@ -89,6 +89,9 @@ def test_state_dict_matches_torch_import_export():
 
 def test_state_dict_rejects_non_wav2letter_trees():
     with pytest.raises(ValueError, match='Wav2Letter'):
+        state_dict_from_flax({'params': {'encoder': {}, 'head': {}}})
+    # a Jasper tree needs its block specs (tests/test_torch_jasper.py)
+    with pytest.raises(ValueError, match='jasper_blocks'):
         state_dict_from_flax({'params': {'block0': {}, 'head': {}}})
 
 

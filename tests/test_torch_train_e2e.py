@@ -249,7 +249,7 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
     ('trainer.mesh.data=2', 'mesh.data'),
     ('model.compute_dtype=bf16', 'compute_dtype'),
     ('model.padding_mode=zeros', 'padding_mode'),
-    ('model=jasper', 'not ported'),
+    ('model=conformer', 'No config'),
     ('model.layers=[{output_size: 8}]', 'list and map'),
     ('trainer.no_such_key=1', 'does not exist'),
 ])

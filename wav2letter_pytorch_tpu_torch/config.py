@@ -3,15 +3,16 @@
 The defaults are the JAX package's ``configs/``: ``config.yaml``'s
 ``data``, ``model`` and ``trainer`` blocks composed with
 ``model/wav2letter.yaml``, ``audio/standard_16k.yaml`` and
-``optimizer/exp_lr_optimizer.yaml``. Overrides, as on that package's
-command line:
+``optimizer/exp_lr_optimizer.yaml``; ``model/jasper.yaml`` and
+``model/quartznet.yaml`` are the other model group entries. Overrides, as
+on that package's command line:
 
 * ``a.b=value`` sets an existing key to a scalar (``null``, ``true``,
   ``false``, an int, a float or a string); list items are addressed by
   index (``model.layers.0.output_size=24``);
 * ``+a.b=value`` adds a key (creating the maps on its path);
-* ``optimizer=<name>`` / ``audio=<name>`` swap a group; ``model=`` takes
-  only ``wav2letter``.
+* ``optimizer=<name>`` / ``audio=<name>`` / ``model=<name>`` swap a group
+  (``model=wav2letter|jasper|quartznet``).
 
 List and map values (``[...]``, ``{...}``) are not parsed. ``${a.b}``
 values are resolved after the overrides. Keys of the JAX package that
@@ -42,6 +43,46 @@ WAV2LETTER_MODEL = {
             (768, 25, 1, 1, 0.3), (896, 29, 1, 2, 0.4), (896, 29, 1, 2, 0.4),
             (896, 29, 1, 2, 0.4), (1024, 1, 1, 1, 0.4))],
 }
+
+
+def _jasper_block(layer_size, kernel_size, **kw):
+    return {'layer_size': layer_size, 'kernel_size': kernel_size, **kw}
+
+
+# configs/model/jasper.yaml: the 15-block separable Jasper encoder.
+JASPER_MODEL = {
+    'name': 'jasper',
+    'mid_layers': 1,
+    'jasper_blocks': (
+        [_jasper_block(256, 32, stride=2, residual=False, separable=True)]
+        + [_jasper_block(256, k, stride=1, residual=True, separable=True)
+           for k in (32, 32, 32, 38, 38, 38)]
+        + [_jasper_block(512, k, stride=1, residual=True, separable=True)
+           for k in (50, 50, 50, 62, 62, 62, 74)]
+        + [_jasper_block(1024, 1, stride=1, residual=False,
+                         separable=False)]),
+    'remat': False,
+}
+
+# configs/model/quartznet.yaml: QuartzNet-15x5 (arXiv:1910.10261), C1,
+# B1-B5 (3 blocks each, R=5), C2, C3.
+QUARTZNET_MODEL = {
+    'name': 'jasper',
+    'mid_layers': 18,
+    'jasper_blocks': (
+        [_jasper_block(256, 33, stride=2, residual=False, separable=True)]
+        + [_jasper_block(w, k, repeat=5, residual=True, separable=True)
+           for w, k in ((256, 33), (256, 39), (512, 51), (512, 63),
+                        (512, 75)) for _ in range(3)]
+        + [_jasper_block(512, 87, dilation=2, residual=False,
+                         separable=True),
+           _jasper_block(1024, 1, stride=1, residual=False,
+                         separable=False)]),
+    'remat': False,
+}
+
+MODELS = {'wav2letter': WAV2LETTER_MODEL, 'jasper': JASPER_MODEL,
+          'quartznet': QUARTZNET_MODEL}
 
 AUDIO = {
     'standard_16k': {'window': 'hamming', 'window_size': 0.02,
@@ -127,10 +168,8 @@ UNSUPPORTED = {
     'model.stft_method': 'auto',
     'model.padding_mode': 'reflect',
     'model.compute_dtype': 'f32',
-    'model.name': 'wav2letter',
     'model.feature_type': 'logmel',
     'model.n_mfcc': None,
-    'model.init_mode': 'xavier_uniform',
     'model.audio_conf.resample': False,
     'data.cache_audio': False,
     'data.audio_dtype': 'float32',
@@ -238,15 +277,13 @@ def load_config(overrides=(), require_complete: bool = True) -> dict:
             groups[key.lstrip('+')] = val
         else:
             values.append((key, val))
-    if groups['model'] != 'wav2letter':
-        raise ValueError(f'model={groups["model"]!r} is not ported; the '
-                         "PyTorch port trains 'wav2letter' only")
-    for group, table in (('audio', AUDIO), ('optimizer', OPTIMIZERS)):
+    for group, table in (('audio', AUDIO), ('optimizer', OPTIMIZERS),
+                         ('model', MODELS)):
         if groups[group] not in table:
             raise ValueError(f'No config {groups[group]!r} in group '
                              f'{group!r}; available: {sorted(table)}')
     cfg = copy.deepcopy(BASE)
-    cfg['model'].update(copy.deepcopy(WAV2LETTER_MODEL))
+    cfg['model'].update(copy.deepcopy(MODELS[groups['model']]))
     cfg['model']['audio_conf'] = copy.deepcopy(AUDIO[groups['audio']])
     cfg['model'].update(copy.deepcopy(OPTIMIZERS[groups['optimizer']]))
     for key, val in values:

@@ -1,13 +1,18 @@
-"""Offline batched greedy evaluation of Wav2Letter (PyTorch, CUDA).
+"""Offline batched greedy evaluation (PyTorch, CUDA).
 
     python -m wav2letter_pytorch_tpu_torch.evaluate --test-manifest m.jsonl \
-        [--weights sd.pt] [--seed N] [--batch-size B] [--device cuda]
+        [--weights sd.pt] [--seed N] [--batch-size B] [--device cuda] \
+        [--mid-layers N] [model=quartznet] [key=value ...]
 
 Reads a CSV or JSON-lines manifest of WAV files, runs the log-mel frontend
-(kernel K1), the Wav2Letter stack, the masked CTC mean (kernel K2) and the
-argmax on the device, greedy-decodes on the host and prints one JSON line
+(kernel K1), the model, the masked CTC mean (kernel K2) and the argmax on
+the device, greedy-decodes on the host and prints one JSON line
 ``{"loss", "num_utterances", "cer", "wer"}`` as the JAX package's
-``test.py`` does. ``--weights`` is a ``state_dict`` saved with
+``test.py`` does. The model comes from the training config (``config.py``,
+the same ``key=value`` overrides as ``train.py``): Wav2Letter-20 by
+default, ``model=quartznet`` or ``model=jasper`` for the Jasper family
+(kernels K4 and K6), whose eval-mode probabilities are scored as in
+``test.py``. ``--weights`` is a ``state_dict`` of that model saved with
 ``torch.save`` (``weights.state_dict_from_flax`` makes one from a JAX
 checkpoint); without it the weights are drawn from ``--seed``.
 """
@@ -20,12 +25,12 @@ import json
 import numpy as np
 import torch
 
+from .config import load_config
 from .data.dataset import BucketBatchLoader, ManifestDataset
-from .data.features import AudioConfig, SpectrogramFrontend
-from .data.label_sets import resolve_labels
+from .data.features import SpectrogramFrontend
 from .decoding.decoder import GreedyDecoder
-from .models.wav2letter import WAV2LETTER_LAYERS, Wav2Letter
 from .runtime import resolve_device
+from .training.build import build_frontend, build_labels, build_model
 from .training.metrics import RatioAccumulator
 from .training.trainer import eval_step, masked_ctc_mean, to_device
 
@@ -33,7 +38,6 @@ __all__ = ['build', 'evaluate', 'eval_step', 'main', 'make_loader',
            'masked_ctc_mean', 'to_device']
 
 LABELS = 'english_lowercase'
-N_MELS = 64
 MAX_DURATION = 16.7  # seconds: cap on the padded audio length
 
 
@@ -45,25 +49,34 @@ def make_loader(manifest: str, batch_size: int, frontend: SpectrogramFrontend,
 
 
 def build(device: str | torch.device = 'cuda', seed: int = 0,
-          weights: str | None = None, mid_layers: int = 20):
-    """(model, frontend, labels) on ``device``, in eval mode. Raises if a
-    CUDA device is asked for and none is present."""
+          weights: str | None = None, mid_layers: int | None = None,
+          overrides=()):
+    """(model, frontend, labels) on ``device``, in eval mode, from the
+    training config after ``overrides``. ``mid_layers`` sets the depth;
+    without it, and without a ``model.mid_layers`` override, Wav2Letter
+    runs all 20 layers and the Jasper family its config's depth. Raises if
+    a CUDA device is asked for and none is present."""
     dev = resolve_device(device)
-    labels = resolve_labels(LABELS)
-    gen = torch.Generator().manual_seed(seed)
-    model = Wav2Letter(len(labels), input_size=N_MELS,
-                       layers=WAV2LETTER_LAYERS, mid_layers=mid_layers,
-                       generator=gen)
+    overrides = list(overrides)
+    cfg = load_config(['data.train_manifest=-', 'data.val_manifest=-',
+                       *overrides])
+    mcfg = cfg['model']
+    if mid_layers is not None:
+        mcfg['mid_layers'] = int(mid_layers)
+    elif mcfg['name'] == 'wav2letter' and not any(
+            o.lstrip('+').startswith('model.mid_layers=') for o in overrides):
+        mcfg['mid_layers'] = len(mcfg['layers'])
+    labels = build_labels(mcfg)
+    model = build_model(mcfg, len(labels), seed=seed)
     if weights:
         model.load_state_dict(torch.load(weights, map_location='cpu',
                                          weights_only=True), strict=True)
     model.to(dev).eval()
-    frontend = SpectrogramFrontend(AudioConfig(), n_mels=N_MELS, dither=0.0,
-                                   device=dev)
+    frontend = build_frontend(mcfg, dither=0.0, device=dev)
     return model, frontend, labels
 
 
-def evaluate(model: Wav2Letter, frontend: SpectrogramFrontend,
+def evaluate(model: torch.nn.Module, frontend: SpectrogramFrontend,
              loader: BucketBatchLoader, decoder: GreedyDecoder,
              device: str | torch.device) -> dict:
     """Loss, WER and CER over every batch of ``loader``."""
@@ -92,21 +105,25 @@ def evaluate(model: Wav2Letter, frontend: SpectrogramFrontend,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description='Offline greedy evaluation of Wav2Letter (PyTorch)')
+        description='Offline greedy evaluation (PyTorch)')
     parser.add_argument('--test-manifest', required=True)
     parser.add_argument('--weights', default='',
                         help='state_dict saved with torch.save; default: '
                              'weights drawn from --seed')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--batch-size', type=int, default=32)
-    parser.add_argument('--mid-layers', type=int, default=20,
-                        help='conv blocks before the head (the JAX '
-                             "config's model.mid_layers)")
+    parser.add_argument('--mid-layers', type=int, default=None,
+                        help="blocks before the head (the config's "
+                             'model.mid_layers; default: 20 for '
+                             "Wav2Letter, the config's own for Jasper)")
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('overrides', nargs='*', metavar='key=value',
+                        help='training-config overrides, e.g. '
+                             'model=quartznet')
     args = parser.parse_args(argv)
 
     model, frontend, labels = build(args.device, args.seed, args.weights,
-                                    args.mid_layers)
+                                    args.mid_layers, args.overrides)
     loader = make_loader(args.test_manifest, args.batch_size, frontend,
                          labels)
     result = evaluate(model, frontend, loader, GreedyDecoder(labels),

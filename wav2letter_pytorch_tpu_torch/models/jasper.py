@@ -1,0 +1,388 @@
+"""Jasper / QuartzNet: BxR residual (separable) conv CTC acoustic models.
+
+Same model as ``wav2letter_pytorch_tpu.models.jasper``:
+
+* ``MaskedConv`` zero-fills frames past each sample's length before its
+  conv and carries the lengths as floats through the conv arithmetic with
+  true division (C1 of QuartzNet turns 808 frames into 404.5); they are
+  cast to int only for masks and at the head;
+* ``JasperBlock``: ``repeat`` x (conv -> norm [batch | group | instance |
+  layer] -> GroupShuffle when ``groups > 1`` -> act -> dropout, the last
+  repeat without act and dropout), 1x1-conv residual branches (one per
+  dense pane) joined by ``add`` or ``max``, then act and dropout;
+  separable convs are depthwise + pointwise; ``heads`` folds a depthwise
+  conv's channel blocks into the batch;
+* ``Jasper``: the blocks, a 1x1 head with bias, ``log_softmax`` in train
+  mode and ``softmax`` in eval mode (``eval_emits_probs``).
+
+Kernels, where the JAX package takes its Pallas branches with
+``W2L_SEPCONV=pallas`` and ``W2L_DEPTHWISE=pallas`` (the port has no
+switch; on the card the kernels are the path):
+
+* a main-chain separable unit with kernel > 1, stride 1, no heads and
+  groups 1 runs as one fused unit, ``ops.sep_conv.sep_conv1d`` (K6 forward,
+  K7 backward);
+* any other depthwise ``MaskedConv`` (kernel > 1, no heads, no bias,
+  groups == features == channels; QuartzNet's stride-2 C1) runs
+  ``ops.depthwise.depthwise_conv1d`` (K4 forward, K4 + K5 backward);
+* the rest is ``F.conv1d``, what JAX leaves to XLA: 1x1 pointwise and
+  residual convs, heads-folded and grouped convs, C3 and the head.
+
+Train mode follows flax: BatchNorm (torch momentum 0.1, eps 1e-3) keeps
+the biased batch variance (``FlaxBatchNorm1d``); dropout draws from the
+``generator`` passed to ``forward``; ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``), replaying its dropout draws and
+leaving BatchNorm statistics alone, so gradients are bit-identical.
+
+Layout ``[B, T, C]`` throughout, as in JAX. Parameter keys are the
+reference torch layout: ``jasper_encoder.{b}.mconv.{i}.conv.weight``, the
+norm at its ``mconv`` index, parameter-less slots for act + dropout after
+every non-last repeat and for GroupShuffle, ``jasper_encoder.{b}.res.{j}.
+{0,1}``, and ``final_layer.0``; ``weights.state_dict_from_flax`` produces
+it from a JAX checkpoint.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.depthwise import depthwise_conv1d
+from ..ops.sep_conv import sep_conv1d
+from .base import (FlaxBatchNorm1d, compute_new_kernel_size, dropout,
+                   frozen_statistics, get_same_padding, hardtanh_0_20,
+                   init_conv_)
+
+_ACTIVATIONS = {
+    'relu': F.relu,
+    'hardtanh': hardtanh_0_20,
+    'selu': F.selu,
+}
+NORMALIZATIONS = ('batch', 'group', 'instance', 'layer')
+
+
+def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Interleave channels across groups. x: [B, T, C], C = groups * cpg."""
+    B, T, C = x.shape
+    return x.reshape(B, T, groups, C // groups).transpose(2, 3).reshape(
+        B, T, C)
+
+
+class Activation(nn.Module):
+    """relu, hardtanh (clamp 0, 20) or selu; a module so that a hook can see
+    (and a check can force) its branches."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        if name not in _ACTIVATIONS:
+            raise ValueError(f'Unknown activation {name!r}; expected one of '
+                             f'{sorted(_ACTIVATIONS)}')
+        self.name = name
+
+    def forward(self, x):
+        return _ACTIVATIONS[self.name](x)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` (see ``base.dropout``); identity in eval mode and
+    at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        return dropout(x, self.rate, generator)
+
+
+class GroupShuffle(nn.Module):
+    def __init__(self, groups: int):
+        super().__init__()
+        self.groups = groups
+
+    def forward(self, x):
+        return group_shuffle(x, self.groups)
+
+
+def make_norm(kind: str, channels: int, norm_groups: int) -> nn.Module:
+    """The block's norm over ``channels``; applied to [B, C, T]."""
+    if kind == 'batch':
+        # torch momentum 0.1 is flax momentum 0.9.
+        return FlaxBatchNorm1d(channels, momentum=0.1, eps=1e-3)
+    ng = channels if norm_groups == -1 else norm_groups
+    if kind == 'group':
+        return nn.GroupNorm(ng, channels, eps=1e-5)
+    if kind == 'instance':
+        return nn.GroupNorm(channels, channels, eps=1e-5)
+    if kind == 'layer':
+        return nn.GroupNorm(1, channels, eps=1e-5)
+    raise ValueError(f'Normalization method ({kind}) does not match one of '
+                     f'{list(NORMALIZATIONS)}.')
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return norm(x.transpose(1, 2)).transpose(1, 2)
+
+
+class MaskedConv(nn.Module):
+    """1-D conv on [B, T, C] that zero-fills frames past each sample's
+    length first and returns the new float lengths. ``heads`` folds a
+    depthwise conv over C channels into one over ``heads`` channels with
+    C / heads folded into the batch."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 heads: int = -1, padding: int = 0, use_bias: bool = False,
+                 use_mask: bool = True):
+        super().__init__()
+        self.in_channels, self.features = in_channels, features
+        self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
+                                                        dilation)
+        self.groups, self.heads, self.padding = groups, heads, padding
+        self.use_mask = use_mask
+        if heads != -1:
+            self.conv = nn.Conv1d(heads, heads, kernel_size, stride=stride,
+                                  dilation=dilation, groups=heads,
+                                  bias=use_bias)
+        else:
+            self.conv = nn.Conv1d(in_channels, features, kernel_size,
+                                  stride=stride, dilation=dilation,
+                                  groups=groups, bias=use_bias)
+        # K4 takes a depthwise conv (the JAX package's Pallas condition).
+        self.uses_kernel = (kernel_size > 1 and heads == -1 and not use_bias
+                            and groups == features == in_channels)
+
+    def out_length(self, lens: torch.Tensor) -> torch.Tensor:
+        return (lens + 2 * self.padding
+                - self.dilation * (self.kernel_size - 1) - 1) / self.stride + 1
+
+    def forward(self, x: torch.Tensor, lens):
+        if self.use_mask and lens is not None:
+            T = x.shape[1]
+            mask = (torch.arange(T, device=x.device)[None, :]
+                    < lens.to(torch.int32)[:, None])
+            x = x * mask[:, :, None].to(x.dtype)
+            lens = self.out_length(lens)
+        if self.uses_kernel:
+            w = self.conv.weight[:, 0, :].t().contiguous()      # [K, C]
+            return depthwise_conv1d(x.contiguous(), w, self.stride,
+                                    self.dilation, self.padding), lens
+        B, T, C = x.shape
+        groups = self.groups
+        if self.heads != -1:
+            # [B, T, C] -> [B * C/heads, T, heads]
+            x = x.reshape(B, T, C // self.heads, self.heads).transpose(1, 2)
+            x = x.reshape(-1, T, self.heads)
+            groups = self.heads
+        y = F.conv1d(x.transpose(1, 2), self.conv.weight, self.conv.bias,
+                     self.stride, self.padding, self.dilation,
+                     groups).transpose(1, 2)
+        if self.heads != -1:
+            T2 = y.shape[1]
+            y = y.reshape(B, self.features // self.heads, T2, self.heads)
+            y = y.transpose(1, 2).reshape(B, T2, self.features)
+        return y, lens
+
+
+class JasperBlock(nn.Module):
+    """One BxR block. ``forward`` takes the residual-pane inputs (the last
+    is the block's main input) and returns ``(out, lens)``.
+    ``res_channels`` are the panes' widths (one residual branch each)."""
+
+    def __init__(self, in_channels: int, planes: int, repeat: int = 3,
+                 kernel_size: int = 11, kernel_size_factor: float = 1.0,
+                 stride: int = 1, dilation: int = 1, dropout: float = 0.2,
+                 activation: str = 'hardtanh', residual: bool = True,
+                 groups: int = 1, separable: bool = False, heads: int = -1,
+                 normalization: str = 'batch', norm_groups: int = 1,
+                 residual_mode: str = 'add', dense_residual: bool = False,
+                 conv_mask: bool = False, res_channels=None):
+        super().__init__()
+        if residual_mode not in ('add', 'max'):
+            raise ValueError(f'residual_mode must be add or max, got '
+                             f'{residual_mode!r}')
+        kernel = compute_new_kernel_size(kernel_size, float(kernel_size_factor))
+        pad = get_same_padding(kernel, stride, dilation)
+        self.kernel, self.stride, self.dilation, self.pad = (kernel, stride,
+                                                             dilation, pad)
+        self.conv_mask = conv_mask
+        self.residual = residual
+        self.residual_mode = residual_mode
+        self.dense_residual = dense_residual
+        # Fused separable unit (K6/K7): the JAX package's Pallas condition.
+        self.fused = (separable and kernel > 1 and stride == 1
+                      and heads == -1 and groups == 1)
+        mconv, self.layout = [], []
+        cin = in_channels
+        for r in range(repeat):
+            convs = []
+            if separable and kernel > 1:
+                convs.append(MaskedConv(cin, cin, kernel, stride, dilation,
+                                        groups=cin, heads=heads, padding=pad,
+                                        use_mask=conv_mask))
+                convs.append(MaskedConv(cin, planes, 1, groups=groups,
+                                        use_mask=conv_mask))
+            else:
+                convs.append(MaskedConv(cin, planes, kernel, stride, dilation,
+                                        groups=groups, heads=heads,
+                                        padding=pad, use_mask=conv_mask))
+            slots = {'convs': list(range(len(mconv), len(mconv) + len(convs)))}
+            mconv += convs
+            slots['norm'] = len(mconv)
+            mconv.append(make_norm(normalization, planes, norm_groups))
+            if groups > 1:
+                slots['shuffle'] = len(mconv)
+                mconv.append(GroupShuffle(groups))
+            if r < repeat - 1:
+                slots['act'] = len(mconv)
+                mconv += [Activation(activation), Dropout(dropout)]
+            self.layout.append(slots)
+            cin = planes
+        self.mconv = nn.ModuleList(mconv)
+        res = []
+        if residual:
+            for ch in (res_channels or [in_channels]):
+                res.append(nn.ModuleList([
+                    MaskedConv(ch, planes, 1, use_mask=conv_mask),
+                    make_norm(normalization, planes, norm_groups)]))
+        self.res = nn.ModuleList(res)
+        self.out = nn.ModuleList([Activation(activation), Dropout(dropout)])
+
+    def _unit(self, slots, x, lens):
+        """One repeat's conv(s), norm and GroupShuffle."""
+        convs = [self.mconv[i] for i in slots['convs']]
+        if self.fused:
+            dw, pw = convs
+            wdw = dw.conv.weight[:, 0, :].t().contiguous()      # [K, Cin]
+            wpw = pw.conv.weight[:, :, 0].t().contiguous()      # [Cin, Cout]
+            x = sep_conv1d(x.contiguous(), lens if self.conv_mask else None,
+                           wdw, wpw, self.dilation, self.pad,
+                           use_mask=self.conv_mask)
+            if self.conv_mask and lens is not None:
+                # the two MaskedConv updates (depthwise, then 1x1 pointwise)
+                lens = (lens + 2 * self.pad
+                        - self.dilation * (self.kernel - 1) - 1) + 1
+        else:
+            for conv in convs:
+                x, lens = conv(x, lens)
+        x = apply_norm(self.mconv[slots['norm']], x)
+        if 'shuffle' in slots:
+            x = self.mconv[slots['shuffle']](x)
+        return x, lens
+
+    def forward(self, panes, lens, generator: torch.Generator | None = None):
+        x = panes[-1]
+        lens_orig = lens
+        for slots in self.layout:
+            x, lens = self._unit(slots, x, lens)
+            if 'act' in slots:
+                x = self.mconv[slots['act']](x)
+                x = self.mconv[slots['act'] + 1](x, generator)
+        if self.residual:
+            branches = panes if self.dense_residual else [panes[-1]]
+            for (conv, norm), res_in in zip(self.res, branches):
+                r, _ = conv(res_in, lens_orig)
+                r = apply_norm(norm, r)
+                x = x + r if self.residual_mode == 'add' else torch.maximum(
+                    x, r)
+        x = self.out[0](x)
+        return self.out[1](x, generator), lens
+
+
+class Jasper(nn.Module):
+    """Jasper encoder (``jasper_blocks[:mid_layers]``) + 1x1 head.
+
+    Block defaults: repeat 1, stride 1, dilation 1, ReLU, residual,
+    separable, masked convs, batch norm, dropout ``dropout_default``. With a
+    ``generator``, every conv weight is drawn from it by ``init_mode`` and
+    the head bias starts at zero; the module is built on the CPU and moved
+    to ``device``.
+    """
+
+    eval_emits_probs = True
+
+    def __init__(self, jasper_blocks, num_labels: int, input_size: int = 64,
+                 mid_layers: int = 1, init_mode: str = 'xavier_uniform',
+                 remat: bool = False, dropout_default: float = 0.0,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device = 'cpu'):
+        super().__init__()
+        specs = [dict(b) for b in list(jasper_blocks)[:mid_layers]]
+        self.remat = bool(remat)
+        blocks = []
+        panes = [input_size]
+        for b in specs:
+            dense = bool(b.get('residual_dense', False))
+            planes = int(b['layer_size'])
+            blocks.append(JasperBlock(
+                panes[-1], planes,
+                repeat=int(b.get('repeat', 1)),
+                kernel_size=int(b['kernel_size']),
+                kernel_size_factor=float(b.get('kernel_size_factor', 1.0)),
+                stride=int(b.get('stride', 1)),
+                dilation=int(b.get('dilation', 1)),
+                dropout=float(b.get('dropout', dropout_default)),
+                activation=b.get('activation', 'relu'),
+                residual=bool(b.get('residual', True)),
+                groups=int(b.get('groups', 1)),
+                separable=bool(b.get('separable', True)),
+                heads=int(b.get('heads', -1)),
+                normalization=b.get('normalization', 'batch'),
+                norm_groups=int(b.get('norm_groups', 1)),
+                residual_mode=b.get('residual_mode', 'add'),
+                dense_residual=dense,
+                conv_mask=bool(b.get('conv_mask', True)),
+                res_channels=list(panes) if dense else [panes[-1]]))
+            panes = panes + [planes] if dense else [planes]
+        self.jasper_encoder = nn.ModuleList(blocks)
+        self.final_layer = nn.Sequential(nn.Conv1d(panes[-1], num_labels, 1,
+                                                   bias=True))
+        self.scaling_factor = 1
+        for b in specs:
+            self.scaling_factor *= int(b.get('stride', 1))
+        if generator is not None:
+            for m in self.modules():
+                if isinstance(m, nn.Conv1d):
+                    init_conv_(m.weight, init_mode, generator)
+            nn.init.zeros_(self.final_layer[0].bias)
+        self.to(device)
+
+    def _run_block(self, block, panes, lens, generator):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(panes, lens, generator)
+        state = None if generator is None else generator.get_state()
+
+        def run(panes, lens):
+            # In the recomputation, replay the block's dropout draws.
+            if state is not None:
+                generator.set_state(state)
+            return block(panes, lens, generator)
+        return checkpoint(run, panes, lens, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_statistics(block)))
+
+    def forward(self, x: torch.Tensor, input_lengths=None,
+                generator: torch.Generator | None = None):
+        """x: [B, T, F] features. Returns (log_probs in train mode, probs in
+        eval mode, [B, T', L]; out_lengths [B] int32 or None)."""
+        lens = (None if input_lengths is None
+                else input_lengths.to(torch.float32))
+        panes = [x]
+        for block in self.jasper_encoder:
+            out, lens = self._run_block(block, panes, lens, generator)
+            panes = panes + [out] if block.dense_residual else [out]
+            x = out
+        head = self.final_layer[0]
+        logits = F.conv1d(x.transpose(1, 2), head.weight,
+                          head.bias).transpose(1, 2)
+        out = (F.log_softmax(logits, dim=-1) if self.training
+               else F.softmax(logits, dim=-1)).contiguous()
+        if lens is None:
+            return out, None
+        return out, lens.to(torch.int32)

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import hardtanh_0_20, same_pad_amount
+from .base import (FlaxBatchNorm1d, dropout, hardtanh_0_20, init_conv_,
+                   same_pad_amount)
 
 # configs/model/wav2letter.yaml of the JAX package: the full 20-layer stack.
 WAV2LETTER_LAYERS = (
@@ -53,35 +54,6 @@ WAV2LETTER_LAYERS = (
     dict(output_size=896, kernel_size=29, stride=1, dilation=2, dropout=0.4),
     dict(output_size=1024, kernel_size=1, stride=1, dilation=1, dropout=0.4),
 )
-
-
-class FlaxBatchNorm1d(nn.BatchNorm1d):
-    """``BatchNorm1d`` (same parameters, buffers and state-dict keys) whose
-    train-mode running statistics follow flax: the biased batch variance,
-    the one it normalises with, goes into ``running_var``."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
-            # torch's momentum is the weight of the NEW batch statistics.
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
-    the kept values by ``1 / (1 - rate)``; the mask is drawn from
-    ``generator`` (torch's default generator when None)."""
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
 
 
 class Conv1dBlock(nn.Module):
@@ -121,16 +93,17 @@ class Wav2Letter(nn.Module):
     """Wav2Letter conv stack -> log_softmax over labels.
 
     ``layers`` is the full layer spec, truncated to ``mid_layers`` blocks
-    before the 1x1 head. With a ``generator``, conv weights are drawn
-    xavier-uniform from it and biases start at zero (the JAX package's
-    default init); the module is built on the CPU and then moved to
-    ``device``.
+    before the 1x1 head. With a ``generator``, conv weights are drawn from
+    it by ``init_mode`` (the JAX package's ``model.init_mode``, default
+    xavier-uniform) and biases start at zero; the module is built on the
+    CPU and then moved to ``device``.
     """
 
     def __init__(self, num_labels: int, input_size: int = 64,
                  layers=WAV2LETTER_LAYERS, mid_layers: int = 20,
                  generator: torch.Generator | None = None,
-                 device: str | torch.device = 'cpu'):
+                 device: str | torch.device = 'cpu',
+                 init_mode: str = 'xavier_uniform'):
         super().__init__()
         specs = list(layers)[:mid_layers]
         blocks = []
@@ -150,8 +123,7 @@ class Wav2Letter(nn.Module):
             self.scaling_factor *= int(spec.get('stride', 1))
         if generator is not None:
             for block in self.conv1ds:
-                nn.init.xavier_uniform_(block.conv1.weight,
-                                        generator=generator)
+                init_conv_(block.conv1.weight, init_mode, generator)
                 nn.init.zeros_(block.conv1.bias)
         self.to(device)
 

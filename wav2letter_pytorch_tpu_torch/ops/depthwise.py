@@ -1,0 +1,230 @@
+"""K4 and K5: depthwise 1-D convolution (forward, weight gradient), as CUDA
+kernels and in plain PyTorch, joined by an autograd Function.
+
+Replaces ``wav2letter_pytorch_tpu/ops/depthwise_pallas.py``:
+``depthwise_fwd`` launches ``csrc/depthwise.cu``'s K4 (``_dw_pallas``) and
+``depthwise_wgrad`` its K5 (``_dw_pallas_wgrad``) for CUDA tensors, and run
+their plain versions (explicit K-tap loops) for CPU tensors; neither ever
+falls back from one to the other. ``DepthwiseConv1d`` is the
+``custom_vjp`` of ``_dw_op``: the input gradient is K4 again, at stride 1
+on the zero-stuffed cotangent with the flipped kernel, the weight gradient
+is K5. Layout ``[B, T, C]``, as in JAX. ``depthwise_fwd.launches`` and
+``depthwise_wgrad.launches`` count calls that launched the kernel (K5 is
+two launches: partial sums, then their fixed-order sum).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+
+def out_length(t: int, k: int, s: int, d: int, p: int) -> int:
+    """Conv output length, floor division."""
+    return (t + 2 * p - d * (k - 1) - 1) // s + 1
+
+
+def _taps(x_pad: torch.Tensor, k: int, s: int, d: int, t_out: int):
+    """Tap ``k``'s view of the padded input: frames t*s + k*d."""
+    return x_pad[:, k * d:k * d + (t_out - 1) * s + 1:s, :]
+
+
+def depthwise_fwd_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
+                            dilation: int, padding: int) -> torch.Tensor:
+    """Plain K4: y[b, t, c] = sum_k w[k, c] * x_pad[b, t*s + k*d, c], the
+    K taps added in order. x [B, T, C], w [K, C] -> [B, T_out, C]."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    t_out = out_length(T, K, stride, dilation, padding)
+    xp = F.pad(x, (0, 0, padding, padding))
+    y = torch.zeros((B, t_out, C), dtype=x.dtype, device=x.device)
+    for k in range(K):
+        y = y + _taps(xp, k, stride, dilation, t_out) * w[k]
+    return y
+
+
+def depthwise_wgrad_reference(x: torch.Tensor, g: torch.Tensor, K: int,
+                              stride: int, dilation: int,
+                              padding: int) -> torch.Tensor:
+    """Plain K5: dw[k, c] = sum_{b, t} x_pad[b, t*s + k*d, c] * g[b, t, c].
+    x [B, T, C], g [B, T_out, C] -> [K, C]."""
+    t_out = g.shape[1]
+    xp = F.pad(x, (0, 0, padding, padding))
+    return torch.stack([(_taps(xp, k, stride, dilation, t_out) * g)
+                        .sum(dim=(0, 1)) for k in range(K)])
+
+
+def _check(name: str, **tensors):
+    dev = next(iter(tensors.values())).device
+    for what, t in tensors.items():
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f'{name}: {what} must be float32 on {dev}, got '
+                             f'{t.dtype} on {t.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {what} must be contiguous')
+
+
+def _check_geometry(name, T, K, s, d, p):
+    if K < 1 or s < 1 or d < 1 or p < 0:
+        raise ValueError(f'{name}: need K, stride, dilation >= 1 and '
+                         f'padding >= 0, got K={K}, s={s}, d={d}, p={p}')
+    if out_length(T, K, s, d, p) < 1:
+        raise ValueError(f'{name}: T={T} gives no output frame at K={K}, '
+                         f's={s}, d={d}, p={p}')
+
+
+def _load(smem_fn: str, K: int, s: int, d: int) -> ctypes.CDLL:
+    lib = _build.load('depthwise')
+    fn = getattr(lib, smem_fn)
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    smem = fn(K, s, d)
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(f'depthwise: K={K}, stride {s}, dilation {d} need '
+                         f'{smem} bytes of shared memory, over the limit of '
+                         f'{_build.SMEM_LIMIT_BYTES}')
+    return lib
+
+
+def _launch_fwd(x, w, s, d, p):
+    _check('depthwise_fwd', x=x, w=w)
+    B, T, C = x.shape
+    K = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != C:
+        raise ValueError(f'depthwise_fwd: w must be [K, {C}], got '
+                         f'{tuple(w.shape)}')
+    _check_geometry('depthwise_fwd', T, K, s, d, p)
+    t_out = out_length(T, K, s, d, p)
+    lib = _load('dw_fwd_smem_bytes', K, s, d)
+    y = torch.empty((B, t_out, C), dtype=torch.float32, device=x.device)
+    fn = lib.dw_fwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, C, K, s, d,
+                  p, t_out, stream)
+    _build.check(lib, code, 'depthwise K4 launch')
+    depthwise_fwd.launches += 1
+    return y
+
+
+def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                  dilation: int = 1, padding: int = 0) -> torch.Tensor:
+    """K4: depthwise conv of x [B, T, C] with w [K, C] at ``stride``,
+    ``dilation`` and symmetric zero ``padding`` -> [B, T_out, C]. A CUDA
+    tensor goes through the kernel (float32, contiguous; raises on anything
+    else or on a failed launch), a CPU tensor through the plain version.
+    No gradient: see ``depthwise_conv1d``."""
+    if x.device.type == 'cuda':
+        return _launch_fwd(x.detach(), w.detach(), int(stride),
+                           int(dilation), int(padding))
+    if x.device.type != 'cpu':
+        raise ValueError(f'depthwise_fwd: unsupported device {x.device}')
+    with torch.no_grad():
+        return depthwise_fwd_reference(x, w, stride, dilation, padding)
+
+
+depthwise_fwd.launches = 0
+
+
+def _launch_wgrad(x, g, K, s, d, p):
+    _check('depthwise_wgrad', x=x, g=g)
+    B, T, C = x.shape
+    _check_geometry('depthwise_wgrad', T, K, s, d, p)
+    t_out = out_length(T, K, s, d, p)
+    if tuple(g.shape) != (B, t_out, C):
+        raise ValueError(f'depthwise_wgrad: g must be {(B, t_out, C)}, got '
+                         f'{tuple(g.shape)}')
+    lib = _load('dw_wgrad_smem_bytes', K, s, d)
+    part = torch.empty((B, K, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
+    fn = lib.dw_wgrad_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                  B, T, C, K, s, d, p, t_out, stream)
+    _build.check(lib, code, 'depthwise K5 launch')
+    depthwise_wgrad.launches += 1
+    return dw
+
+
+def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, K: int, stride: int = 1,
+                    dilation: int = 1, padding: int = 0) -> torch.Tensor:
+    """K5: the weight gradient [K, C] of ``depthwise_fwd`` from its input x
+    [B, T, C] and the cotangent g [B, T_out, C]. CUDA: the kernel; CPU: the
+    plain version."""
+    if x.device.type == 'cuda':
+        return _launch_wgrad(x.detach(), g.detach(), int(K), int(stride),
+                             int(dilation), int(padding))
+    if x.device.type != 'cpu':
+        raise ValueError(f'depthwise_wgrad: unsupported device {x.device}')
+    with torch.no_grad():
+        return depthwise_wgrad_reference(x, g, K, stride, dilation, padding)
+
+
+depthwise_wgrad.launches = 0
+
+
+def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
+                    dilation: int, padding: int) -> torch.Tensor:
+    """The input gradient [B, T, C] from the cotangent g [B, T_out, C], as
+    ``_dw_op_bwd`` forms it: a stride-1 depthwise conv (K4) of g, zero-
+    stuffed for stride > 1 with ``rem`` extra right zeros, with the flipped
+    kernel at padding d(K-1) - p; trimmed (or zero-padded) to T frames."""
+    B, t_out, C = g.shape
+    K = w.shape[0]
+    if stride > 1:
+        rem = (T + 2 * padding - dilation * (K - 1) - 1) % stride
+        g_in = g.new_zeros((B, (t_out - 1) * stride + 1 + rem, C))
+        g_in[:, :(t_out - 1) * stride + 1:stride] = g
+    else:
+        g_in = g
+    pad_t = dilation * (K - 1) - padding
+    if pad_t < 0:
+        g_in = g_in[:, -pad_t:g_in.shape[1] + pad_t, :]
+        pad_t = 0
+    dx = depthwise_fwd(g_in.contiguous(), w.flip(0).contiguous(), 1,
+                       dilation, pad_t)
+    if dx.shape[1] < T:
+        dx = F.pad(dx, (0, 0, 0, T - dx.shape[1]))
+    return dx[:, :T]
+
+
+class DepthwiseConv1d(torch.autograd.Function):
+    """Depthwise conv with a gradient in x and w: forward K4; backward K4
+    (input gradient, ``depthwise_dgrad``) and K5 (weight gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, dilation: int, padding: int):
+        ctx.geometry = (int(stride), int(dilation), int(padding))
+        ctx.save_for_backward(x, w)
+        return depthwise_fwd(x, w, stride, dilation, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        s, d, p = ctx.geometry
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = depthwise_dgrad(g, w.detach(), x.shape[1], s, d, p)
+        if ctx.needs_input_grad[1]:
+            dw = depthwise_wgrad(x.detach(), g, w.shape[0], s, d, p)
+        return dx, dw, None, None, None
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     dilation: int = 1, padding: int = 0) -> torch.Tensor:
+    """Depthwise 1-D conv, differentiable: x [B, T, C], w [K, C] ->
+    [B, T_out, C]. The counterpart of the JAX package's
+    ``depthwise_conv1d``."""
+    return DepthwiseConv1d.apply(x, w, stride, dilation, padding)

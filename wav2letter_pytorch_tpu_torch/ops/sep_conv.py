@@ -1,0 +1,283 @@
+"""K6 and K7: the fused masked separable-conv unit (mask -> depthwise ->
+mask -> pointwise), forward and backward, as CUDA kernels and in plain
+PyTorch, joined by an autograd Function.
+
+Replaces ``wav2letter_pytorch_tpu/ops/sep_conv_pallas.py``: ``sep_fwd``
+launches ``csrc/sep_conv.cu``'s K6 (``_sep_fwd``) and ``sep_bwd`` its K7
+(``_sep_op_bwd``) for CUDA tensors, and run their plain versions for CPU
+tensors; neither ever falls back from one to the other. ``SepConv1d`` is
+the ``custom_vjp`` of ``_sep_op``; ``lens`` only shapes the masks and gets
+no gradient. Stride is 1. ``sep_fwd.launches`` and ``sep_bwd.launches``
+count calls that launched the kernel (a K7 call is five launches of the
+one source: the g @ wpw^T product, the depthwise pass, the dwpw product
+and two fixed-order sums of partials).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+
+def out_length(t: int, k: int, d: int, p: int) -> int:
+    """Output frames of the unit (stride 1)."""
+    return t + 2 * p - d * (k - 1)
+
+
+def mask_lengths(lens: torch.Tensor, K: int, d: int, p: int):
+    """(len1, len2) int32 [B]: the frames kept by m1 on the input and by m2
+    on the depthwise output, cast from float lengths as ``_masks`` does:
+    int(lens) and int(lens + 2p - d(K-1) - 1 + 1)."""
+    lf = lens.to(torch.float32)
+    lens_dw = (lf + 2 * p - d * (K - 1) - 1) + 1
+    return (lf.to(torch.int32).contiguous(),
+            lens_dw.to(torch.int32).contiguous())
+
+
+def _masks(len1, len2, T: int, t_out: int, dtype, device):
+    m1 = (torch.arange(T, device=device)[None, :] < len1[:, None].long())
+    m2 = (torch.arange(t_out, device=device)[None, :]
+          < len2[:, None].long())
+    return m1[..., None].to(dtype), m2[..., None].to(dtype)
+
+
+def _depthwise(xm, wdw, d, p, t_out):
+    """K-tap loop, stride 1: sum_k wdw[k] * xm_pad[t + k*d]."""
+    xp = F.pad(xm, (0, 0, p, p))
+    h = torch.zeros(xm.shape[0], t_out, xm.shape[2], dtype=xm.dtype,
+                    device=xm.device)
+    for k in range(wdw.shape[0]):
+        h = h + xp[:, k * d:k * d + t_out] * wdw[k]
+    return h
+
+
+def sep_fwd_reference(x, len1, len2, wdw, wpw, dilation: int,
+                      padding: int) -> torch.Tensor:
+    """Plain K6, mirroring ``sep_conv1d_xla``: x * m1 -> K-tap depthwise
+    loop -> * m2 -> einsum with wpw. ``len1``/``len2`` int [B] or None (no
+    masks)."""
+    B, T, _ = x.shape
+    K = wdw.shape[0]
+    t_out = out_length(T, K, dilation, padding)
+    if len1 is not None:
+        m1, m2 = _masks(len1, len2, T, t_out, x.dtype, x.device)
+        x = x * m1
+    h = _depthwise(x, wdw, dilation, padding, t_out)
+    if len1 is not None:
+        h = h * m2
+    return torch.einsum('btc,cf->btf', h, wpw)
+
+
+def sep_bwd_reference(x, len1, len2, wdw, wpw, g, dilation: int,
+                      padding: int):
+    """Plain K7, the TPU kernel's arithmetic: recompute the depthwise
+    output, then dwpw = (dwres * m2)^T g, g_dw = (g wpw^T) * m2, dwdw[k] =
+    sum_t x_pad[t + kd] g_dw[t], dx = m1 * (the flipped-kernel conv of
+    g_dw at padding d(K-1) - p). Returns (dx, dwdw, dwpw)."""
+    B, T, C = x.shape
+    K = wdw.shape[0]
+    d, p = dilation, padding
+    t_out = g.shape[1]
+    if len1 is not None:
+        m1, m2 = _masks(len1, len2, T, t_out, x.dtype, x.device)
+        x = x * m1
+    dwres = _depthwise(x, wdw, d, p, t_out)
+    if len1 is not None:
+        dwres = dwres * m2
+    dwpw = torch.einsum('btc,btf->cf', dwres, g)
+    g_dw = torch.einsum('btf,cf->btc', g, wpw)
+    if len1 is not None:
+        g_dw = g_dw * m2
+    xp = F.pad(x, (0, 0, p, p))
+    dwdw = torch.stack([(xp[:, k * d:k * d + t_out] * g_dw).sum(dim=(0, 1))
+                        for k in range(K)])
+    pt = d * (K - 1) - p
+    gp = F.pad(g_dw, (0, 0, pt, pt))   # a negative pt trims
+    dx = torch.zeros_like(x)
+    for k in range(K):
+        dx = dx + gp[:, k * d:k * d + T] * wdw[K - 1 - k]
+    if len1 is not None:
+        dx = dx * m1
+    return dx, dwdw, dwpw
+
+
+def _check(name: str, **tensors):
+    dev = next(iter(tensors.values())).device
+    for what, t in tensors.items():
+        if t is None:
+            continue
+        want = torch.int32 if what.startswith('len') else torch.float32
+        if t.device != dev or t.dtype != want:
+            raise ValueError(f'{name}: {what} must be {want} on {dev}, got '
+                             f'{t.dtype} on {t.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {what} must be contiguous')
+
+
+def _geometry(name, x, len1, len2, wdw, wpw, d, p):
+    B, T, C = x.shape
+    K = wdw.shape[0]
+    if tuple(wdw.shape) != (K, C) or wpw.dim() != 2 or wpw.shape[0] != C:
+        raise ValueError(f'{name}: wdw must be [K, {C}] and wpw [{C}, Cout], '
+                         f'got {tuple(wdw.shape)} and {tuple(wpw.shape)}')
+    if (len1 is None) != (len2 is None) or (
+            len1 is not None and (tuple(len1.shape) != (B,)
+                                  or tuple(len2.shape) != (B,))):
+        raise ValueError(f'{name}: len1 and len2 must both be [{B}] or both '
+                         'None')
+    if K < 1 or d < 1 or not 0 <= p <= d * (K - 1):
+        raise ValueError(f'{name}: the kernel takes K >= 1, dilation >= 1 '
+                         f'and 0 <= padding <= d(K-1) (stride 1 only), got '
+                         f'K={K}, d={d}, p={p}')
+    t_out = out_length(T, K, d, p)
+    if t_out < 1:
+        raise ValueError(f'{name}: T={T} gives no output frame')
+    return B, T, C, K, wpw.shape[1], t_out
+
+
+def _load(smem_fn: str, K: int, d: int) -> ctypes.CDLL:
+    lib = _build.load('sep_conv')
+    fn = getattr(lib, smem_fn)
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = fn(K, d)
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(f'sep_conv: K={K}, dilation {d} need {smem} bytes '
+                         f'of shared memory, over the limit of '
+                         f'{_build.SMEM_LIMIT_BYTES}')
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(x, len1, len2, wdw, wpw, d, p):
+    _check('sep_fwd', x=x, wdw=wdw, wpw=wpw, len1=len1, len2=len2)
+    B, T, C, K, cout, t_out = _geometry('sep_fwd', x, len1, len2, wdw, wpw,
+                                        d, p)
+    lib = _load('sep_fwd_smem_bytes', K, d)
+    y = torch.empty((B, t_out, cout), dtype=torch.float32, device=x.device)
+    fn = lib.sep_fwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
+                  wpw.data_ptr(), y.data_ptr(), B, T, C, cout, K, d, p, t_out,
+                  stream)
+    _build.check(lib, code, 'sep_conv K6 launch')
+    sep_fwd.launches += 1
+    return y
+
+
+def sep_fwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
+            wpw: torch.Tensor, dilation: int = 1,
+            padding: int = 0) -> torch.Tensor:
+    """K6: y [B, T_out, Cout] of the unit; ``len1``/``len2`` from
+    ``mask_lengths`` or both None (no masks). CUDA: the kernel (float32 and
+    int32, contiguous; raises on anything else or a failed launch); CPU:
+    the plain version. No gradient: see ``sep_conv1d``."""
+    if x.device.type == 'cuda':
+        return _launch_fwd(x.detach(), len1, len2, wdw.detach(),
+                           wpw.detach(), int(dilation), int(padding))
+    if x.device.type != 'cpu':
+        raise ValueError(f'sep_fwd: unsupported device {x.device}')
+    with torch.no_grad():
+        return sep_fwd_reference(x, len1, len2, wdw, wpw, dilation, padding)
+
+
+sep_fwd.launches = 0
+
+
+def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
+    _check('sep_bwd', x=x, wdw=wdw, wpw=wpw, g=g, len1=len1, len2=len2)
+    B, T, C, K, cout, t_out = _geometry('sep_bwd', x, len1, len2, wdw, wpw,
+                                        d, p)
+    if tuple(g.shape) != (B, t_out, cout):
+        raise ValueError(f'sep_bwd: g must be {(B, t_out, cout)}, got '
+                         f'{tuple(g.shape)}')
+    lib = _load('sep_bwd_smem_bytes', K, d)
+    lib.sep_bwd_pw_splits.restype = ctypes.c_int
+    lib.sep_bwd_pw_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int]
+    splits = lib.sep_bwd_pw_splits(B * t_out, C, cout)
+    dev = x.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, dwdw, dwpw = empty(B, T, C), empty(K, C), empty(C, cout)
+    gdw, dwres = empty(B, t_out, C), empty(B, t_out, C)
+    part_dw, part_pw = empty(B, K, C), empty(splits, C, cout)
+    fn = lib.sep_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
+                  wpw.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                  dwdw.data_ptr(), dwpw.data_ptr(), gdw.data_ptr(),
+                  dwres.data_ptr(), part_dw.data_ptr(), part_pw.data_ptr(),
+                  B, T, C, cout, K, d, p, t_out, stream)
+    _build.check(lib, code, 'sep_conv K7 launch')
+    sep_bwd.launches += 1
+    return dx, dwdw, dwpw
+
+
+def sep_bwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
+            wpw: torch.Tensor, g: torch.Tensor, dilation: int = 1,
+            padding: int = 0):
+    """K7: (dx, dwdw, dwpw) of the unit from the cotangent g [B, T_out,
+    Cout]. CUDA: the kernel; CPU: the plain version."""
+    if x.device.type == 'cuda':
+        return _launch_bwd(x.detach(), len1, len2, wdw.detach(),
+                           wpw.detach(), g.detach(), int(dilation),
+                           int(padding))
+    if x.device.type != 'cpu':
+        raise ValueError(f'sep_bwd: unsupported device {x.device}')
+    with torch.no_grad():
+        return sep_bwd_reference(x, len1, len2, wdw, wpw, g, dilation,
+                                 padding)
+
+
+sep_bwd.launches = 0
+
+
+class SepConv1d(torch.autograd.Function):
+    """The fused unit with a gradient in x, wdw and wpw: forward K6,
+    backward K7."""
+
+    @staticmethod
+    def forward(ctx, x, len1, len2, wdw, wpw, dilation: int, padding: int):
+        ctx.geometry = (int(dilation), int(padding))
+        ctx.save_for_backward(x, len1, len2, wdw, wpw)
+        return sep_fwd(x, len1, len2, wdw, wpw, dilation, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, len1, len2, wdw, wpw = ctx.saved_tensors
+        d, p = ctx.geometry
+        dx, dwdw, dwpw = sep_bwd(x, len1, len2, wdw, wpw, g.contiguous(), d,
+                                 p)
+        return dx, None, None, dwdw, dwpw, None, None
+
+
+def sep_conv1d(x: torch.Tensor, lens, wdw: torch.Tensor, wpw: torch.Tensor,
+               dilation: int = 1, padding: int = 0,
+               use_mask: bool = True) -> torch.Tensor:
+    """Fused masked separable conv unit, differentiable in x, wdw and wpw:
+    x [B, T, Cin], float ``lens`` [B] (or None), wdw [K, Cin], wpw
+    [Cin, Cout] -> y [B, T_out, Cout] f32, T_out = T + 2p - d(K-1). The
+    counterpart of the JAX package's ``sep_conv1d``."""
+    if use_mask and lens is not None:
+        len1, len2 = mask_lengths(lens, wdw.shape[0], dilation, padding)
+    else:
+        len1 = len2 = None
+    return SepConv1d.apply(x, len1, len2, wdw, wpw, int(dilation),
+                           int(padding))

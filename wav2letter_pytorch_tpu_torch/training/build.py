@@ -13,6 +13,7 @@ import torch
 from .. import optim
 from ..data.features import AudioConfig, SpectrogramFrontend
 from ..data.label_sets import resolve_labels
+from ..models.jasper import Jasper
 from ..models.wav2letter import Wav2Letter
 
 _SCHED_TARGETS = {
@@ -35,19 +36,43 @@ def build_labels(model_cfg) -> list[str]:
     return resolve_labels(model_cfg['labels'])
 
 
-def build_model(model_cfg, num_labels: int, seed: int = 0) -> Wav2Letter:
-    """Wav2Letter on the CPU, conv weights xavier-uniform from ``seed``."""
-    layers = [dict(l) for l in model_cfg['layers']]
+def _check_layer_specs(layers, required, what):
+    """Fail with a config-level message when a layer spec lacks a key."""
     for i, layer in enumerate(layers):
-        missing = [k for k in ('output_size', 'kernel_size', 'stride')
-                   if k not in layer]
+        missing = [k for k in required if k not in layer]
         if missing:
-            raise ValueError(f'model.layers[{i}] is missing key(s) '
-                             f'{missing}; got keys {sorted(layer)}')
-    return Wav2Letter(num_labels, input_size=int(model_cfg['input_size']),
-                      layers=layers,
-                      mid_layers=int(model_cfg.get('mid_layers', 1)),
-                      generator=torch.Generator().manual_seed(int(seed)))
+            raise ValueError(f'{what}[{i}] is missing key(s) {missing}; got '
+                             f'keys {sorted(layer)}')
+
+
+def build_model(model_cfg, num_labels: int, seed: int = 0):
+    """The config's model (``model.name``: ``wav2letter`` or ``jasper``) on
+    the CPU, conv weights drawn by ``model.init_mode`` from ``seed``."""
+    name = model_cfg['name']
+    mid_layers = int(model_cfg.get('mid_layers', 1))
+    init_mode = model_cfg.get('init_mode', 'xavier_uniform')
+    gen = torch.Generator().manual_seed(int(seed))
+    if name == 'wav2letter':
+        _check_layer_specs(model_cfg['layers'],
+                           ('output_size', 'kernel_size', 'stride'),
+                           'model.layers')
+        return Wav2Letter(num_labels, input_size=int(model_cfg['input_size']),
+                          layers=[dict(l) for l in model_cfg['layers']],
+                          mid_layers=mid_layers, generator=gen,
+                          init_mode=init_mode)
+    if name == 'jasper':
+        _check_layer_specs(model_cfg['jasper_blocks'],
+                           ('layer_size', 'kernel_size'),
+                           'model.jasper_blocks')
+        return Jasper([dict(b) for b in model_cfg['jasper_blocks']],
+                      num_labels, input_size=int(model_cfg['input_size']),
+                      mid_layers=mid_layers, init_mode=init_mode,
+                      remat=bool(model_cfg.get('remat', False)),
+                      dropout_default=float(
+                          model_cfg.get('dropout_default', 0.0)),
+                      generator=gen)
+    raise ValueError(f'Unknown model name: {name!r} '
+                     "(expected 'wav2letter' or 'jasper')")
 
 
 def build_frontend(model_cfg, dither: float | None = None,

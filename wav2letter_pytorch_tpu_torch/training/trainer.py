@@ -3,9 +3,10 @@
 The counterpart of ``wav2letter_pytorch_tpu.training.trainer``:
 
 * ``Trainer.train_step`` is ``_train_step``: the log-mel frontend with
-  dither (kernel K1), optional SpecAugment/SpecCutout, Wav2Letter in train
-  mode (dropout, BatchNorm batch statistics), ``masked_ctc_mean`` (K2
-  forward, K3 backward), backward, and the optimizer update;
+  dither (kernel K1), optional SpecAugment/SpecCutout, the model
+  (Wav2Letter, or Jasper with kernels K4-K7) in train mode (dropout,
+  BatchNorm batch statistics), ``masked_ctc_mean`` (K2 forward, K3
+  backward), backward, and the optimizer update;
 * the random draws of step ``n`` (dither, augmentation, dropout) come
   from three generators seeded by ``np.random.SeedSequence([seed, n])``,
   the analogue of ``fold_in(rng, step)``: a resumed run replays them;
@@ -62,12 +63,16 @@ def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
 @torch.no_grad()
 def eval_step(model, frontend, batch):
     """One batch of tensors on the device -> (loss, argmax ids [B, T'] int32,
-    out_lens [B]). The caller puts the model in eval mode."""
+    out_lens [B]). The caller puts the model in eval mode. A model that
+    emits probabilities in eval mode (Jasper) is scored on
+    log(max(probs, 1e-30)), as the JAX trainer does."""
     feats, flens = frontend(batch['audio'], batch['audio_lengths'])
-    log_probs, out_lens = model(feats, flens)
+    out, out_lens = model(feats, flens)
+    log_probs = (torch.log(torch.clamp(out, min=1e-30))
+                 if getattr(model, 'eval_emits_probs', False) else out)
     loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
                            batch['target_lengths'], batch['batch_mask'])
-    ids = torch.argmax(log_probs, dim=-1).to(torch.int32)
+    ids = torch.argmax(out, dim=-1).to(torch.int32)
     return loss, ids, out_lens
 
 
