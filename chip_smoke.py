@@ -8,9 +8,12 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit.
 2. Build every kernel under ``wav2letter_pytorch_tpu_torch/csrc/`` with
    nvcc (one process per source, in parallel).
-3. K1 (stft_mel_log) against its plain PyTorch version on the card, at
-   16 kHz, 8 kHz and a 15 ms hop (B=4, 2 s, ragged lengths) and at the main
-   path's shape (B=32, ~8 s); plus a float64 oracle.
+3. K1 (stft_mel_log: real FFT, banded mel) against its plain PyTorch
+   version (the dense DFT) and a float64 oracle on the card, at 16 kHz,
+   8 kHz and a 15 ms hop (B=4, 2 s, ragged lengths), at every n_fft from
+   64 to 4096 (through the window length) and at the main path's shape
+   (B=32, ~8 s); the wrapper must raise on a CUDA tensor without its
+   tables or with an n_fft it does not take.
 4. K2 (ctc_alpha) against its plain version over (B, T, L, S) in
    {(8,120,31,40), (8,100,31,40), (16,800,31,70)} and the main path's
    shape; plus a float64 oracle and an impossible alignment; and K2 with
@@ -44,7 +47,8 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    plain versions and a float64 oracle on the TPU check grid and the
    QuartzNet main path's C1 shape; K6/K7 (fused separable unit, forward and
    the three gradients) likewise, with ragged lengths, masks on and off,
-   on the TPU grid and the QuartzNet main path's unit shapes.
+   on the TPU grid, the QuartzNet main path's unit shapes and shapes at
+   the edges of K6's tiles.
 12. QuartzNet-15x5 eval: ``evaluate.main model=quartznet`` at full width on
    the same 64 WAVs, B=32, seeded weights; per forward K4 must launch once
    and K6 76 times; the card's eval step against the CPU's.
@@ -113,7 +117,8 @@ from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          build_optimizer)
 from wav2letter_pytorch_tpu_torch.training.checkpoint import Checkpointer
 from wav2letter_pytorch_tpu_torch.training.trainer import Trainer
-from wav2letter_pytorch_tpu_torch.ops.stft_mel import (stft_mel_log,
+from wav2letter_pytorch_tpu_torch.ops.stft_mel import (K1Tables,
+                                                       stft_mel_log,
                                                        stft_mel_log_reference)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -123,6 +128,8 @@ FP32_FLOPS = 67e12          # FP32 outside the tensor cores
 K1_TOL = 5e-3               # max abs on normalised features
 K2_TOL = 1e-4               # |d loss| per sample, loss = nll / max(tl, 1)
 K1_ORACLE_TOL = 1e-3        # raw log-mel vs float64 (f32 rounding only)
+# n_fft of phase_k1's sweep: every size the kernel takes.
+K1_FFT_SWEEP = (64, 128, 256, 512, 1024, 2048, 4096)
 K2_ORACLE_RTOL = 1e-5       # nll vs float64, relative
 # Stored alphas vs the plain recursion's, relative to max(1, |alpha|): the
 # same float32 arithmetic, so only rounding differences.
@@ -161,6 +168,15 @@ SEP_GRID = [(4, 400, 256, 256, 33, 1), (4, 400, 512, 512, 74, 1),
             (2, 400, 512, 512, 87, 2)]
 SEP_MAIN = [(32, 404, 256, 256, 33, 1), (32, 404, 256, 512, 51, 1),
             (32, 404, 512, 512, 75, 1), (32, 404, 512, 512, 87, 2)]
+# Shapes at the edges of K6's tiles (64 frames, 256 or 512 output channels,
+# chunks of 16 input channels, 16-byte copies when Cin and Cout are
+# multiples of 4): Cout not a multiple of the tile (200, 640; 198 also not
+# of 4), Cin not a multiple of the chunk (100; 50 also not of 4), T_out
+# shorter than one tile, K = 1 with p = 0, d = 2 with an even K.
+SEP_EDGE = [(2, 100, 64, 200, 33, 1), (2, 100, 64, 640, 33, 1),
+            (2, 100, 100, 256, 33, 1), (2, 70, 50, 198, 9, 1),
+            (3, 40, 256, 512, 33, 1), (2, 100, 128, 256, 1, 1),
+            (2, 100, 64, 96, 4, 2)]
 # QuartzNet-15x5's K6 units per forward at B=32, T=404: (Cin, Cout, K,
 # dilation) -> count; 76 in all.
 SEP_PATH_UNITS = {(256, 256, 33, 1): 15, (256, 256, 39, 1): 15,
@@ -317,19 +333,32 @@ def k1_inputs(conf: AudioConfig, B: int, T: int, lens, seed: int, device):
     return fe, fe.prepare(a, l), l, 1 + T // fe.hop
 
 
+def k1_args(fe, padded, nf):
+    """The plain version's arguments (dense bases) for a frontend."""
+    return (padded, nf, fe.hop, fe.dft_re, fe.dft_im, fe.fb_t)
+
+
 def k1_compare(name, fe, padded, lens, nf):
-    args = (padded, nf, fe.hop, fe.dft_re, fe.dft_im, fe.fb_t)
-    raw_k = stft_mel_log(*args)
+    """K1 (real FFT, banded mel) against the plain dense DFT, normalised
+    features, and the raw log-mel against the float64 oracle."""
+    args = k1_args(fe, padded, nf)
+    raw_k = stft_mel_log(*args, fe.k1_tables())
     raw_p = stft_mel_log_reference(*args)
     norm_k, _ = fe.normalize(raw_k, lens)
     norm_p, _ = fe.normalize(raw_p, lens)
+    oracle = stft_mel_log_reference(*(a.double() if torch.is_tensor(a)
+                                      else a for a in args))
     torch.cuda.synchronize()
     raw_err = (raw_k - raw_p).abs().max().item()
     norm_err = (norm_k - norm_p).abs().max().item()
-    check(norm_err <= K1_TOL,
-          f'K1 {name} {tuple(padded.shape)} -> {tuple(raw_k.shape)}: '
-          f'normalised max err {norm_err:.3e} (gate {K1_TOL}), raw log-mel '
-          f'max err {raw_err:.3e}')
+    o_err = (raw_k.double() - oracle).abs().max().item()
+    p_err = (raw_p.double() - oracle).abs().max().item()
+    check(norm_err <= K1_TOL and o_err <= K1_ORACLE_TOL
+          and bool(torch.isfinite(raw_k).all()),
+          f'K1 {name} n_fft {fe.n_fft} {tuple(padded.shape)} -> '
+          f'{tuple(raw_k.shape)}: normalised max err {norm_err:.3e} (gate '
+          f'{K1_TOL}), raw log-mel max err {raw_err:.3e}; vs float64 oracle '
+          f'{o_err:.3e} (gate {K1_ORACLE_TOL}; plain version {p_err:.3e})')
     return norm_err
 
 
@@ -343,13 +372,29 @@ def phase_k1():
         fe, padded, lens, nf = k1_inputs(
             conf, 4, n, [n, 3 * n // 4, n // 2, n // 3 - 1], 0, dev)
         errs.append(k1_compare(name, fe, padded, lens, nf))
-        if name == '16k':
-            args = (padded, nf, fe.hop, fe.dft_re, fe.dft_im, fe.fb_t)
-            oracle = stft_mel_log_reference(*(a.double() if torch.is_tensor(a)
-                                              else a for a in args))
-            err = (stft_mel_log(*args).double() - oracle).abs().max().item()
-            check(err <= K1_ORACLE_TOL, f'K1 16k vs float64 oracle: raw '
-                  f'log-mel max err {err:.3e} (gate {K1_ORACLE_TOL})')
+    # Every n_fft the kernel takes, through the window length at 16 kHz.
+    for n_fft in K1_FFT_SWEEP:
+        conf = AudioConfig(window_size=n_fft / 16000)
+        n = 16000
+        fe, padded, lens, nf = k1_inputs(conf, 2, n, [n, n // 2 + 7], 2, dev)
+        assert fe.n_fft == n_fft, (fe.n_fft, n_fft)
+        errs.append(k1_compare('sweep', fe, padded, lens, nf))
+    # A CUDA tensor without the kernel's tables, or with an n_fft the kernel
+    # does not take, raises before any launch.
+    before = stft_mel_log.launches
+    for what, tables in (('no tables', None),
+                         ('n_fft 8192', K1Tables(
+                             torch.zeros(8192, device=dev),
+                             torch.zeros(8192, 2, device=dev),
+                             fe.k1_bands, fe.k1_weights))):
+        try:
+            stft_mel_log(*k1_args(fe, padded, nf), tables)
+            raised = ''
+        except ValueError as e:
+            raised = str(e)
+        check(bool(raised) and stft_mel_log.launches == before,
+              f'K1 wrapper raises ValueError on a CUDA tensor with {what}: '
+              f'{raised!r}')
     rng = np.random.default_rng(1)
     lens = rng.integers(LEN_LO, LEN_HI + 1, size=BATCH)
     fe, padded, lens_t, nf = k1_inputs(AudioConfig(), BATCH, LEN_HI, lens,
@@ -608,7 +653,8 @@ def sep_plain(x, l1, l2, wdw, wpw, g, d, p):
 def phase_k6_k7():
     errs = {'K6': [], 'K7': []}
     cases = ([(sh, m) for sh in SEP_GRID for m in (True, False)]
-             + [(sh, True) for sh in SEP_MAIN])
+             + [(sh, True) for sh in SEP_MAIN]
+             + [(sh, True) for sh in SEP_EDGE] + [(SEP_EDGE[0], False)])
     for i, (shape, masked) in enumerate(cases):
         B, T, Cin, Cout, K, d = shape
         (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 40 + i, DEVICE,
@@ -625,7 +671,8 @@ def phase_k6_k7():
         ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
         errs['K6'].append(ab[0])
         errs['K7'] += ab[1:]
-        name = 'main path' if shape in SEP_MAIN else f'grid{i // 2}'
+        name = ('main path' if shape in SEP_MAIN else
+                'edge' if shape in SEP_EDGE else f'grid{i // 2}')
         check(max(r) < SEP_DW_RTOL and max(o) < SEP_ORACLE_RTOL
               and all(bool(torch.isfinite(t).all()) for t in got),
               f'K6/K7 {name} (B,T,Cin,Cout,K,d)={shape} masks '
@@ -1240,16 +1287,29 @@ def profile_top(fn, what: str):
               f'{e.key[:90]}')
 
 
+def k1_fft_ops(n_fft: int, band_bins: int, n_mels: int) -> int:
+    """Operations of one frame in K1 as the kernel runs it: the window
+    (n_fft multiplies), the n_fft/2-point complex FFT (a radix-2 pass
+    without twiddles when log2(n_fft/2) is odd, 4 adds a butterfly; radix-4
+    passes of 3 complex twiddle products, 6 each, and 8 complex adds), the
+    split step (14 a bin) and the power (3 a bin), the banded mel (2 a
+    band bin) and the log (2 a mel)."""
+    m = n_fft // 2
+    log2_m = m.bit_length() - 1
+    fft = (log2_m % 2) * (m // 2) * 4 + (log2_m // 2) * (m // 4) * (18 + 16)
+    return n_fft + fft + 17 * (m + 1) + 2 * band_bins + 2 * n_mels
+
+
 def k1_numbers(fe, padded, nf):
     B, P = padded.shape
-    n_fft, nb = fe.dft_re.shape
-    nm = fe.fb_t.shape[1]
-    args = (padded, nf, fe.hop, fe.dft_re, fe.dft_im, fe.fb_t)
+    n_fft, nm = fe.n_fft, fe.n_mels
+    tables = fe.k1_tables()
+    args = (*k1_args(fe, padded, nf), tables)
     ms = cuda_ms(lambda: stft_mel_log(*args))
     print(f'K1 {ms:.4f} ms queued, '
           f'{cuda_ms(lambda: stft_mel_log(*args), queued=False):.4f} ms back '
           'to back')
-    plain_ms = cuda_ms(lambda: stft_mel_log_reference(*args), iters=5)
+    plain_ms = cuda_ms(lambda: stft_mel_log_reference(*args[:6]), iters=5)
 
     def library():
         spec = torch.stft(padded, n_fft, fe.hop, window=fe.window,
@@ -1258,10 +1318,14 @@ def k1_numbers(fe, padded, nf):
         return torch.log1p(power.transpose(1, 2) @ fe.fb_t + 2.0 ** -24)
     lib_err = (library() - stft_mel_log(*args)).abs().max().item()
     library_ms = cuda_ms(library)
-    nbytes = 4 * (B * P + 2 * n_fft * nb + nb * nm + B * nf * nm)
-    ops = B * nf * (2 * n_fft * nb * 2 + 3 * nb + 2 * nb * nm)
-    print(f'K1 at B={B}, P={P}, {nf} frames: {ops / 1e9:.2f} GFLOP, '
-          f'{nbytes / 1e6:.1f} MB; torch.stft path agrees to {lib_err:.2e}')
+    band_bins = int(tables.bands[:, 1].sum().item())
+    # padded audio read once, the tables, the log-mel written once
+    nbytes = 4 * (B * P + B * nf * nm + 3 * n_fft + 3 * nm + band_bins)
+    ops = B * nf * k1_fft_ops(n_fft, band_bins, nm)
+    print(f'K1 at B={B}, P={P}, {nf} frames, n_fft {n_fft}: '
+          f'{ops / 1e9:.3f} GFLOP (real FFT, banded mel over {band_bins} '
+          f'bins), {nbytes / 1e6:.1f} MB; torch.stft path agrees to '
+          f'{lib_err:.2e}')
     return ms, plain_ms, library_ms, nbytes, ops
 
 

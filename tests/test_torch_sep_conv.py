@@ -130,3 +130,20 @@ def test_lengths_get_no_gradient_and_cpu_launches_nothing():
         sep_fwd(torch.zeros(1, 10, 4, device='meta'), None, None,
                 torch.zeros(3, 4, device='meta'),
                 torch.zeros(4, 4, device='meta'))
+
+
+def test_k6_phase_split_guards_fit_the_kernel_source():
+    """tools/k6_phase_split.py switches K6's phases off by inserting guards
+    at fixed places of csrc/sep_conv.cu; each place must be there once."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools', 'k6_phase_split.py')
+    spec = importlib.util.spec_from_file_location('k6_phase_split', path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.guarded_source()
+    for macro in tool.GUARDS:
+        assert f'{macro}\n' in src
+    assert set(m for ms in tool.VARIANTS.values() for m in ms) == set(
+        tool.GUARDS)

@@ -137,7 +137,8 @@ extern "C" int ctc_alpha_launch(const float* log_probs, int B, int T, int L,
                                 int S, const int* target_lengths, int blank,
                                 float* nll, float* alphas, void* stream) {
   const size_t smem = smem_bytes(S, L);
-  int err = set_smem_limit(ctc_alpha_kernel, smem);
+  static SmemLimit limit;
+  int err = limit.raise_to(ctc_alpha_kernel, smem);
   if (err) return err;
   int threads = ((2 * S + 1) + 31) / 32 * 32;
   threads = threads > 1024 ? 1024 : threads;

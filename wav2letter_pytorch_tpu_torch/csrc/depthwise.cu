@@ -159,7 +159,8 @@ extern "C" int dw_fwd_launch(const float* x, const float* w, float* y, int B,
                              int T, int C, int K, int s, int d, int p,
                              int T_out, void* stream) {
   const size_t smem = fwd_smem(K, s, d);
-  int err = set_smem_limit(dw_fwd_kernel, smem);
+  static SmemLimit limit;
+  int err = limit.raise_to(dw_fwd_kernel, smem);
   if (err) return err;
   const dim3 grid((T_out + TT - 1) / TT, (C + CT - 1) / CT, B);
   dw_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -174,7 +175,8 @@ extern "C" int dw_wgrad_launch(const float* x, const float* g, float* part,
                                int d, int p, int T_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = wgrad_smem(K, s, d);
-  int err = set_smem_limit(dw_wgrad_partial_kernel, smem);
+  static SmemLimit limit;
+  int err = limit.raise_to(dw_wgrad_partial_kernel, smem);
   if (err) return err;
   const dim3 grid((C + CT - 1) / CT, B);
   dw_wgrad_partial_kernel<<<grid, THREADS, smem, st>>>(x, g, part, T, C, K, s,

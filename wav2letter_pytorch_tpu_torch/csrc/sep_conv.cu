@@ -20,17 +20,30 @@
 // FP32 peak.
 //
 // Design, K6. The fusion is the point: the depthwise intermediate never
-// reaches device memory. A block owns (32 output frames, 256 output
-// channels, batch row) and walks Cin in chunks of 32. For each chunk it
-// stages x's span (the tile plus its d(K-1) halo, masked by m1 and zero
-// outside [0, T)) and the chunk's depthwise weights in shared memory, runs
-// the K-tap FMA chain (lane = output frame) into a [32 channels][32 frames]
-// shared tile masked by m2, stages the [32, 256] slice of wpw, and
-// multiplies the two with a register-blocked FP32 product written here:
-// each thread keeps a 4 x 8 block of the [32, 256] output in registers
-// across all chunks, reading one float4 of the depthwise tile (a
-// broadcast) and two of wpw per input channel. Cout > 256 re-runs the
-// depthwise per 256-channel tile (x2 at 512); wgmma and TMA are later work.
+// reaches device memory. A block owns (64 output frames, TN output
+// channels, batch row), TN = 256 when Cout <= 256 and 512 otherwise, so at
+// QuartzNet's widths one block covers all of Cout and runs each depthwise
+// tap once per (frame tile, input channel); Cout > 512 takes more blocks,
+// each re-running the depthwise for its slice. TN / 2 threads each keep a
+// 16 x 8 block of the output in registers across all of Cin (~245
+// registers, no spills: 8 warps an SM at TN = 512, 2 blocks of 4 warps at
+// TN = 256; an 8 x 8 block at 128 registers spilled). 64-frame tiles cut
+// T_out = 404 into 7 (10 % ragged waste) and give 7 x 32 = 224 blocks:
+// one wave at TN = 256, 1.7 at TN = 512.
+// The block walks Cin in chunks of 16 through a ring of 3 shared-memory
+// stages fed by 16-byte cp.async (4-byte copies when Cin or Cout is not a
+// multiple of 4): chunks c+1 and c+2 (x's span, i.e. the tile plus its
+// d(K-1) halo, masked by m1 and zero outside [0, T); the depthwise
+// weights; the [16, TN] slice of wpw) arrive while chunk c computes:
+//  - depthwise: each thread computes FPT = 4 (TN = 512) or 8 (TN = 256)
+//    consecutive frames of one channel with independent accumulators; at
+//    d = 1 a sliding register window over x, so one shared load feeds FPT
+//    taps; the result goes, masked by m2, to a [16][64] shared tile;
+//  - product: per input channel a warp (all 64 frames x 64 channels)
+//    reads 4 float4s of the tile and 2 of wpw, each 4 or 8 distinct
+//    addresses (one shared wavefront), for 128 FMAs a thread.
+// FP32 FMA only; each y element is written once, by one thread: no
+// atomics. Tensor cores (TF32, 3xTF32) are outside the FP32 policy.
 //
 // Design, K7: five launches from this source on one stream.
 //  (i)   gdw = (g @ wpw^T) * m2 [B, T_out, Cin]: a tiled FP32 product
@@ -50,6 +63,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "common.cuh"
 #include "partials.cuh"
 
@@ -59,9 +74,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int CC = 32;       // input channels per chunk / tile, one per lane
 constexpr int XS = CC + 1;   // padded shared row
-// K6 block tile
-constexpr int F_TT = 32;     // output frames (= lanes in the depthwise step)
-constexpr int F_OT = 256;    // output channels
 // K7 (ii) time tile
 constexpr int B_TT = 32;
 // Product tile of K7 (i) and (iii)
@@ -72,107 +84,8 @@ constexpr int G_PAD = 4;
 // Chunks of the B*T_out reduction of dwpw (one partial each)
 constexpr int PW_TARGET_BLOCKS = 512;
 
-__host__ __device__ inline int fwd_rows(int K, int d) {
-  return F_TT + d * (K - 1);
-}
-
 __host__ __device__ inline int bwd_rows(int K, int d) {
   return B_TT + d * (K - 1);
-}
-
-__global__ void __launch_bounds__(THREADS)
-sep_fwd_kernel(const float* __restrict__ x, const int* __restrict__ len1,
-               const int* __restrict__ len2, const float* __restrict__ wdw,
-               const float* __restrict__ wpw, float* __restrict__ y, int T,
-               int Cin, int Cout, int K, int d, int p, int T_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int rows = fwd_rows(K, d);
-  float* wpw_s = smem;                    // [CC][F_OT]
-  float* dwres_s = wpw_s + CC * F_OT;     // [CC][F_TT]
-  float* x_s = dwres_s + CC * F_TT;       // [rows][XS]
-  float* wdw_s = x_s + rows * XS;         // [K][CC]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int t0 = blockIdx.x * F_TT;
-  const int o0 = blockIdx.y * F_OT;
-  const int b = blockIdx.z;
-  const int l1 = len1 ? min(len1[b], T) : T;
-  const int l2 = len2 ? min(len2[b], T_out) : T_out;
-  const float* xb = x + (size_t)b * T * Cin;
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    const int c = c0 + lane;
-    const bool c_ok = c < Cin;
-    __syncthreads();  // the previous chunk's readers are done
-    for (int r = warp; r < rows; r += WARPS) {
-      const int t = t0 - p + r;
-      x_s[r * XS + lane] =
-          (c_ok && t >= 0 && t < l1) ? xb[(size_t)t * Cin + c] : 0.f;
-    }
-    for (int k = warp; k < K; k += WARPS) {
-      wdw_s[k * CC + lane] = c_ok ? wdw[(size_t)k * Cin + c] : 0.f;
-    }
-    for (int i = tid; i < CC * F_OT; i += THREADS) {
-      const int cc = i / F_OT;
-      const int o = i % F_OT;
-      wpw_s[i] = (c0 + cc < Cin && o0 + o < Cout)
-                     ? wpw[(size_t)(c0 + cc) * Cout + o0 + o]
-                     : 0.f;
-    }
-    __syncthreads();
-    // Depthwise: lane = output frame, each warp 4 of the 32 channels.
-    {
-      const bool t_ok = t0 + lane < l2;
-      const float* xr = x_s + lane * XS;
-      for (int cc = warp; cc < CC; cc += WARPS) {
-        float a = 0.f;
-        if (t_ok) {
-          for (int k = 0; k < K; ++k) {
-            a = fmaf(xr[k * d * XS + cc], wdw_s[k * CC + cc], a);
-          }
-        }
-        dwres_s[cc * F_TT + lane] = a;
-      }
-    }
-    __syncthreads();
-    // Pointwise: rows warp*4 + i, columns lane*4 + j and 128 + lane*4 + j.
-#pragma unroll 4
-    for (int cc = 0; cc < CC; ++cc) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(dwres_s + cc * F_TT + warp * 4);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(wpw_s + cc * F_OT + lane * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(
-          wpw_s + cc * F_OT + 128 + lane * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + warp * 4 + i;
-    if (t >= T_out) continue;
-    float* yr = y + ((size_t)b * T_out + t) * Cout + o0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = (j < 4 ? 0 : 128 - 4) + lane * 4 + j;
-      if (o0 + o < Cout) yr[o] = acc[i][j];
-    }
-  }
 }
 
 // C[z] = A @ B over the z-th chunk of the reduction (K) dimension, with
@@ -342,11 +255,6 @@ sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
   }
 }
 
-inline size_t fwd_smem(int K, int d) {
-  return ((size_t)CC * F_OT + (size_t)CC * F_TT + (size_t)fwd_rows(K, d) * XS +
-          (size_t)K * CC) * sizeof(float);
-}
-
 inline size_t bwd_smem(int K, int d) {
   return (2 * (size_t)bwd_rows(K, d) * XS + 2 * (size_t)K * CC) *
          sizeof(float);
@@ -366,10 +274,295 @@ inline int pw_rows_per_split(long long m_rows, int splits) {
   return (int)((per + G_BK - 1) / G_BK * G_BK);
 }
 
+// ---- K6 ------------------------------------------------------------------
+// Tile: FM output frames x TN output channels (TN = 256 for Cout <= 256,
+// else 512), one batch row, TN / 2 threads of 16 x 8 outputs each; Cin in
+// chunks of FC through a ring of F_STAGES shared-memory stages fed by
+// cp.async.
+constexpr int FM = 64;        // output frames per block
+constexpr int FC = 16;        // input channels per chunk
+constexpr int F_STAGES = 3;   // cp.async ring depth
+constexpr int FMP = FM + 4;   // padded row of a depthwise tile [FC][FMP]
+constexpr int FXS = FC + 4;   // padded row of the x span [rows][FXS]
+
+template <int TN>
+struct FwdShape {
+  static constexpr int THREADS = TN / 2;         // 16 x 8 outputs a thread
+  static constexpr int FPT = FC * FM / THREADS;  // depthwise frames a thread
+};
+
+__host__ __device__ inline int fwd_rows(int K, int d) {
+  return FM + d * (K - 1);
+}
+
+template <int TN>
+__host__ __device__ inline size_t fwd_stage_floats(int K, int d) {
+  return (size_t)fwd_rows(K, d) * FXS + (size_t)K * FC + (size_t)FC * TN;
+}
+
+template <int TN>
+inline size_t fwd_smem(int K, int d) {
+  return (F_STAGES * fwd_stage_floats<TN>(K, d) + (size_t)FC * FMP) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage chunk c0 of x's span (rows t0 - p ..., masked by m1, zero outside
+// [0, T)), of wdw and of wpw's [FC, TN] slice; zero-filled past Cin and
+// Cout. STRIDE 4: 16-byte copies (Cin and Cout multiples of 4, aligned
+// bases); STRIDE 1: 4-byte copies.
+template <int TN, int STRIDE>
+__device__ __forceinline__ void fwd_load_stage(
+    float* st, const float* __restrict__ xb, const float* __restrict__ wdw,
+    const float* __restrict__ wpw, int c0, int t0, int o0, int l1, int Cin,
+    int Cout, int K, int p, int rows) {
+  constexpr int THREADS = FwdShape<TN>::THREADS;
+  float* x_s = st;
+  float* wdw_s = x_s + rows * FXS;
+  float* wpw_s = wdw_s + K * FC;
+  const int tid = threadIdx.x;
+  constexpr int PER_ROW = FC / STRIDE;
+  for (int i = tid; i < rows * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW;
+    const int cq = (i % PER_ROW) * STRIDE;
+    const int t = t0 - p + r;
+    const bool ok = t >= 0 && t < l1 && c0 + cq < Cin;
+    const float* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
+    if constexpr (STRIDE == 4) {
+      cp_async16(x_s + r * FXS + cq, src, ok);
+    } else {
+      cp_async4(x_s + r * FXS + cq, src, ok);
+    }
+  }
+  for (int i = tid; i < K * PER_ROW; i += THREADS) {
+    const int k = i / PER_ROW;
+    const int cq = (i % PER_ROW) * STRIDE;
+    const bool ok = c0 + cq < Cin;
+    const float* src = ok ? wdw + (size_t)k * Cin + c0 + cq : wdw;
+    if constexpr (STRIDE == 4) {
+      cp_async16(wdw_s + k * FC + cq, src, ok);
+    } else {
+      cp_async4(wdw_s + k * FC + cq, src, ok);
+    }
+  }
+  constexpr int PER_W = TN / STRIDE;
+  for (int i = tid; i < FC * PER_W; i += THREADS) {
+    const int cc = i / PER_W;
+    const int oq = (i % PER_W) * STRIDE;
+    const bool ok = c0 + cc < Cin && o0 + oq < Cout;
+    const float* src = ok ? wpw + (size_t)(c0 + cc) * Cout + o0 + oq : wpw;
+    if constexpr (STRIDE == 4) {
+      cp_async16(wpw_s + cc * TN + oq, src, ok);
+    } else {
+      cp_async4(wpw_s + cc * TN + oq, src, ok);
+    }
+  }
+}
+
+// Depthwise of one staged chunk, masked by m2, into the tile dw [FC][FMP]:
+// this thread's channel dc, frames dr..dr+FPT-1, with FPT independent
+// accumulators; at d = 1 a sliding window, so one shared load of x feeds
+// FPT taps.
+template <int TN>
+__device__ __forceinline__ void fwd_depthwise(const float* st, float* dw,
+                                              int rows, int K, int d, int dc,
+                                              int dr, int t0, int l2) {
+  constexpr int FPT = FwdShape<TN>::FPT;
+  const float* xc = st + dr * FXS + dc;
+  const float* wc = st + rows * FXS + dc;
+  float a[FPT];
+#pragma unroll
+  for (int i = 0; i < FPT; ++i) a[i] = 0.f;
+  if (d == 1) {
+    float win[FPT];
+#pragma unroll
+    for (int i = 0; i + 1 < FPT; ++i) win[i + 1] = xc[i * FXS];
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i + 1 < FPT; ++i) win[i] = win[i + 1];
+      win[FPT - 1] = xc[(k + FPT - 1) * FXS];
+      const float w = wc[k * FC];
+#pragma unroll
+      for (int i = 0; i < FPT; ++i) a[i] = fmaf(win[i], w, a[i]);
+    }
+  } else {
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) {
+      const float w = wc[k * FC];
+      const float* xk = xc + k * d * FXS;
+#pragma unroll
+      for (int i = 0; i < FPT; ++i) a[i] = fmaf(xk[i * FXS], w, a[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < FPT; ++i) {
+    if (t0 + dr + i >= l2) a[i] = 0.f;  // m2 (and frames >= T_out)
+  }
+  float* dst = dw + dc * FMP + dr;
+#pragma unroll
+  for (int i = 0; i < FPT; i += 4) {
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]);
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(TN / 2, TN == 256 ? 2 : 1)
+sep_fwd_kernel(const float* __restrict__ x, const int* __restrict__ len1,
+               const int* __restrict__ len2, const float* __restrict__ wdw,
+               const float* __restrict__ wpw, float* __restrict__ y, int T,
+               int Cin, int Cout, int K, int d, int p, int T_out, int vec) {
+  constexpr int FPT = FwdShape<TN>::FPT;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = fwd_rows(K, d);
+  const int stage = (int)fwd_stage_floats<TN>(K, d);
+  float* dw_s = smem + F_STAGES * stage;  // [FC][FMP], masked by m2
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * FM;
+  const int o0 = blockIdx.y * TN;
+  const int b = blockIdx.z;
+  const int l1 = len1 ? min(len1[b], T) : T;
+  const int l2 = len2 ? min(len2[b], T_out) : T_out;
+  const float* xb = x + (size_t)b * T * Cin;
+  const int n_chunks = (Cin + FC - 1) / FC;
+
+  auto load = [&](int chunk) {
+    float* st = smem + (chunk % F_STAGES) * stage;
+    if (vec) {
+      fwd_load_stage<TN, 4>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1, Cin,
+                            Cout, K, p, rows);
+    } else {
+      fwd_load_stage<TN, 1>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1, Cin,
+                            Cout, K, p, rows);
+    }
+  };
+
+  // Product: a warp covers all 64 frames x 64 channels; lane (ty, tx) =
+  // (lane / 8, lane % 8) owns frames fm + 16 g + 0..3 (g < 4) and channels
+  // cn + 0..3, cn + 32..35. Per input channel a warp reads 4 + 2 float4s,
+  // each of 4 or 8 distinct addresses (one shared wavefront), for 128 FMAs.
+  const int lane = tid & 31;
+  const int fm = (lane >> 3) * 4;
+  const int cn = (tid >> 5) * 64 + (lane & 7) * 4;
+  // Depthwise: channel dc, frames dr..dr+FPT-1 of the tile.
+  const int dc = tid % FC;
+  const int dr = (tid / FC) * FPT;
+
+  float acc[16][8];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < n_chunks) load(s);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // chunk ch landed; everyone is done with ch - 1
+    if (ch + F_STAGES - 1 < n_chunks) load(ch + F_STAGES - 1);
+    cp_async_commit();
+    fwd_depthwise<TN>(smem + (ch % F_STAGES) * stage, dw_s, rows, K, d, dc,
+                      dr, t0, l2);
+    __syncthreads();
+    const float* dwt = dw_s;
+    const float* wpw_s = smem + (ch % F_STAGES) * stage + rows * FXS + K * FC;
+#pragma unroll 4
+    for (int cc = 0; cc < FC; ++cc) {
+      float av[16], bv[8];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(dwt + cc * FMP + fm + 16 * g);
+        av[4 * g] = a4.x; av[4 * g + 1] = a4.y;
+        av[4 * g + 2] = a4.z; av[4 * g + 3] = a4.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(wpw_s + cc * TN + cn + 32 * h);
+        bv[4 * h] = b4.x; bv[4 * h + 1] = b4.y;
+        bv[4 * h + 2] = b4.z; bv[4 * h + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int t = t0 + fm + 16 * (i / 4) + i % 4;
+    if (t >= T_out) continue;
+    float* yr = y + ((size_t)b * T_out + t) * Cout;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + cn + 32 * h;
+      if (vec) {
+        if (o < Cout) {
+          *reinterpret_cast<float4*>(yr + o) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (o + j < Cout) yr[o + j] = acc[i][4 * h + j];
+        }
+      }
+    }
+  }
+}
+
+template <int TN>
+int launch_sep_fwd(const float* x, const int* len1, const int* len2,
+                   const float* wdw, const float* wpw, float* y, int B,
+                   int T, int Cin, int Cout, int K, int d, int p, int T_out,
+                   int vec, cudaStream_t stream) {
+  static SmemLimit limit;
+  const size_t smem = fwd_smem<TN>(K, d);
+  int err = limit.raise_to(sep_fwd_kernel<TN>, smem);
+  if (err) return err;
+  const dim3 grid((T_out + FM - 1) / FM, (Cout + TN - 1) / TN, B);
+  sep_fwd_kernel<TN><<<grid, FwdShape<TN>::THREADS, smem, stream>>>(
+      x, len1, len2, wdw, wpw, y, T, Cin, Cout, K, d, p, T_out, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" long long sep_fwd_smem_bytes(int K, int d) {
-  return (long long)fwd_smem(K, d);
+// Shared memory of K6 for (K, d, Cout): the tile width follows Cout.
+extern "C" long long sep_fwd_smem_bytes(int K, int d, int Cout) {
+  return (long long)(Cout <= 256 ? fwd_smem<256>(K, d) : fwd_smem<512>(K, d));
 }
 
 extern "C" long long sep_bwd_smem_bytes(int K, int d) {
@@ -388,13 +581,18 @@ extern "C" int sep_fwd_launch(const float* x, const int* len1,
                               const float* wpw, float* y, int B, int T,
                               int Cin, int Cout, int K, int d, int p,
                               int T_out, void* stream) {
-  const size_t smem = fwd_smem(K, d);
-  int err = set_smem_limit(sep_fwd_kernel, smem);
-  if (err) return err;
-  const dim3 grid((T_out + F_TT - 1) / F_TT, (Cout + F_OT - 1) / F_OT, B);
-  sep_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, len1, len2, wdw, wpw, y, T, Cin, Cout, K, d, p, T_out);
-  return static_cast<int>(cudaGetLastError());
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const int vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned(x) &&
+                  aligned(wdw) && aligned(wpw) && aligned(y);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Cout <= 256) {
+    return launch_sep_fwd<256>(x, len1, len2, wdw, wpw, y, B, T, Cin, Cout,
+                               K, d, p, T_out, vec, st);
+  }
+  return launch_sep_fwd<512>(x, len1, len2, wdw, wpw, y, B, T, Cin, Cout, K,
+                             d, p, T_out, vec, st);
 }
 
 // K7 on `stream`: dx [B, T, Cin], dwdw [K, Cin], dwpw [Cin, Cout] from g
@@ -423,7 +621,8 @@ extern "C" int sep_bwd_launch(const float* x, const int* len1,
   // (ii) dx, dwres and the per-row partials of dwdw.
   {
     const size_t smem = bwd_smem(K, d);
-    int err = set_smem_limit(sep_bwd_dw_kernel, smem);
+    static SmemLimit limit;
+    int err = limit.raise_to(sep_bwd_dw_kernel, smem);
     if (err) return err;
     const dim3 grid((Cin + CC - 1) / CC, B);
     sep_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(

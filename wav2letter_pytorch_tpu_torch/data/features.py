@@ -8,8 +8,8 @@ n_fft = 2^ceil(log2(window)) frame), power, a Slaney mel filterbank,
 valid frames (unbiased std) with padding frames zeroed.
 
 The framing -> DFT -> power -> mel -> log part is kernel K1
-(``ops/stft_mel.py``): a CUDA kernel on the card, its plain PyTorch
-version on the CPU.
+(``ops/stft_mel.py``): a real FFT and a banded mel in a CUDA kernel on the
+card, its plain PyTorch version (a dense DFT) on the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.stft_mel import stft_mel_log
+from ..ops.stft_mel import (MAX_FFT, MIN_FFT, K1Tables, build_tables,
+                            stft_mel_log)
 
 DITHER = 1e-5
 PREEMPH = 0.97
@@ -127,7 +128,9 @@ class SpectrogramFrontend(nn.Module):
     returns ``(features [B, n_frames, n_mels], frame_lengths [B])``.
 
     The DFT bases and the filterbank are buffers, so ``.to(device)`` moves
-    them with the module.
+    them with the module; so are kernel K1's tables (twiddles, mel band
+    table; not saved in a state dict), built once here for every n_fft the
+    kernel takes.
     """
 
     def __init__(self, audio_conf: AudioConfig = AudioConfig(),
@@ -159,6 +162,21 @@ class SpectrogramFrontend(nn.Module):
         self.register_buffer('dft_re', torch.from_numpy(dft_re).to(device))
         self.register_buffer('dft_im', torch.from_numpy(dft_im).to(device))
         self.register_buffer('fb_t', torch.from_numpy(fb_t).to(device))
+        self.has_k1_tables = MIN_FFT <= n_fft <= MAX_FFT
+        if self.has_k1_tables:
+            tables = build_tables(padded, fb_t)
+            for name in ('twiddles', 'bands', 'weights'):
+                self.register_buffer(f'k1_{name}',
+                                     torch.from_numpy(tables[name]).to(device),
+                                     persistent=False)
+
+    def k1_tables(self) -> K1Tables | None:
+        """Kernel K1's tables on the module's device (None for an n_fft
+        the kernel does not take: the CUDA path then raises)."""
+        if not self.has_k1_tables:
+            return None
+        return K1Tables(self.window, self.k1_twiddles, self.k1_bands,
+                        self.k1_weights)
 
     def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
         return 1 + sample_lengths.to(torch.int32) // self.hop
@@ -196,7 +214,8 @@ class SpectrogramFrontend(nn.Module):
         normalisation (padding frames not yet zeroed)."""
         padded = self.prepare(audio, sample_lengths, generator)
         return stft_mel_log(padded, num_frames(audio.shape[1], self.hop),
-                            self.hop, self.dft_re, self.dft_im, self.fb_t)
+                            self.hop, self.dft_re, self.dft_im, self.fb_t,
+                            self.k1_tables())
 
     def prepare(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -16,6 +16,7 @@ and two fixed-order sums of partials).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -139,17 +140,45 @@ def _geometry(name, x, len1, len2, wdw, wpw, d, p):
     return B, T, C, K, wpw.shape[1], t_out
 
 
-def _load(smem_fn: str, K: int, d: int) -> ctypes.CDLL:
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built library, its functions' ctypes signatures set once."""
     lib = _build.load('sep_conv')
-    fn = getattr(lib, smem_fn)
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = fn(K, d)
+    lib.sep_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.sep_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sep_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.sep_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.sep_bwd_pw_splits.restype = ctypes.c_int
+    lib.sep_bwd_pw_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int]
+    lib.sep_fwd_launch.restype = ctypes.c_int
+    lib.sep_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.sep_bwd_launch.restype = ctypes.c_int
+    lib.sep_bwd_launch.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    return lib
+
+
+def _check_smem(smem: int, K: int, d: int) -> None:
     if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(f'sep_conv: K={K}, dilation {d} need {smem} bytes '
                          f'of shared memory, over the limit of '
                          f'{_build.SMEM_LIMIT_BYTES}')
-    return lib
+
+
+@functools.cache
+def _fwd_smem(K: int, d: int, cout: int) -> int:
+    smem = _library().sep_fwd_smem_bytes(K, d, cout)
+    _check_smem(smem, K, d)
+    return smem
+
+
+@functools.cache
+def _bwd_smem(K: int, d: int) -> int:
+    smem = _library().sep_bwd_smem_bytes(K, d)
+    _check_smem(smem, K, d)
+    return smem
 
 
 def _ptr(t):
@@ -160,17 +189,15 @@ def _launch_fwd(x, len1, len2, wdw, wpw, d, p):
     _check('sep_fwd', x=x, wdw=wdw, wpw=wpw, len1=len1, len2=len2)
     B, T, C, K, cout, t_out = _geometry('sep_fwd', x, len1, len2, wdw, wpw,
                                         d, p)
-    lib = _load('sep_fwd_smem_bytes', K, d)
+    lib = _library()
+    _fwd_smem(K, d, cout)
     y = torch.empty((B, t_out, cout), dtype=torch.float32, device=x.device)
-    fn = lib.sep_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
-                  wpw.data_ptr(), y.data_ptr(), B, T, C, cout, K, d, p, t_out,
-                  stream)
+        code = lib.sep_fwd_launch(
+            x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
+            wpw.data_ptr(), y.data_ptr(), B, T, C, cout, K, d, p, t_out,
+            stream)
     _build.check(lib, code, 'sep_conv K6 launch')
     sep_fwd.launches += 1
     return y
@@ -202,10 +229,8 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
     if tuple(g.shape) != (B, t_out, cout):
         raise ValueError(f'sep_bwd: g must be {(B, t_out, cout)}, got '
                          f'{tuple(g.shape)}')
-    lib = _load('sep_bwd_smem_bytes', K, d)
-    lib.sep_bwd_pw_splits.restype = ctypes.c_int
-    lib.sep_bwd_pw_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                      ctypes.c_int]
+    lib = _library()
+    _bwd_smem(K, d)
     splits = lib.sep_bwd_pw_splits(B * t_out, C, cout)
     dev = x.device
 
@@ -214,17 +239,14 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
     dx, dwdw, dwpw = empty(B, T, C), empty(K, C), empty(C, cout)
     gdw, dwres = empty(B, t_out, C), empty(B, t_out, C)
     part_dw, part_pw = empty(B, K, C), empty(splits, C, cout)
-    fn = lib.sep_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
-                  wpw.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                  dwdw.data_ptr(), dwpw.data_ptr(), gdw.data_ptr(),
-                  dwres.data_ptr(), part_dw.data_ptr(), part_pw.data_ptr(),
-                  B, T, C, cout, K, d, p, t_out, stream)
+        code = lib.sep_bwd_launch(
+            x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
+            wpw.data_ptr(), g.data_ptr(), dx.data_ptr(), dwdw.data_ptr(),
+            dwpw.data_ptr(), gdw.data_ptr(), dwres.data_ptr(),
+            part_dw.data_ptr(), part_pw.data_ptr(), B, T, C, cout, K, d, p,
+            t_out, stream)
     _build.check(lib, code, 'sep_conv K7 launch')
     sep_bwd.launches += 1
     return dx, dwdw, dwpw
