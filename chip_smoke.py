@@ -177,6 +177,15 @@ SEP_EDGE = [(2, 100, 64, 200, 33, 1), (2, 100, 64, 640, 33, 1),
             (2, 100, 100, 256, 33, 1), (2, 70, 50, 198, 9, 1),
             (3, 40, 256, 512, 33, 1), (2, 100, 128, 256, 1, 1),
             (2, 100, 64, 96, 4, 2)]
+# Shapes at the edges of K7's tiles (time tiles of 64 frames, 32 input
+# channels a block, 128 x 128 dwpw tiles): T_out one short of a tile, one
+# tile, one over (with Cin 48, 96, 160 not multiples of 32 and Cout 200,
+# 136, 264 not of 128); 5 tiles of 301 frames, 2 a block, with Cin 500 and
+# Cout 130 (not a multiple of 4: 4-byte copies in the dwpw product); C2's
+# K = 87, d = 2 with Cin 42 (4-byte copies in the depthwise pass).
+SEP_BWD_EDGE = [(2, 63, 48, 200, 33, 1), (2, 64, 96, 136, 33, 1),
+                (2, 65, 160, 264, 33, 1), (16, 301, 500, 130, 33, 1),
+                (3, 65, 42, 128, 87, 2)]
 # QuartzNet-15x5's K6 units per forward at B=32, T=404: (Cin, Cout, K,
 # dilation) -> count; 76 in all.
 SEP_PATH_UNITS = {(256, 256, 33, 1): 15, (256, 256, 39, 1): 15,
@@ -654,7 +663,8 @@ def phase_k6_k7():
     errs = {'K6': [], 'K7': []}
     cases = ([(sh, m) for sh in SEP_GRID for m in (True, False)]
              + [(sh, True) for sh in SEP_MAIN]
-             + [(sh, True) for sh in SEP_EDGE] + [(SEP_EDGE[0], False)])
+             + [(sh, True) for sh in SEP_EDGE + SEP_BWD_EDGE]
+             + [(SEP_EDGE[0], False), (SEP_BWD_EDGE[3], False)])
     for i, (shape, masked) in enumerate(cases):
         B, T, Cin, Cout, K, d = shape
         (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 40 + i, DEVICE,
@@ -672,7 +682,8 @@ def phase_k6_k7():
         errs['K6'].append(ab[0])
         errs['K7'] += ab[1:]
         name = ('main path' if shape in SEP_MAIN else
-                'edge' if shape in SEP_EDGE else f'grid{i // 2}')
+                'edge' if shape in SEP_EDGE else
+                'K7 edge' if shape in SEP_BWD_EDGE else f'grid{i // 2}')
         check(max(r) < SEP_DW_RTOL and max(o) < SEP_ORACLE_RTOL
               and all(bool(torch.isfinite(t).all()) for t in got),
               f'K6/K7 {name} (B,T,Cin,Cout,K,d)={shape} masks '
@@ -680,6 +691,13 @@ def phase_k6_k7():
               + ' '.join(f'{v:.2e}' for v in r) + f' (gate {SEP_DW_RTOL}); '
               'vs float64 oracle ' + ' '.join(f'{v:.2e}' for v in o)
               + f' (gate {SEP_ORACLE_RTOL})')
+    # No float atomics: two calls give the same bits.
+    shape = SEP_MAIN[2]
+    (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 99, DEVICE)
+    first = sep_bwd(x, l1, l2, wdw, wpw, g, shape[5], p)
+    again = sep_bwd(x, l1, l2, wdw, wpw, g, shape[5], p)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f'K7 at {shape}: two calls give the same bits')
     return max(errs['K6']), max(errs['K7'])
 
 
@@ -1501,7 +1519,7 @@ def k6_k7_numbers():
         ops6 = 2 * B * t_out * cin * (K + cout)
         bytes6 = 4 * (B * T * cin + K * cin + cin * cout + B * t_out * cout
                       + 2 * B)
-        ops7 = 2 * B * t_out * cin * (3 * K + 2 * cout)
+        ops7 = sum(k7_part_ops(x, l1, l2, wdw, wpw, g).values())
         bytes7 = 4 * (2 * B * T * cin + B * t_out * cout + 2 * K * cin
                       + 2 * cin * cout + 2 * B)
         tot6 += count * np.array([ms6, plain6, lib6, bytes6, ops6])
@@ -1515,7 +1533,98 @@ def k6_k7_numbers():
     print(f'K6 per forward: {tot6[0]:.3f} ms over {n} launches '
           f'({tot6[4] / 1e12:.3f} TFLOP); K7 per backward: {tot7[0]:.3f} ms '
           f'({tot7[4] / 1e12:.3f} TFLOP)')
+    k7_split_per_backward()
     return tuple(tot6 / n), tuple(tot7 / n)
+
+
+def k7_split_per_backward(split: bool = True) -> float:
+    """K7 at each of QuartzNet's unit shapes (B=32, 404 frames, ragged
+    lengths, the inputs ``k6_k7_numbers`` times): its whole time
+    (``cuda_ms``) and, with ``split``, each of its kernels' device time by
+    part (``k7_split``) with TFLOP/s and bound; then the totals per
+    backward (76 calls). Returns K7's ms a backward."""
+    total, parts_total, ops_total = 0.0, {}, {}
+    for i, ((cin, cout, K, d), count) in enumerate(SEP_PATH_UNITS.items()):
+        (x, wdw, wpw, g), l1, l2, p = sep_inputs(BATCH, 404, cin, cout, K, d,
+                                                 60 + i, DEVICE)
+        ms = cuda_ms(lambda: sep_bwd(x, l1, l2, wdw, wpw, g, d, p), iters=10)
+        total += count * ms
+        if not split:
+            continue
+        parts = k7_split(x, l1, l2, wdw, wpw, g, d, p)
+        ops = k7_part_ops(x, l1, l2, wdw, wpw, g)
+        for n, v in parts.items():
+            parts_total[n] = parts_total.get(n, 0.0) + count * v
+        for n, v in ops.items():
+            ops_total[n] = ops_total.get(n, 0) + count * v
+        print(f'K7 split at (Cin, Cout, K, d)={(cin, cout, K, d)} x{count}: '
+              f'{ms:.4f} ms; ' + k7_split_line(parts, ops), flush=True)
+    n = sum(SEP_PATH_UNITS.values())
+    if split:
+        print(f'K7 split per backward ({n} calls): {total:.3f} ms '
+              f'({total / n:.4f} ms a call); '
+              + k7_split_line(parts_total, ops_total), flush=True)
+    return total
+
+
+# K7's kernels by a piece of their (demangled) names -> the part of the
+# backward each computes (csrc/sep_conv.cu's header).
+K7_PARTS = (('gdw_gemm_kernel', '(i) gdw'), ('sep_bwd_dw_kernel', '(ii) dw'),
+            ('pw_gemm_kernel', '(iii) dwpw'),
+            ('sum_partials_kernel', '(iv,v) sums'))
+
+
+def k7_part_ops(x, l1, l2, wdw, wpw, g) -> dict:
+    """FLOP of each K7 part that the function needs on these inputs, over
+    the frames the masks keep: two products of 2·Cin·Cout a frame before
+    len2 (gdw is zero after it, and dwres, which dwpw reduces, too), and
+    three depthwise passes of 2·Cin·K a frame (dx before len1, dwres and
+    dwdw before len2)."""
+    B, T, cin = x.shape
+    K, cout, t_out = wdw.shape[0], wpw.shape[1], g.shape[1]
+    if l1 is None:
+        kept1, kept2 = B * T, B * t_out
+    else:
+        kept1 = int(l1.clamp(0, T).sum())
+        kept2 = int(l2.clamp(0, t_out).sum())
+    mm = 2 * kept2 * cin * cout
+    return {'(i) gdw': mm, '(ii) dw': 2 * cin * K * (kept1 + 2 * kept2),
+            '(iii) dwpw': mm}
+
+
+def k7_split(x, l1, l2, wdw, wpw, g, d, p, iters: int = 10) -> dict:
+    """Device ms of one K7 call by part, from torch.profiler's kernel rows
+    over ``iters`` calls (after a warm-up): each part's mean launch in the
+    trace times its launches a call (the sums two, the rest one), since
+    in a process that profiled before, the trace can miss some launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        sep_bwd(x, l1, l2, wdw, wpw, g, d, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            sep_bwd(x, l1, l2, wdw, wpw, g, d, p)
+        torch.cuda.synchronize()
+    total, seen = {}, {}
+    for e in kernel_rows(prof):
+        part = next((name for key, name in K7_PARTS if key in e.key), e.key)
+        total[part] = total.get(part, 0.0) + e.self_device_time_total / 1e3
+        seen[part] = seen.get(part, 0) + e.count
+    per_call = {n: 2 if n == '(iv,v) sums' else 1 for n in total}
+    off = {n: c for n, c in seen.items() if c != iters * per_call[n]}
+    if off:
+        print(f'k7_split: launches in the trace over {iters} calls: {off}')
+    return {n: total[n] / seen[n] * per_call[n] for n in total}
+
+
+def k7_split_line(parts: dict, ops: dict) -> str:
+    """Each part's ms, with its TFLOP/s and its bound at the FP32 peak."""
+    return ', '.join(
+        f'{n} {ms:.4f} ms' + (f' ({ops[n] / ms / 1e9:.1f} TFLOP/s, bound '
+                              f'{ops[n] / FP32_FLOPS * 1e3:.4f} ms)'
+                              if n in ops else '')
+        for n, ms in sorted(parts.items()))
 
 
 def kernel_entry(name, source, replaces, launches, err, numbers):

@@ -186,3 +186,79 @@ def test_cuda_without_a_card_raises(monkeypatch, manifest):
     assert resolve_device('cpu') == torch.device('cpu')
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _jax_default_loss(tmp_path, manifest, variables, batch_size):
+    """The JAX eval loss as ``test.py`` computes it: the default config at
+    one block, its loader built as ``test.py:239-243`` builds it, the mean
+    of the per-batch losses. Returns (loss, number of batches)."""
+    cfg = load_config([f'data.train_manifest={manifest}',
+                       f'data.val_manifest={manifest}',
+                       'model.mid_layers=1', 'model.stft_method=conv',
+                       'trainer.mesh.data=1',
+                       f'trainer.default_root_dir={tmp_path / "run"}'])
+    labels = build_labels(cfg.model)
+    trainer = Trainer(cfg, build_model(cfg.model, len(labels)),
+                      build_frontend(cfg.model, dither=0.0),
+                      optim.sgd(optim.constant_lr(1e-3)),
+                      optim.constant_lr(1e-3),
+                      build_decoder(cfg.model, labels),
+                      run_dir=str(tmp_path / 'run'))
+    ac = cfg.data.audio_conf
+    loader = JaxLoader(
+        JaxDataset(manifest, ac, labels),
+        batch_size or int(cfg.data.batch_size),
+        num_buckets=int(cfg.data.get('num_length_buckets', 4)),
+        max_duration=cfg.data.get('max_duration'), shuffle=False,
+        prefetch=0, frame_hop=int(ac['sample_rate'] * ac['window_stride']))
+    state = TrainState(step=jnp.zeros((), jnp.int32),
+                       params=variables['params'],
+                       batch_stats=variables['batch_stats'], opt_state=None,
+                       rng=jax.random.PRNGKey(0))
+    step = jax.jit(trainer._eval_step)
+    losses = [float(step(state, {k: jnp.asarray(v) for k, v in b.items()
+                                 if isinstance(v, np.ndarray)})[0])
+              for b in loader]
+    return float(np.mean(losses)), len(losses)
+
+
+@pytest.mark.parametrize('overrides, batch_size, n_batches',
+                         [([], 4, 2), (['data.batch_size=2'], 2, 3)])
+def test_cli_batches_from_the_config_as_test_py(tmp_path, manifest, capsys,
+                                                overrides, batch_size,
+                                                n_batches):
+    """Without --batch-size the CLI batches by the config's data block
+    (batch 4 by default, or a data.batch_size override), its buckets and
+    max_duration, and prints the loss test.py prints on the same weights;
+    the 5 utterances give 2 batches at 4 and 3 at 2, and the two losses
+    differ by far more than the tolerance."""
+    cfg = load_config([f'data.train_manifest={manifest}',
+                       f'data.val_manifest={manifest}',
+                       'model.mid_layers=1', 'model.stft_method=conv'])
+    labels = build_labels(cfg.model)
+    model = build_model(cfg.model, len(labels))
+    init = jax.jit(lambda k, x, l: model.init(k, x, l, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, 57, 64)), jnp.array([57]))
+    rng = np.random.default_rng(2)
+    variables = jax.tree_util.tree_map(
+        np.array, {'params': jax.device_get(init['params']),
+                   'batch_stats': jax.device_get(init['batch_stats'])})
+    variables['batch_stats'] = jax.tree_util.tree_map(
+        lambda a: a + rng.uniform(0.1, 0.5, a.shape).astype(np.float32),
+        variables['batch_stats'])
+    weights = tmp_path / 'sd.pt'
+    torch.save(state_dict_from_flax(variables), weights)
+
+    want, n_jax = _jax_default_loss(tmp_path, manifest, variables,
+                                       batch_size)
+    other, _ = _jax_default_loss(tmp_path, manifest, variables,
+                                    6 - batch_size)
+    assert n_jax == n_batches
+    assert abs(want - other) > 100 * LOSS_RTOL * abs(want)
+
+    assert port_eval.main(['--test-manifest', manifest, '--device', 'cpu',
+                           '--mid-layers', '1', '--weights', str(weights),
+                           *overrides]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got['num_utterances'] == 5
+    np.testing.assert_allclose(got['loss'], want, rtol=LOSS_RTOL)

@@ -26,7 +26,10 @@ def _port_modules():
 
 
 def _port_sources():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    tools = os.path.join(REPO, 'tools')
+    files = [os.path.join(REPO, 'chip_smoke.py')] + [
+        os.path.join(tools, n) for n in os.listdir(tools)
+        if n.endswith('.py')]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return sorted(files)

@@ -48,14 +48,30 @@
 // Design, K7: five launches from this source on one stream.
 //  (i)   gdw = (g @ wpw^T) * m2 [B, T_out, Cin]: a tiled FP32 product
 //        (64 x 64 block tile, 4 x 4 per thread) written here.
-//  (ii)  one block per (32 channels, batch row) walks the row's time tiles
-//        and, from shared copies of x*m1 and gdw with their halos, writes
-//        dx = m1 * (the flipped-kernel conv of gdw at padding d(K-1) - p),
+//  (ii)  dx = m1 * (the flipped-kernel conv of gdw at padding d(K-1) - p),
 //        the recomputed depthwise output dwres = m2 * ((x*m1) ~dw~ wdw) (as
 //        the TPU kernel recomputes it, instead of saving it in the
-//        forward), and its partial dwdw[k, c] = sum_t x_pad[t + kd] gdw[t].
-//  (iii) dwpw = dwres^T @ g with the B*T_out reduction split in a fixed
-//        number of chunks, one partial per chunk (the same product code).
+//        forward), and partials of dwdw[k, c] = sum_t x_pad[t + kd] gdw[t].
+//        Three depthwise passes, 6*B*T_out*Cin*K FLOP against two reads
+//        and two writes of [B, T, Cin]: bound by operations, and by the
+//        shared-memory loads that feed them. A block owns 32 channels (one
+//        a lane) of one batch row and walks its 64-frame time tiles, or a
+//        run of them (the wrapper's plan); a 2-stage ring fed by
+//        16-byte cp.async (4-byte when Cin % 4 != 0) brings the next
+//        tile's x*m1 and gdw spans, halo included, while this one computes.
+//        dx and dwres run K6's depthwise loop (8 frames a thread,
+//        independent accumulators, a sliding register window at d = 1, so
+//        one shared load feeds 8 taps); dwdw keeps 4-11 taps a thread in
+//        registers and slides a window over t, so one load of x feeds all
+//        of them. Masked frames are skipped.
+//  (iii) dwpw = dwres^T @ g with the B*T_out reduction cut into the plan's
+//        runs, one partial each: both operands are k-major, so a 128 x 128
+//        block tile (8 x 8 a thread, conflict-free float4 shared loads)
+//        takes straight 16-byte cp.async tile copies through a 3-stage
+//        ring; one wave of blocks (2 an SM). (i) and (iii) are ~84 % of
+//        K7's FLOP, 2*B*T_out*Cin*Cout each, ~128 FLOP a byte at Cin =
+//        Cout = 512: bound by operations. (i) stays on its own product:
+//        on this ring, with its k-contiguous operands, it was no faster.
 //  (iv), (v) the partials of dwdw and dwpw summed in index order
 //        (partials.cuh). The TPU accumulated the weight gradients across
 //        its sequential grid; here no float atomics are used, so two runs
@@ -70,36 +86,21 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int CC = 32;       // input channels per chunk / tile, one per lane
-constexpr int XS = CC + 1;   // padded shared row
-// K7 (ii) time tile
-constexpr int B_TT = 32;
-// Product tile of K7 (i) and (iii)
+// ---- K7 (i) -------------------------------------------------------------
+constexpr int G_THREADS = 256;
 constexpr int G_BM = 64;
 constexpr int G_BN = 64;
 constexpr int G_BK = 16;
 constexpr int G_PAD = 4;
-// Chunks of the B*T_out reduction of dwpw (one partial each)
-constexpr int PW_TARGET_BLOCKS = 512;
 
-__host__ __device__ inline int bwd_rows(int K, int d) {
-  return B_TT + d * (K - 1);
-}
-
-// C[z] = A @ B over the z-th chunk of the reduction (K) dimension, with
-// A(m, k) = A_KCONTIG ? A[m*lda + k] : A[k*lda + m] and B(k, n) = B_KCONTIG
-// ? B[n*ldb + k] : B[k*ldb + n]; C[z*split_stride + m*ldc + n]. With
-// `row_len`, row m is multiplied by (m % rows_per_b < row_len[m /
-// rows_per_b]), the m2 mask of K7 (i).
-template <bool A_KCONTIG, bool B_KCONTIG>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const float* __restrict__ A, long long lda,
-            const float* __restrict__ Bm, long long ldb, float* __restrict__ C,
-            long long ldc, long long split_stride, int M, int N, int Kd,
-            int k_per_split, const int* __restrict__ row_len,
-            int rows_per_b) {
+// gdw[m, n] = m2(m) * sum_k g[m*Kd + k] * wpw[n*Kd + k], M = B*T_out rows,
+// N = Cin, Kd = Cout: both operands k-contiguous. m2(m) = (m % T_out <
+// len2[m / T_out]), or 1 without lengths. 64 x 64 block tiles, 4 x 4 a
+// thread, synchronous loads.
+__global__ void __launch_bounds__(G_THREADS)
+gdw_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                float* __restrict__ C, int M, int N, int Kd,
+                const int* __restrict__ len2, int T_out) {
   __shared__ __align__(16) float As[G_BK][G_BM + G_PAD];
   __shared__ __align__(16) float Bs[G_BK][G_BN + G_PAD];
   const int tid = threadIdx.x;
@@ -107,8 +108,6 @@ gemm_kernel(const float* __restrict__ A, long long lda,
   const int ty = tid / 16;
   const int m0 = blockIdx.y * G_BM;
   const int n0 = blockIdx.x * G_BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(Kd, k_begin + k_per_split);
 
   float acc[4][4];
 #pragma unroll
@@ -117,32 +116,24 @@ gemm_kernel(const float* __restrict__ A, long long lda,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
-  for (int kb = k_begin; kb < k_end; kb += G_BK) {
+  for (int kb = 0; kb < Kd; kb += G_BK) {
 #pragma unroll
-    for (int i = 0; i < (G_BK * G_BM) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int kk = A_KCONTIG ? idx % G_BK : idx / G_BM;
-      const int mm = A_KCONTIG ? idx / G_BK : idx % G_BM;
+    for (int i = 0; i < (G_BK * G_BM) / G_THREADS; ++i) {
+      const int idx = tid + i * G_THREADS;
+      const int kk = idx % G_BK;
+      const int mm = idx / G_BK;
       const int m = m0 + mm;
       const int k = kb + kk;
-      float v = 0.f;
-      if (m < M && k < k_end) {
-        v = A_KCONTIG ? A[(size_t)m * lda + k] : A[(size_t)k * lda + m];
-      }
-      As[kk][mm] = v;
+      As[kk][mm] = m < M && k < Kd ? A[(size_t)m * Kd + k] : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < (G_BK * G_BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int kk = B_KCONTIG ? idx % G_BK : idx / G_BN;
-      const int nn = B_KCONTIG ? idx / G_BK : idx % G_BN;
+    for (int i = 0; i < (G_BK * G_BN) / G_THREADS; ++i) {
+      const int idx = tid + i * G_THREADS;
+      const int kk = idx % G_BK;
+      const int nn = idx / G_BK;
       const int n = n0 + nn;
       const int k = kb + kk;
-      float v = 0.f;
-      if (n < N && k < k_end) {
-        v = B_KCONTIG ? Bm[(size_t)n * ldb + k] : Bm[(size_t)k * ldb + n];
-      }
-      Bs[kk][nn] = v;
+      Bs[kk][nn] = n < N && k < Kd ? Bm[(size_t)n * Kd + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -160,118 +151,18 @@ gemm_kernel(const float* __restrict__ A, long long lda,
     __syncthreads();
   }
 
-  float* Cz = C + (size_t)blockIdx.z * split_stride;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= M) continue;
     float scale = 1.f;
-    if (row_len) scale = (m % rows_per_b) < row_len[m / rows_per_b] ? 1.f : 0.f;
+    if (len2) scale = (m % T_out) < len2[m / T_out] ? 1.f : 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) Cz[(size_t)m * ldc + n] = acc[i][j] * scale;
+      if (n < N) C[(size_t)m * N + n] = acc[i][j] * scale;
     }
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
-                  const int* __restrict__ len1, const int* __restrict__ len2,
-                  const float* __restrict__ wdw, float* __restrict__ dx,
-                  float* __restrict__ dwres, float* __restrict__ part, int T,
-                  int Cin, int K, int d, int p, int T_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int rows = bwd_rows(K, d);
-  float* x_s = smem;                 // [rows][XS]: x*m1 from t0 - p
-  float* g_s = x_s + rows * XS;      // [rows][XS]: gdw from t0 - pt
-  float* wdw_s = g_s + rows * XS;    // [K][CC]
-  float* acc_s = wdw_s + K * CC;     // [K][CC]: this row's dwdw
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * CC + lane;
-  const int b = blockIdx.y;
-  const bool c_ok = c < Cin;
-  const int pt = d * (K - 1) - p;
-  const int l1 = len1 ? min(len1[b], T) : T;
-  const int l2 = len2 ? min(len2[b], T_out) : T_out;
-  const int t_all = max(T, T_out);
-  const float* xb = x + (size_t)b * T * Cin;
-  const float* gb = gdw + (size_t)b * T_out * Cin;
-
-  for (int k = warp; k < K; k += WARPS) {
-    wdw_s[k * CC + lane] = c_ok ? wdw[(size_t)k * Cin + c] : 0.f;
-    acc_s[k * CC + lane] = 0.f;
-  }
-  for (int t0 = 0; t0 < t_all; t0 += B_TT) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int r = warp; r < rows; r += WARPS) {
-      const int tx_ = t0 - p + r;
-      x_s[r * XS + lane] =
-          (c_ok && tx_ >= 0 && tx_ < l1) ? xb[(size_t)tx_ * Cin + c] : 0.f;
-      const int tg = t0 - pt + r;
-      g_s[r * XS + lane] =
-          (c_ok && tg >= 0 && tg < T_out) ? gb[(size_t)tg * Cin + c] : 0.f;
-    }
-    __syncthreads();
-    if (c_ok) {
-      for (int tt = warp; tt < B_TT; tt += WARPS) {
-        const int t = t0 + tt;
-        if (t < T) {
-          float a = 0.f;
-          if (t < l1) {
-            for (int k = 0; k < K; ++k) {
-              a = fmaf(g_s[(tt + k * d) * XS + lane],
-                       wdw_s[(K - 1 - k) * CC + lane], a);
-            }
-          }
-          dx[((size_t)b * T + t) * Cin + c] = a;
-        }
-        if (t < T_out) {
-          float a = 0.f;
-          if (t < l2) {
-            for (int k = 0; k < K; ++k) {
-              a = fmaf(x_s[(tt + k * d) * XS + lane], wdw_s[k * CC + lane],
-                       a);
-            }
-          }
-          dwres[((size_t)b * T_out + t) * Cin + c] = a;
-        }
-      }
-      const int n_t = min(B_TT, T_out - t0);
-      for (int k = warp; k < K; k += WARPS) {
-        float a = 0.f;
-        for (int tt = 0; tt < n_t; ++tt) {
-          a = fmaf(x_s[(tt + k * d) * XS + lane], g_s[(tt + pt) * XS + lane],
-                   a);
-        }
-        acc_s[k * CC + lane] += a;  // this thread's own entry
-      }
-    }
-  }
-  if (!c_ok) return;
-  for (int k = warp; k < K; k += WARPS) {
-    part[((size_t)b * K + k) * Cin + c] = acc_s[k * CC + lane];
-  }
-}
-
-inline size_t bwd_smem(int K, int d) {
-  return (2 * (size_t)bwd_rows(K, d) * XS + 2 * (size_t)K * CC) *
-         sizeof(float);
-}
-
-inline int pw_splits(long long m_rows, int Cin, int Cout) {
-  const long long tiles = (long long)((Cin + G_BM - 1) / G_BM) *
-                          ((Cout + G_BN - 1) / G_BN);
-  long long n = (PW_TARGET_BLOCKS + tiles - 1) / tiles;
-  const long long max_n = (m_rows + G_BK - 1) / G_BK;  // >= 16 rows each
-  if (n > max_n) n = max_n;
-  return (int)(n < 1 ? 1 : n);
-}
-
-inline int pw_rows_per_split(long long m_rows, int splits) {
-  const long long per = (m_rows + splits - 1) / splits;
-  return (int)((per + G_BK - 1) / G_BK * G_BK);
 }
 
 // ---- K6 ------------------------------------------------------------------
@@ -381,42 +272,50 @@ __device__ __forceinline__ void fwd_load_stage(
   }
 }
 
-// Depthwise of one staged chunk, masked by m2, into the tile dw [FC][FMP]:
-// this thread's channel dc, frames dr..dr+FPT-1, with FPT independent
-// accumulators; at d = 1 a sliding window, so one shared load of x feeds
-// FPT taps.
-template <int TN>
-__device__ __forceinline__ void fwd_depthwise(const float* st, float* dw,
-                                              int rows, int K, int d, int dc,
-                                              int dr, int t0, int l2) {
-  constexpr int FPT = FwdShape<TN>::FPT;
-  const float* xc = st + dr * FXS + dc;
-  const float* wc = st + rows * FXS + dc;
-  float a[FPT];
-#pragma unroll
-  for (int i = 0; i < FPT; ++i) a[i] = 0.f;
+// The depthwise loop of K6 and K7 (ii): FPT consecutive frames of one
+// channel, a[i] += sum_k xc[(i + k d) * ROW] * wc[k * WSTEP], with FPT
+// independent accumulators; at d = 1 a sliding register window over x, so
+// one shared load feeds FPT taps. A negative WSTEP runs the taps flipped.
+template <int FPT, int ROW, int WSTEP>
+__device__ __forceinline__ void depthwise_frames(const float* xc,
+                                                 const float* wc, int K,
+                                                 int d, float (&a)[FPT]) {
   if (d == 1) {
     float win[FPT];
 #pragma unroll
-    for (int i = 0; i + 1 < FPT; ++i) win[i + 1] = xc[i * FXS];
+    for (int i = 0; i + 1 < FPT; ++i) win[i + 1] = xc[i * ROW];
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i + 1 < FPT; ++i) win[i] = win[i + 1];
-      win[FPT - 1] = xc[(k + FPT - 1) * FXS];
-      const float w = wc[k * FC];
+      win[FPT - 1] = xc[(k + FPT - 1) * ROW];
+      const float w = wc[k * WSTEP];
 #pragma unroll
       for (int i = 0; i < FPT; ++i) a[i] = fmaf(win[i], w, a[i]);
     }
   } else {
 #pragma unroll 2
     for (int k = 0; k < K; ++k) {
-      const float w = wc[k * FC];
-      const float* xk = xc + k * d * FXS;
+      const float w = wc[k * WSTEP];
+      const float* xk = xc + k * d * ROW;
 #pragma unroll
-      for (int i = 0; i < FPT; ++i) a[i] = fmaf(xk[i * FXS], w, a[i]);
+      for (int i = 0; i < FPT; ++i) a[i] = fmaf(xk[i * ROW], w, a[i]);
     }
   }
+}
+
+// Depthwise of one staged chunk, masked by m2, into the tile dw [FC][FMP]:
+// this thread's channel dc, frames dr..dr+FPT-1.
+template <int TN>
+__device__ __forceinline__ void fwd_depthwise(const float* st, float* dw,
+                                              int rows, int K, int d, int dc,
+                                              int dr, int t0, int l2) {
+  constexpr int FPT = FwdShape<TN>::FPT;
+  float a[FPT];
+#pragma unroll
+  for (int i = 0; i < FPT; ++i) a[i] = 0.f;
+  depthwise_frames<FPT, FXS, FC>(st + dr * FXS + dc, st + rows * FXS + dc, K,
+                                 d, a);
 #pragma unroll
   for (int i = 0; i < FPT; ++i) {
     if (t0 + dr + i >= l2) a[i] = 0.f;  // m2 (and frames >= T_out)
@@ -558,6 +457,373 @@ int launch_sep_fwd(const float* x, const int* len1, const int* len2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K7 (ii) ------------------------------------------------------------
+// A block owns DW_CG input channels (one a lane) of one batch row and walks
+// `tiles_per_block` consecutive time tiles of DW_TT frames; the next tile's
+// spans arrive through a DW_STAGES-deep cp.async ring while this one
+// computes. A stage holds x*m1 from t0 - p (x_rows rows) and gdw from
+// t0 - pt (g_rows rows), pt = d(K-1) - p, zero outside the sequence.
+constexpr int DW_TT = 64;
+constexpr int DW_CG = 32;
+constexpr int DW_WARPS = 8;
+constexpr int DW_THREADS = 32 * DW_WARPS;
+constexpr int DW_FPT = DW_TT / DW_WARPS;  // dx and dwres frames a thread
+constexpr int DW_STAGES = 2;
+
+// dwdw taps a thread: the smallest of 4, 6, 8, 11 with which the 8 warps
+// cover K in one group of taps each (a warp takes more groups past K = 88).
+inline int dw_kpt(int K) {
+  if (K <= 4 * DW_WARPS) return 4;
+  if (K <= 6 * DW_WARPS) return 6;
+  if (K <= 8 * DW_WARPS) return 8;
+  return 11;
+}
+
+__host__ __device__ inline int dw_groups(int K, int kpt) {
+  return (K + kpt - 1) / kpt;
+}
+
+__host__ __device__ inline int dw_g_rows(int K, int d) {
+  return DW_TT + d * (K - 1);
+}
+
+// x's span also covers the last group's taps past K (their sums are
+// dropped).
+__host__ __device__ inline int dw_x_rows(int K, int d, int kpt) {
+  return DW_TT + d * (dw_groups(K, kpt) * kpt - 1);
+}
+
+inline size_t dw_smem(int K, int d) {
+  const int kpt = dw_kpt(K);
+  return (DW_STAGES * (size_t)(dw_x_rows(K, d, kpt) + dw_g_rows(K, d)) *
+              DW_CG +
+          2 * (size_t)K * DW_CG) *
+         sizeof(float);
+}
+
+// Stage one time tile: x*m1 rows t0 - p + r (zero outside [0, len1)) and
+// gdw rows t0 - pt + r (zero outside [0, T_out)), channels c0.. (zero past
+// Cin). STRIDE 4: 16-byte copies; STRIDE 1: 4-byte copies.
+template <int STRIDE>
+__device__ __forceinline__ void dw_load_stage(
+    float* x_s, float* g_s, const float* __restrict__ xb,
+    const float* __restrict__ gb, int c0, int t0, int l1, int T_out,
+    int Cin, int p, int pt, int x_rows, int g_rows) {
+  constexpr int PER_ROW = DW_CG / STRIDE;
+  for (int i = threadIdx.x; i < x_rows * PER_ROW; i += DW_THREADS) {
+    const int r = i / PER_ROW;
+    const int cq = (i % PER_ROW) * STRIDE;
+    const int t = t0 - p + r;
+    const bool ok = t >= 0 && t < l1 && c0 + cq < Cin;
+    const float* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
+    if constexpr (STRIDE == 4) {
+      cp_async16(x_s + r * DW_CG + cq, src, ok);
+    } else {
+      cp_async4(x_s + r * DW_CG + cq, src, ok);
+    }
+  }
+  for (int i = threadIdx.x; i < g_rows * PER_ROW; i += DW_THREADS) {
+    const int r = i / PER_ROW;
+    const int cq = (i % PER_ROW) * STRIDE;
+    const int t = t0 - pt + r;
+    const bool ok = t >= 0 && t < T_out && c0 + cq < Cin;
+    const float* src = ok ? gb + (size_t)t * Cin + c0 + cq : gb;
+    if constexpr (STRIDE == 4) {
+      cp_async16(g_s + r * DW_CG + cq, src, ok);
+    } else {
+      cp_async4(g_s + r * DW_CG + cq, src, ok);
+    }
+  }
+}
+
+// dwdw of one channel over a tile: acc[j] += sum_{tt < n_t} xk[(tt + j d)
+// * DW_CG] * gt[tt * DW_CG], for KPT taps; at d = 1 a register window over
+// t, so one shared load of x feeds KPT taps.
+template <int KPT>
+__device__ __forceinline__ void dwdw_taps(const float* xk, const float* gt,
+                                          int n_t, int d, float (&acc)[KPT]) {
+  if (d == 1) {
+    float win[KPT];
+#pragma unroll
+    for (int j = 0; j + 1 < KPT; ++j) win[j + 1] = xk[j * DW_CG];
+#pragma unroll 8
+    for (int tt = 0; tt < n_t; ++tt) {
+#pragma unroll
+      for (int j = 0; j + 1 < KPT; ++j) win[j] = win[j + 1];
+      win[KPT - 1] = xk[(tt + KPT - 1) * DW_CG];
+      const float g = gt[tt * DW_CG];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) acc[j] = fmaf(win[j], g, acc[j]);
+    }
+  } else {
+#pragma unroll 2
+    for (int tt = 0; tt < n_t; ++tt) {
+      const float g = gt[tt * DW_CG];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        acc[j] = fmaf(xk[(tt + j * d) * DW_CG], g, acc[j]);
+      }
+    }
+  }
+}
+
+// dx = m1 * (gdw ~ flipped wdw at padding pt), dwres = m2 * ((x*m1) ~ wdw),
+// and this block's partial of dwdw[k, c] = sum_t x_pad[t + kd] gdw[t]
+// (part[(b * gridDim.y + blockIdx.y), k, c]). Grid (Cin / DW_CG, time
+// groups, B). Thread (lane, warp): channel c0 + lane; dx and dwres of
+// frames warp * DW_FPT + 0..DW_FPT-1 of each tile; dwdw of tap groups warp,
+// warp + 8, ... of KPT taps, summed over tiles in acc_s, which only the
+// owning thread touches (no atomics).
+template <int KPT, int STRIDE>
+__global__ void __launch_bounds__(DW_THREADS, 2)
+sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
+                  const int* __restrict__ len1, const int* __restrict__ len2,
+                  const float* __restrict__ wdw, float* __restrict__ dx,
+                  float* __restrict__ dwres, float* __restrict__ part, int T,
+                  int Cin, int K, int d, int p, int T_out,
+                  int tiles_per_block) {
+  extern __shared__ __align__(16) float smem[];
+  const int x_rows = dw_x_rows(K, d, KPT);
+  const int g_rows = dw_g_rows(K, d);
+  const int stage = (x_rows + g_rows) * DW_CG;
+  float* wdw_s = smem + DW_STAGES * stage;  // [K][DW_CG]
+  float* acc_s = wdw_s + K * DW_CG;         // [K][DW_CG]: dwdw so far
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * DW_CG;
+  const int c = c0 + lane;
+  const bool c_ok = c < Cin;
+  const int b = blockIdx.z;
+  const int pt = d * (K - 1) - p;
+  const int l1 = len1 ? min(len1[b], T) : T;
+  const int l2 = len2 ? min(len2[b], T_out) : T_out;
+  const int tile0 = blockIdx.y * tiles_per_block;
+  const int n_tiles = min(tiles_per_block,
+                          (max(T, T_out) + DW_TT - 1) / DW_TT - tile0);
+  const float* xb = x + (size_t)b * T * Cin;
+  const float* gb = gdw + (size_t)b * T_out * Cin;
+  const int groups = dw_groups(K, KPT);
+
+  auto load = [&](int it) {
+    float* x_s = smem + (it % DW_STAGES) * stage;
+    dw_load_stage<STRIDE>(x_s, x_s + x_rows * DW_CG, xb, gb, c0,
+                          (tile0 + it) * DW_TT, l1, T_out, Cin, p, pt,
+                          x_rows, g_rows);
+  };
+  load(0);
+  cp_async_commit();
+  for (int k = warp; k < K; k += DW_WARPS) {
+    wdw_s[k * DW_CG + lane] = c_ok ? wdw[(size_t)k * Cin + c] : 0.f;
+    acc_s[k * DW_CG + lane] = 0.f;
+  }
+  const int dr = warp * DW_FPT;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile it landed (and wdw_s, acc_s are set)
+    const float* x_s = smem + (it % DW_STAGES) * stage;
+    const float* g_s = x_s + x_rows * DW_CG;
+    const int t0 = (tile0 + it) * DW_TT;
+
+    float a[DW_FPT], bk[DW_FPT];
+#pragma unroll
+    for (int i = 0; i < DW_FPT; ++i) a[i] = bk[i] = 0.f;
+    if (t0 + dr < l2) {  // dwres
+      depthwise_frames<DW_FPT, DW_CG, DW_CG>(x_s + dr * DW_CG + lane,
+                                             wdw_s + lane, K, d, a);
+    }
+    if (t0 + dr < l1) {  // dx: the taps flipped
+      depthwise_frames<DW_FPT, DW_CG, -DW_CG>(
+          g_s + dr * DW_CG + lane, wdw_s + (K - 1) * DW_CG + lane, K, d, bk);
+    }
+    if (c_ok) {
+#pragma unroll
+      for (int i = 0; i < DW_FPT; ++i) {
+        const int t = t0 + dr + i;
+        if (t < T_out) {
+          dwres[((size_t)b * T_out + t) * Cin + c] = t < l2 ? a[i] : 0.f;
+        }
+        if (t < T) dx[((size_t)b * T + t) * Cin + c] = t < l1 ? bk[i] : 0.f;
+      }
+    }
+
+    const int n_t = min(DW_TT, l2 - t0);  // gdw is zero from l2 on
+    for (int grp = warp; grp < groups && n_t > 0; grp += DW_WARPS) {
+      float acc[KPT];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) acc[j] = 0.f;
+      dwdw_taps<KPT>(x_s + grp * KPT * d * DW_CG + lane,
+                     g_s + pt * DW_CG + lane, n_t, d, acc);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const int k = grp * KPT + j;
+        if (k < K) acc_s[k * DW_CG + lane] += acc[j];
+      }
+    }
+    __syncthreads();  // everyone is done with this stage
+  }
+  if (!c_ok) return;
+  float* pb = part + (size_t)(b * gridDim.y + blockIdx.y) * K * Cin;
+  for (int k = warp; k < K; k += DW_WARPS) {
+    pb[(size_t)k * Cin + c] = acc_s[k * DW_CG + lane];
+  }
+}
+
+template <int KPT>
+int launch_bwd_dw(const float* x, const float* gdw, const int* len1,
+                  const int* len2, const float* wdw, float* dx, float* dwres,
+                  float* part, int B, int T, int Cin, int K, int d, int p,
+                  int T_out, int tiles_per_block, int time_groups, int vec,
+                  cudaStream_t stream) {
+  static SmemLimit limit4, limit1;
+  const size_t smem = dw_smem(K, d);
+  const dim3 grid((Cin + DW_CG - 1) / DW_CG, time_groups, B);
+  int err;
+  if (vec) {
+    err = limit4.raise_to(sep_bwd_dw_kernel<KPT, 4>, smem);
+    if (err) return err;
+    sep_bwd_dw_kernel<KPT, 4><<<grid, DW_THREADS, smem, stream>>>(
+        x, gdw, len1, len2, wdw, dx, dwres, part, T, Cin, K, d, p, T_out,
+        tiles_per_block);
+  } else {
+    err = limit1.raise_to(sep_bwd_dw_kernel<KPT, 1>, smem);
+    if (err) return err;
+    sep_bwd_dw_kernel<KPT, 1><<<grid, DW_THREADS, smem, stream>>>(
+        x, gdw, len1, len2, wdw, dx, dwres, part, T, Cin, K, d, p, T_out,
+        tiles_per_block);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K7 (iii) -----------------------------------------------------------
+// C[z] = sum over the rows r of run z of A[r*lda + m] * B[r*ldb + n]: both
+// operands k-major (A = dwres, B = g), so a stage is two straight tile
+// copies. A block computes PW_BM x PW_BN outputs, a thread 8 x 8 (rows
+// ty*4 + 0..3 and 64 + ty*4 + 0..3, columns likewise from tx): per row of
+// a stage, two float4 shared loads of A (a warp reads 2 addresses) and two
+// of B (16 consecutive float4s) feed 64 FMAs. PW_BK rows a stage through a
+// PW_STAGES-deep cp.async ring; rows, M and N past their ends are zero.
+constexpr int PW_BM = 128;
+constexpr int PW_BN = 128;
+constexpr int PW_BK = 16;
+constexpr int PW_STAGES = 3;
+constexpr int PW_THREADS = 256;
+constexpr size_t PW_SMEM =
+    (size_t)PW_STAGES * PW_BK * (PW_BM + PW_BN) * sizeof(float);
+
+template <int STRIDE>
+__global__ void __launch_bounds__(PW_THREADS, 2)
+pw_gemm_kernel(const float* __restrict__ A, int lda,
+               const float* __restrict__ Bm, int ldb, float* __restrict__ C,
+               int M, int N, long long rows, int rows_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.y * PW_BM;
+  const int n0 = blockIdx.x * PW_BN;
+  const long long r0 = (long long)blockIdx.z * rows_per_split;
+  const long long r_end = min(rows, r0 + rows_per_split);
+  const int nk = (int)((r_end - r0 + PW_BK - 1) / PW_BK);
+
+  auto load = [&](int kt) {
+    float* As = smem + (kt % PW_STAGES) * PW_BK * (PW_BM + PW_BN);
+    float* Bs = As + PW_BK * PW_BM;
+    constexpr int PER_A = PW_BM / STRIDE;
+    for (int i = tid; i < PW_BK * PER_A; i += PW_THREADS) {
+      const int kk = i / PER_A;
+      const int mq = (i % PER_A) * STRIDE;
+      const long long r = r0 + (long long)kt * PW_BK + kk;
+      const bool ok = r < r_end && m0 + mq < M;
+      const float* src = ok ? A + r * lda + m0 + mq : A;
+      if constexpr (STRIDE == 4) {
+        cp_async16(As + kk * PW_BM + mq, src, ok);
+      } else {
+        cp_async4(As + kk * PW_BM + mq, src, ok);
+      }
+    }
+    constexpr int PER_B = PW_BN / STRIDE;
+    for (int i = tid; i < PW_BK * PER_B; i += PW_THREADS) {
+      const int kk = i / PER_B;
+      const int nq = (i % PER_B) * STRIDE;
+      const long long r = r0 + (long long)kt * PW_BK + kk;
+      const bool ok = r < r_end && n0 + nq < N;
+      const float* src = ok ? Bm + r * ldb + n0 + nq : Bm;
+      if constexpr (STRIDE == 4) {
+        cp_async16(Bs + kk * PW_BN + nq, src, ok);
+      } else {
+        cp_async4(Bs + kk * PW_BN + nq, src, ok);
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < PW_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<PW_STAGES - 2>();
+    __syncthreads();  // stage kt landed; everyone is done with kt - 1
+    if (kt + PW_STAGES - 1 < nk) load(kt + PW_STAGES - 1);
+    cp_async_commit();
+    const float* As = smem + (kt % PW_STAGES) * PW_BK * (PW_BM + PW_BN);
+    const float* Bs = As + PW_BK * PW_BM;
+#pragma unroll
+    for (int kk = 0; kk < PW_BK; ++kk) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 a4 = *reinterpret_cast<const float4*>(
+            As + kk * PW_BM + 64 * h + ty * 4);
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            Bs + kk * PW_BN + 64 * h + tx * 4);
+        av[4 * h] = a4.x; av[4 * h + 1] = a4.y;
+        av[4 * h + 2] = a4.z; av[4 * h + 3] = a4.w;
+        bv[4 * h] = b4.x; bv[4 * h + 1] = b4.y;
+        bv[4 * h + 2] = b4.z; bv[4 * h + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* Cz = C + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 64 * (i / 4) + ty * 4 + i % 4;
+    if (m >= M) continue;
+    float* cr = Cz + (size_t)m * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + tx * 4;
+      if constexpr (STRIDE == 4) {
+        if (n < N) {
+          *reinterpret_cast<float4*>(cr + n) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (n + j < N) cr[n + j] = acc[i][4 * h + j];
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // Shared memory of K6 for (K, d, Cout): the tile width follows Cout.
@@ -566,13 +832,7 @@ extern "C" long long sep_fwd_smem_bytes(int K, int d, int Cout) {
 }
 
 extern "C" long long sep_bwd_smem_bytes(int K, int d) {
-  return (long long)bwd_smem(K, d);
-}
-
-// Number of partials of dwpw for B*T_out = m_rows (the wrapper sizes the
-// scratch buffer with it).
-extern "C" int sep_bwd_pw_splits(long long m_rows, int Cin, int Cout) {
-  return pw_splits(m_rows, Cin, Cout);
+  return (long long)dw_smem(K, d);
 }
 
 // K6 on `stream`: y [B, T_out, Cout]. len1/len2 [B] int32 or null.
@@ -597,54 +857,65 @@ extern "C" int sep_fwd_launch(const float* x, const int* len1,
 
 // K7 on `stream`: dx [B, T, Cin], dwdw [K, Cin], dwpw [Cin, Cout] from g
 // [B, T_out, Cout]. Scratch: gdw and dwres [B, T_out, Cin], part_dw
-// [B, K, Cin], part_pw [sep_bwd_pw_splits(...), Cin, Cout]. Five launches.
+// [B * time_groups, K, Cin], part_pw [pw_splits, Cin, Cout]; the plan
+// (tiles_per_block, time_groups, pw_splits, pw_rows) comes from the
+// wrapper (ops/sep_conv.py::bwd_plan). Five launches.
 extern "C" int sep_bwd_launch(const float* x, const int* len1,
                               const int* len2, const float* wdw,
                               const float* wpw, const float* g, float* dx,
                               float* dwdw, float* dwpw, float* gdw,
                               float* dwres, float* part_dw, float* part_pw,
                               int B, int T, int Cin, int Cout, int K, int d,
-                              int p, int T_out, void* stream) {
+                              int p, int T_out, int tiles_per_block,
+                              int time_groups, int pw_splits, int pw_rows,
+                              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long m_rows = (long long)B * T_out;
-  // (i) gdw = (g @ wpw^T) * m2: A(m, o) = g[m*Cout + o], B(o, c) =
-  // wpw[c*Cout + o].
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  // (i) gdw = (g @ wpw^T) * m2.
   {
     const dim3 grid((Cin + G_BN - 1) / G_BN,
-                    (unsigned)((m_rows + G_BM - 1) / G_BM), 1);
-    gemm_kernel<true, true><<<grid, THREADS, 0, st>>>(
-        g, Cout, wpw, Cout, gdw, Cin, 0, (int)m_rows, Cin, Cout, Cout, len2,
-        T_out);
+                    (unsigned)((m_rows + G_BM - 1) / G_BM));
+    gdw_gemm_kernel<<<grid, G_THREADS, 0, st>>>(g, wpw, gdw, (int)m_rows,
+                                                Cin, Cout, len2, T_out);
     int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
-  // (ii) dx, dwres and the per-row partials of dwdw.
+  // (ii) dx, dwres and the per-block partials of dwdw.
   {
-    const size_t smem = bwd_smem(K, d);
-    static SmemLimit limit;
-    int err = limit.raise_to(sep_bwd_dw_kernel, smem);
-    if (err) return err;
-    const dim3 grid((Cin + CC - 1) / CC, B);
-    sep_bwd_dw_kernel<<<grid, THREADS, smem, st>>>(
-        x, gdw, len1, len2, wdw, dx, dwres, part_dw, T, Cin, K, d, p, T_out);
-    err = static_cast<int>(cudaGetLastError());
+    const int vec = Cin % 4 == 0 && aligned(x) && aligned(gdw);
+    auto run = launch_bwd_dw<11>;
+    switch (dw_kpt(K)) {
+      case 4: run = launch_bwd_dw<4>; break;
+      case 6: run = launch_bwd_dw<6>; break;
+      case 8: run = launch_bwd_dw<8>; break;
+    }
+    int err = run(x, gdw, len1, len2, wdw, dx, dwres, part_dw, B, T, Cin, K,
+                  d, p, T_out, tiles_per_block, time_groups, vec, st);
     if (err) return err;
   }
   // (iii) dwpw partials: A(c, m) = dwres[m*Cin + c], B(m, o) = g[m*Cout + o].
-  const int splits = pw_splits(m_rows, Cin, Cout);
   {
-    const int per = pw_rows_per_split(m_rows, splits);
-    const dim3 grid((Cout + G_BN - 1) / G_BN, (Cin + G_BM - 1) / G_BM,
-                    splits);
-    gemm_kernel<false, false><<<grid, THREADS, 0, st>>>(
-        dwres, Cin, g, Cout, part_pw, Cout, (long long)Cin * Cout, Cin, Cout,
-        (int)m_rows, per, nullptr, 1);
+    const dim3 grid((Cout + PW_BN - 1) / PW_BN, (Cin + PW_BM - 1) / PW_BM,
+                    pw_splits);
+    const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned(dwres) &&
+                     aligned(g) && aligned(part_pw);
+    if (vec) {
+      pw_gemm_kernel<4><<<grid, PW_THREADS, PW_SMEM, st>>>(
+          dwres, Cin, g, Cout, part_pw, Cin, Cout, m_rows, pw_rows);
+    } else {
+      pw_gemm_kernel<1><<<grid, PW_THREADS, PW_SMEM, st>>>(
+          dwres, Cin, g, Cout, part_pw, Cin, Cout, m_rows, pw_rows);
+    }
     int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
   // (iv), (v) fixed-order sums of the partials.
-  int err = launch_sum_partials(part_dw, B, (long long)K * Cin, dwdw, st);
+  int err = launch_sum_partials(part_dw, B * time_groups, (long long)K * Cin,
+                                dwdw, st);
   if (err) return err;
-  return launch_sum_partials(part_pw, splits, (long long)Cin * Cout, dwpw,
+  return launch_sum_partials(part_pw, pw_splits, (long long)Cin * Cout, dwpw,
                              st);
 }

@@ -14,7 +14,10 @@ default, ``model=quartznet`` or ``model=jasper`` for the Jasper family
 (kernels K4 and K6), whose eval-mode probabilities are scored as in
 ``test.py``. ``--weights`` is a ``state_dict`` of that model saved with
 ``torch.save`` (``weights.state_dict_from_flax`` makes one from a JAX
-checkpoint); without it the weights are drawn from ``--seed``.
+checkpoint); without it the weights are drawn from ``--seed``. Batches
+are bucketed as ``test.py`` buckets them: ``--batch-size`` or the config's
+``data.batch_size``, and its ``data.num_length_buckets`` and
+``data.max_duration``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import json
 import numpy as np
 import torch
 
-from .config import load_config
+from .config import BASE, load_config
 from .data.dataset import BucketBatchLoader, ManifestDataset
 from .data.features import SpectrogramFrontend
 from .decoding.decoder import GreedyDecoder
@@ -38,25 +41,26 @@ __all__ = ['build', 'evaluate', 'eval_step', 'main', 'make_loader',
            'masked_ctc_mean', 'to_device']
 
 LABELS = 'english_lowercase'
-MAX_DURATION = 16.7  # seconds: cap on the padded audio length
 
 
 def make_loader(manifest: str, batch_size: int, frontend: SpectrogramFrontend,
-                labels=LABELS, prefetch: int = 2) -> BucketBatchLoader:
+                labels=LABELS, prefetch: int = 2,
+                num_buckets: int = BASE['data']['num_length_buckets'],
+                max_duration: float | None = BASE['data']['max_duration']
+                ) -> BucketBatchLoader:
+    """Length-bucketed batches in manifest order; the defaults are the
+    config's ``data`` block (4 buckets, 16.7 s)."""
     ds = ManifestDataset(manifest, frontend.conf.sample_rate, labels)
     return BucketBatchLoader(ds, batch_size, frontend.hop,
-                             max_duration=MAX_DURATION, prefetch=prefetch)
+                             num_buckets=num_buckets,
+                             max_duration=max_duration, prefetch=prefetch)
 
 
-def build(device: str | torch.device = 'cuda', seed: int = 0,
-          weights: str | None = None, mid_layers: int | None = None,
-          overrides=()):
-    """(model, frontend, labels) on ``device``, in eval mode, from the
-    training config after ``overrides``. ``mid_layers`` sets the depth;
-    without it, and without a ``model.mid_layers`` override, Wav2Letter
-    runs all 20 layers and the Jasper family its config's depth. Raises if
-    a CUDA device is asked for and none is present."""
-    dev = resolve_device(device)
+def eval_config(overrides=(), mid_layers: int | None = None) -> dict:
+    """The training config after ``overrides``, manifests left unset.
+    ``mid_layers`` sets the depth; without it, and without a
+    ``model.mid_layers`` override, Wav2Letter runs all 20 layers and the
+    Jasper family its config's depth."""
     overrides = list(overrides)
     cfg = load_config(['data.train_manifest=-', 'data.val_manifest=-',
                        *overrides])
@@ -66,6 +70,19 @@ def build(device: str | torch.device = 'cuda', seed: int = 0,
     elif mcfg['name'] == 'wav2letter' and not any(
             o.lstrip('+').startswith('model.mid_layers=') for o in overrides):
         mcfg['mid_layers'] = len(mcfg['layers'])
+    return cfg
+
+
+def build(device: str | torch.device = 'cuda', seed: int = 0,
+          weights: str | None = None, mid_layers: int | None = None,
+          overrides=(), cfg: dict | None = None):
+    """(model, frontend, labels) on ``device``, in eval mode, from ``cfg``,
+    or from ``eval_config(overrides, mid_layers)`` without it. Raises if a
+    CUDA device is asked for and none is present."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = eval_config(overrides, mid_layers)
+    mcfg = cfg['model']
     labels = build_labels(mcfg)
     model = build_model(mcfg, len(labels), seed=seed)
     if weights:
@@ -111,7 +128,8 @@ def main(argv=None) -> int:
                         help='state_dict saved with torch.save; default: '
                              'weights drawn from --seed')
     parser.add_argument('--seed', type=int, default=0)
-    parser.add_argument('--batch-size', type=int, default=32)
+    parser.add_argument('--batch-size', type=int, default=None,
+                        help="default: the config's data.batch_size")
     parser.add_argument('--mid-layers', type=int, default=None,
                         help="blocks before the head (the config's "
                              'model.mid_layers; default: 20 for '
@@ -122,10 +140,14 @@ def main(argv=None) -> int:
                              'model=quartznet')
     args = parser.parse_args(argv)
 
+    cfg = eval_config(args.overrides, args.mid_layers)
     model, frontend, labels = build(args.device, args.seed, args.weights,
-                                    args.mid_layers, args.overrides)
-    loader = make_loader(args.test_manifest, args.batch_size, frontend,
-                         labels)
+                                    cfg=cfg)
+    data = cfg['data']
+    loader = make_loader(args.test_manifest,
+                         args.batch_size or int(data['batch_size']), frontend,
+                         labels, num_buckets=int(data['num_length_buckets']),
+                         max_duration=data['max_duration'])
     result = evaluate(model, frontend, loader, GreedyDecoder(labels),
                       args.device)
     print(json.dumps(result))

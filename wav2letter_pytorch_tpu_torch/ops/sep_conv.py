@@ -10,18 +10,65 @@ the ``custom_vjp`` of ``_sep_op``; ``lens`` only shapes the masks and gets
 no gradient. Stride is 1. ``sep_fwd.launches`` and ``sep_bwd.launches``
 count calls that launched the kernel (a K7 call is five launches of the
 one source: the g @ wpw^T product, the depthwise pass, the dwpw product
-and two fixed-order sums of partials).
+and two fixed-order sums of partials). ``bwd_plan`` cuts K7's work into
+blocks and partials; ``tests/test_torch_sep_bwd_tiles.py`` models that
+tiling in numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+
+
+# K7's tiles, as csrc/sep_conv.cu sets them (the tiling test reads them
+# back from the source).
+DW_TT = 64        # (ii) frames of a time tile
+DW_CG = 32        # (ii) input channels of a block, one a lane
+# The block targets are the fastest pair of tools/k7_split.py --sweep at
+# QuartzNet's shapes; at 256, (ii) cuts rows into time groups only when
+# B * Cin/32 is below it, else a block walks every tile of its row.
+DW_TARGET_BLOCKS = 256    # (ii) blocks a call aims for
+PW_BM = PW_BN = 128       # (iii) output tile of the dwpw product
+PW_BK = 16                # (iii) rows of the B*T_out reduction a stage
+PW_TARGET_BLOCKS = 264    # (iii) one wave: 2 blocks on each of 132 SMs
+PW_MIN_ROWS = 64          # (iii) fewest rows a partial sums
+
+
+class BwdPlan(NamedTuple):
+    """How K7 cuts its work. (ii): a block walks ``tiles_per_block``
+    consecutive time tiles of one batch row and channel group, and
+    ``time_groups`` blocks cover a row; dwdw has B * time_groups partials.
+    (iii): the B*T_out rows of dwpw's reduction go in ``pw_splits`` runs of
+    ``pw_rows`` (the last may be shorter), one partial each."""
+    tiles_per_block: int
+    time_groups: int
+    pw_splits: int
+    pw_rows: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(B: int, T: int, t_out: int, cin: int, cout: int) -> BwdPlan:
+    """K7's blocks and partials for x [B, T, cin], g [B, t_out, cout]."""
+    n_tiles = _cdiv(max(T, t_out), DW_TT)
+    groups = min(n_tiles, max(1, _cdiv(DW_TARGET_BLOCKS,
+                                       _cdiv(cin, DW_CG) * B)))
+    per_block = _cdiv(n_tiles, groups)
+    rows = B * t_out
+    tiles = _cdiv(cin, PW_BM) * _cdiv(cout, PW_BN)
+    splits = max(1, min(PW_TARGET_BLOCKS // tiles, _cdiv(rows, PW_MIN_ROWS)))
+    pw_rows = _cdiv(_cdiv(rows, splits), PW_BK) * PW_BK
+    return BwdPlan(per_block, _cdiv(n_tiles, per_block),
+                   _cdiv(rows, pw_rows), pw_rows)
 
 
 def out_length(t: int, k: int, d: int, p: int) -> int:
@@ -148,15 +195,12 @@ def _library() -> ctypes.CDLL:
     lib.sep_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sep_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.sep_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.sep_bwd_pw_splits.restype = ctypes.c_int
-    lib.sep_bwd_pw_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                      ctypes.c_int]
     lib.sep_fwd_launch.restype = ctypes.c_int
     lib.sep_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.sep_bwd_launch.restype = ctypes.c_int
     lib.sep_bwd_launch.argtypes = [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p]
+        ctypes.c_int] * 12 + [ctypes.c_void_p]
     return lib
 
 
@@ -231,14 +275,15 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
                          f'{tuple(g.shape)}')
     lib = _library()
     _bwd_smem(K, d)
-    splits = lib.sep_bwd_pw_splits(B * t_out, C, cout)
+    plan = bwd_plan(B, T, t_out, C, cout)
     dev = x.device
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     dx, dwdw, dwpw = empty(B, T, C), empty(K, C), empty(C, cout)
     gdw, dwres = empty(B, t_out, C), empty(B, t_out, C)
-    part_dw, part_pw = empty(B, K, C), empty(splits, C, cout)
+    part_dw = empty(B * plan.time_groups, K, C)
+    part_pw = empty(plan.pw_splits, C, cout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sep_bwd_launch(
@@ -246,7 +291,7 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
             wpw.data_ptr(), g.data_ptr(), dx.data_ptr(), dwdw.data_ptr(),
             dwpw.data_ptr(), gdw.data_ptr(), dwres.data_ptr(),
             part_dw.data_ptr(), part_pw.data_ptr(), B, T, C, cout, K, d, p,
-            t_out, stream)
+            t_out, *plan, stream)
     _build.check(lib, code, 'sep_conv K7 launch')
     sep_bwd.launches += 1
     return dx, dwdw, dwpw
