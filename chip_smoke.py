@@ -15,15 +15,17 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    (B=32, ~8 s); the wrapper must raise on a CUDA tensor without its
    tables or with an n_fft it does not take.
 4. K2 (ctc_alpha) against its plain version over (B, T, L, S) in
-   {(8,120,31,40), (8,100,31,40), (16,800,31,70)} and the main path's
-   shape; plus a float64 oracle and an impossible alignment; and K2 with
-   stored alphas against the plain recursion's alphas on the same grid.
+   {(8,120,31,40), (8,100,31,40), (16,800,31,70)}, the main path's shape
+   and a long shape (32,1000,29,320: ~20 s utterances); plus a float64
+   oracle and an impossible alignment; and K2 with stored alphas against
+   the plain recursion's alphas on the same shapes. K2 and K3 must raise
+   ValueError for a lattice wider than their registers hold (S = 2048).
 5. K3 (ctc_beta) through the autograd Function ``CTCLoss`` against its
-   plain version on the same grid and the main path's shape: mean loss and
-   d loss / d log_probs within 1e-4, and the gradient within 1e-5 of its
-   own largest entry; against a float64 oracle (autograd through the
-   float64 plain recursion); and a batch with an impossible alignment,
-   whose row must get an exact-zero, finite gradient.
+   plain version on the same shapes: mean loss and d loss / d log_probs
+   within 1e-4, and the gradient within 1e-5 of its own largest entry;
+   against a float64 oracle (autograd through the float64 plain
+   recursion); a batch with an impossible alignment, whose row must get an
+   exact-zero, finite gradient; and the same bits from two calls.
 6. Eval path: 64 synthetic ~8 s utterances written as WAV files, evaluated
    by ``wav2letter_pytorch_tpu_torch.evaluate.main`` on cuda with the full
    20-layer Wav2Letter (seeded random weights) at B=32; K1 and K2 must
@@ -62,7 +64,8 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 15. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K4-K7 QuartzNet's), max error
    against the plain version, time, plain time, roofline bound and the time
-   of the nearest PyTorch library call (timed here only).
+   of the nearest PyTorch library call (timed here only). K2 and K3 are
+   also timed at the long shape, and each prints its ns a dependent step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 before printing any result.
@@ -71,6 +74,7 @@ the script exits 1 before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -222,11 +226,14 @@ N_UTTS, BATCH, LEN_LO, LEN_HI = 64, 32, 127841, 129120
 MID_LAYERS = 20  # Wav2Letter-20: every layer of configs/model/wav2letter.yaml
 DEVICE = torch.device('cuda')
 # Operations per lattice update in K2: two logaddexp (max, sub, abs, exp,
-# log1p, add) and the emission add. K3: per beta update, two logaddexp and
-# three emission adds; per gamma, an add, a subtract, an exp and the sum.
+# log1p, add) and the emission add. K3: the same per beta update (its
+# emission add forms u); per gamma, an add, a subtract, an exp and the sum.
 K2_OPS_PER_UPDATE = 13
-K3_OPS_PER_UPDATE = 15
+K3_OPS_PER_UPDATE = 13
 K3_OPS_PER_GAMMA = 4
+# K2/K3's long shape (B, T, L, S): ~20 s utterances at Wav2Letter's stride
+# 2 with a transcript of up to 320 characters.
+CTC_LONG = (32, 1000, 29, 320)
 WORDS = ('the of and to a in that is was he for it with as his on be at by '
          'had not are but from or have an they which one you were her all '
          'she there would their we him been has when who will more no if '
@@ -463,20 +470,69 @@ def k2_alphas_compare(name, args):
           f'vs plain {nll_err:.3e}')
 
 
+def k2_oracle(name, args):
+    oracle = ctc_alpha_reference(args[0].double(), *args[1:])
+    rel = ((ctc_alpha(*args).double() - oracle).abs()
+           / oracle.abs()).max().item()
+    check(rel < K2_ORACLE_RTOL, f'K2 {name} vs float64 oracle: max '
+          f'relative nll err {rel:.3e} (gate {K2_ORACLE_RTOL})')
+
+
+CTC_GRID = ((8, 120, 31, 40), (8, 100, 31, 40), (16, 800, 31, 70))
+
+
+def ctc_long_inputs(dev):
+    B, T, L, S = CTC_LONG
+    return k2_inputs(B, T, L, S, 11, dev, tl_lo=S // 2, ll_lo=T - 10)
+
+
+def phase_ctc_limits():
+    """K2 and K3 hold a row's 2S+1 lattice positions in one block's
+    registers: a wider lattice raises ValueError before any launch."""
+    lp, ll, tg, tl = k2_inputs(2, 8, 29, 2048, 12, DEVICE, tl_lo=1, ll_lo=1)
+    B, T, _ = lp.shape
+    alphas = torch.zeros(B, T, 2 * tg.shape[1] + 1, device=DEVICE)
+    vec = torch.ones(B, device=DEVICE)
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    raised, msg = [], ''
+    for fn in (lambda: ctc_alpha(lp, ll, tg, tl, store_alphas=True),
+               lambda: ctc_alpha(lp, ll, tg, tl),
+               lambda: ctc_beta(lp, alphas, vec, ll, tg, tl, vec)):
+        try:
+            fn()
+            raised.append(False)
+        except ValueError as e:
+            raised.append(True)
+            msg = str(e)
+    check(all(raised) and (ctc_alpha.launches, ctc_beta.launches) == before,
+          f'K2/K3 at S=2048 (4097 lattice positions) raise ValueError '
+          f'before launching: {raised} ({msg})')
+
+
+def phase_log1p():
+    """The CTC kernels' branch-free log1p (csrc/ctc_lattice.cuh) against
+    the CUDA math library's log1pf, which the plain versions call through
+    torch.logaddexp, on every float in [0, 1]: the kernels round every
+    lattice update as the plain version does only if they agree bit for
+    bit."""
+    fn = _build.load('ctc_alpha').ctc_log1p_mismatches
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_void_p]
+    n = fn(torch.cuda.current_stream().cuda_stream)
+    check(n == 0, f'K2/K3 log1p vs log1pf on all 1065353217 floats in [0, 1]: '
+          f'{n} differ (0 wanted; negative: a CUDA error)')
+
+
 def phase_k2(main_s: int):
     dev = DEVICE
     errs = []
-    for i, (B, T, L, S) in enumerate(((8, 120, 31, 40), (8, 100, 31, 40),
-                                      (16, 800, 31, 70))):
+    phase_log1p()
+    for i, (B, T, L, S) in enumerate(CTC_GRID):
         args = k2_inputs(B, T, L, S, i, dev)
         errs.append(k2_compare(f'grid{i}', args))
         k2_alphas_compare(f'grid{i}', args)
         if T == 800:
-            oracle = ctc_alpha_reference(args[0].double(), *args[1:])
-            rel = ((ctc_alpha(*args).double() - oracle).abs()
-                   / oracle.abs()).max().item()
-            check(rel < K2_ORACLE_RTOL, f'K2 T=800 vs float64 oracle: max '
-                  f'relative nll err {rel:.3e} (gate {K2_ORACLE_RTOL})')
+            k2_oracle('T=800', args)
     # No possible alignment: 20 labels in 10 frames -> loss zeroed.
     args = k2_inputs(4, 10, 29, 20, 9, dev, tl_lo=20, ll_lo=10)
     loss_k = reduce_ctc(ctc_alpha(*args), args[3], 'none')
@@ -488,7 +544,12 @@ def phase_k2(main_s: int):
                      ll_lo=395)
     errs.append(k2_compare('main path', main))
     k2_alphas_compare('main path', main)
-    return max(errs), main
+    long = ctc_long_inputs(dev)
+    errs.append(k2_compare('long', long))
+    k2_alphas_compare('long', long)
+    k2_oracle(f'long (T={CTC_LONG[1]})', long)
+    phase_ctc_limits()
+    return max(errs), main, long
 
 
 class PlainCTC(torch.autograd.Function):
@@ -550,12 +611,26 @@ def k3_compare(name, args):
     return dg
 
 
-def phase_k3(k2_main):
+def k3_same_bits(name, args):
+    """No atomics in K3: two calls on the same inputs give the same
+    bits."""
+    lp, ll, tg, tl = args
+    nll, alphas = ctc_alpha(*args, store_alphas=True)
+    g = (1.0 / (lp.shape[0] * torch.clamp(tl, min=1).float())).contiguous()
+    first = ctc_beta(lp, alphas, nll, ll, tg, tl, g)
+    again = ctc_beta(lp, alphas, nll, ll, tg, tl, g)
+    check(bool(torch.equal(first, again)),
+          f'K3 {name} {tuple(lp.shape)} S={tg.shape[1]}: two calls give the '
+          'same bits')
+
+
+def phase_k3(k2_main, k2_long):
     dev = DEVICE
     errs = []
-    for i, (B, T, L, S) in enumerate(((8, 120, 31, 40), (8, 100, 31, 40),
-                                      (16, 800, 31, 70))):
-        errs.append(k3_compare(f'grid{i}', k2_inputs(B, T, L, S, i, dev)))
+    for i, (B, T, L, S) in enumerate(CTC_GRID):
+        args = k2_inputs(B, T, L, S, i, dev)
+        errs.append(k3_compare(f'grid{i}', args))
+        k3_same_bits(f'grid{i}', args)
     # Row 0 cannot align (at least 10 labels in 2 frames): zero_infinity
     # zeroes its loss, so its gradient must be exactly zero and finite.
     lp, ll, tg, tl = k2_inputs(8, 120, 31, 40, 0, dev)
@@ -571,6 +646,9 @@ def phase_k3(k2_main):
           'K3 impossible alignment in row 0: its gradient is exactly zero, '
           'the whole gradient finite, the other rows match the plain version')
     errs.append(k3_compare('main path', k2_main))
+    k3_same_bits('main path', k2_main)
+    errs.append(k3_compare('long', k2_long))
+    k3_same_bits('long', k2_long)
     return max(errs)
 
 
@@ -1355,17 +1433,20 @@ def lattice_sizes(args):
     return lens, 2 * tl.long().cpu() + 1
 
 
-def k2_numbers(args):
+def k2_numbers(args, what='main path', plain=True):
     """Times of the store-alphas variant (the training path's launch); the
-    eval variant's time is printed beside it."""
+    eval variant's time and both variants' ns a dependent step (time over
+    the longest row's frames) are printed beside it. ``plain``: time the
+    plain version too (else its time is None)."""
     lp, ll, tg, tl = args
     B, T, L = lp.shape
     ms = cuda_ms(lambda: ctc_alpha(*args, store_alphas=True))
     b2b = cuda_ms(lambda: ctc_alpha(*args, store_alphas=True), queued=False)
-    print(f'K2 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
+    print(f'K2 {what}: {ms:.4f} ms queued, {b2b:.4f} ms back to back')
     eval_ms = cuda_ms(lambda: ctc_alpha(*args))
-    plain_ms = cuda_ms(lambda: ctc_alpha_reference(*args, store_alphas=True),
-                       iters=3, warmup=1)
+    plain_ms = (cuda_ms(lambda: ctc_alpha_reference(*args,
+                                                    store_alphas=True),
+                        iters=3, warmup=1) if plain else None)
     lp_tbl = lp.transpose(0, 1)
 
     def library():
@@ -1381,17 +1462,20 @@ def k2_numbers(args):
     nbytes = int(4 * (lens.sum().item() * L + B * tg.shape[1] + 3 * B
                       + (lens * n_lat).sum().item()))
     ops = int(K2_OPS_PER_UPDATE * ((lens - 1) * n_lat).sum().item())
-    print(f'K2 at B={B}, T={T}, L={L}, S={tg.shape[1]}: {ops / 1e6:.1f} '
-          f'Mop, {nbytes / 1e6:.2f} MB, {T} dependent steps; storing alphas '
-          f'{ms:.4f} ms, eval variant {eval_ms:.4f} ms; F.ctc_loss agrees to '
-          f'{lib_err:.2e}')
+    steps = int(lens.max())
+    print(f'K2 {what} at B={B}, T={T}, L={L}, S={tg.shape[1]}: '
+          f'{ops / 1e6:.1f} Mop, {nbytes / 1e6:.2f} MB, {steps} dependent '
+          f'steps; storing alphas {ms:.4f} ms ({ms * 1e6 / steps:.1f} ns a '
+          f'step), eval variant {eval_ms:.4f} ms ({eval_ms * 1e6 / steps:.1f}'
+          f' ns a step); F.ctc_loss forward {library_ms:.4f} ms, agrees to '
+          f'{lib_err:.2e}; bound {ctc_bound_ms(nbytes, ops):.4f} ms')
     return ms, plain_ms, library_ms, nbytes, ops
 
 
-def k3_numbers(args):
-    """K3 at the main path's shape with the upstream gradient of the mean
-    loss; the library yardstick is F.ctc_loss's backward (forward +
-    backward minus forward)."""
+def k3_numbers(args, what='main path', plain=True):
+    """K3 (two device launches: the beta chain, then the per-label sums)
+    with the upstream gradient of the mean loss; the library yardstick is
+    F.ctc_loss's backward (forward + backward minus forward)."""
     lp, ll, tg, tl = args
     B, T, L = lp.shape
     nll, alphas = ctc_alpha(*args, store_alphas=True)
@@ -1399,10 +1483,12 @@ def k3_numbers(args):
     ms = cuda_ms(lambda: ctc_beta(lp, alphas, nll, ll, tg, tl, g))
     b2b = cuda_ms(lambda: ctc_beta(lp, alphas, nll, ll, tg, tl, g),
                   queued=False)
-    print(f'K3 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
-    nll_p, al_p = ctc_alpha_reference(*args, store_alphas=True)
-    plain_ms = cuda_ms(lambda: ctc_beta_reference(lp, al_p, nll_p, ll, tg, tl,
-                                                  g), iters=3, warmup=1)
+    print(f'K3 {what}: {ms:.4f} ms queued, {b2b:.4f} ms back to back')
+    plain_ms = None
+    if plain:
+        nll_p, al_p = ctc_alpha_reference(*args, store_alphas=True)
+        plain_ms = cuda_ms(lambda: ctc_beta_reference(
+            lp, al_p, nll_p, ll, tg, tl, g), iters=3, warmup=1)
     x = lp.transpose(0, 1).detach().requires_grad_()
 
     def forward():
@@ -1418,9 +1504,17 @@ def k3_numbers(args):
                       + B * tg.shape[1] + 5 * B))
     ops = int(K3_OPS_PER_UPDATE * ((lens - 1) * n_lat).sum().item()
               + K3_OPS_PER_GAMMA * (lens * n_lat).sum().item())
-    print(f'K3 at B={B}, T={T}, L={L}, S={tg.shape[1]}: {ops / 1e6:.1f} '
-          f'Mop, {nbytes / 1e6:.2f} MB, {T} dependent steps')
+    steps = int(lens.max())
+    print(f'K3 {what} at B={B}, T={T}, L={L}, S={tg.shape[1]}: '
+          f'{ops / 1e6:.1f} Mop, {nbytes / 1e6:.2f} MB, {steps} dependent '
+          f'steps; {ms:.4f} ms ({ms * 1e6 / steps:.1f} ns a step); '
+          f'F.ctc_loss backward {library_ms:.4f} ms; bound '
+          f'{ctc_bound_ms(nbytes, ops):.4f} ms')
     return ms, plain_ms, library_ms, nbytes, ops
+
+
+def ctc_bound_ms(nbytes, ops):
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
 
 
 def k4_numbers():
@@ -1655,8 +1749,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         manifest, longest = write_corpus(root)
         s_main = -(-longest // 16) * 16  # the loader's target padding
-        k2_err, k2_main = phase_k2(s_main)
-        k3_err = phase_k3(k2_main)
+        k2_err, k2_main, k2_long = phase_k2(s_main)
+        k3_err = phase_k3(k2_main, k2_long)
         # Wav2Letter-20
         phase_main_path(manifest)
         phase_cpu_reference()
@@ -1717,6 +1811,12 @@ def main() -> int:
                      tpu + 'sep_conv_pallas.py:93', qn_launches['sep_bwd'],
                      k7_err, k7_numbers),
     ]
+    long = {}
+    for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
+        ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)
+        long[name] = {'ms': ms, 'library_ms': library_ms,
+                      'bound_ms': ctc_bound_ms(nbytes, ops)}
+    print(json.dumps({'ctc_long_shape': list(CTC_LONG), **long}))
     print(f'total {time.time() - t_start:.1f} s [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -8,7 +8,13 @@ CUDA tensors, and run their plain versions (``ops/ctc.py``) for CPU
 tensors; neither ever falls back from one to the other. ``CTCLoss`` is the
 ``custom_vjp`` of the JAX package: its forward is K2 storing every step's
 alphas (the residual the TPU kernel keeps too), its backward is K3.
-``ctc_alpha.launches`` and ``ctc_beta.launches`` count kernel launches.
+``ctc_alpha.launches`` and ``ctc_beta.launches`` count wrapper calls that
+launch: one device launch for K2, two for K3 (the beta chain, then the
+per-label gradient sums).
+
+Both kernels hold a row's 2S+1 lattice positions in the registers of one
+block (``csrc/ctc_lattice.cuh``); the wrappers raise ``ValueError`` before
+launching for a target width S whose lattice does not fit (S > 2047).
 """
 
 from __future__ import annotations
@@ -58,7 +64,9 @@ def _check_inputs(name, log_probs, logit_lengths, targets, target_lengths,
                          f'T={T}, blank={blank}, L={L}')
 
 
-def _load(name: str, S: int, L: int) -> ctypes.CDLL:
+def _load(name: str, S: int, L: int, warps: int = 0) -> ctypes.CDLL:
+    """The kernel's library, after checking that it takes (S, L) at
+    ``warps`` warps a row (0: its own table)."""
     lib = _build.load(name)
     smem_fn = getattr(lib, f'{name}_smem_bytes')
     smem_fn.restype = ctypes.c_longlong
@@ -68,17 +76,25 @@ def _load(name: str, S: int, L: int) -> ctypes.CDLL:
         raise ValueError(f'{name}: S={S}, L={L} need {smem} bytes of '
                          f'shared memory, over the limit of '
                          f'{_build.SMEM_LIMIT_BYTES}')
+    warps_fn = getattr(lib, f'{name}_warps')
+    warps_fn.restype = ctypes.c_int
+    warps_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    if warps_fn(S, warps) == 0:
+        raise ValueError(f'{name}: S={S} gives {2 * S + 1} lattice '
+                         f'positions, more than one block holds in '
+                         f'registers at warps={warps or "table"} '
+                         f'(csrc/ctc_lattice.cuh::plan_warps)')
     return lib
 
 
 def _launch_alpha(log_probs, logit_lengths, targets, target_lengths, blank,
-                  store_alphas):
+                  store_alphas, warps=0):
     _check_inputs('ctc_alpha', log_probs, logit_lengths, targets,
                   target_lengths, blank)
     B, T, L = log_probs.shape
     S = targets.shape[1]
     dev = log_probs.device
-    lib = _load('ctc_alpha', S, L)
+    lib = _load('ctc_alpha', S, L, warps)
     nll = torch.empty((B,), dtype=torch.float32, device=dev)
     # Only rows t < logit_length and positions s < 2*S_b+1 are written:
     # those are all that K3 reads.
@@ -89,13 +105,13 @@ def _launch_alpha(log_probs, logit_lengths, targets, target_lengths, blank,
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(log_probs.data_ptr(), B, T, L, logit_lengths.data_ptr(),
                   targets.data_ptr(), S, target_lengths.data_ptr(), blank,
                   nll.data_ptr(),
-                  alphas.data_ptr() if store_alphas else None, stream)
+                  alphas.data_ptr() if store_alphas else None, warps, stream)
     _build.check(lib, code, 'ctc_alpha launch')
     ctc_alpha.launches += 1
     return (nll, alphas) if store_alphas else nll
@@ -124,7 +140,7 @@ ctc_alpha.launches = 0
 
 
 def _launch_beta(log_probs, alphas, nll, logit_lengths, targets,
-                 target_lengths, grad_nll, blank):
+                 target_lengths, grad_nll, blank, warps=0):
     _check_inputs('ctc_beta', log_probs, logit_lengths, targets,
                   target_lengths, blank)
     B, T, L = log_probs.shape
@@ -137,21 +153,27 @@ def _launch_beta(log_probs, alphas, nll, logit_lengths, targets,
             raise ValueError(f'ctc_beta: {what} must be contiguous float32 '
                              f'{shape} on {dev}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    lib = _load('ctc_beta', S, L)
+    lib = _load('ctc_beta', S, L, warps)
     grad = torch.empty((B, T, L), dtype=torch.float32, device=dev)
+    # Scratch: log-beta (written only where the gradient pass reads it)
+    # and each row's label positions sorted by label, with offsets.
+    beta = torch.empty((B, T, 2 * S + 1), dtype=torch.float32, device=dev)
+    order = torch.empty((B, S + L + 1), dtype=torch.int32, device=dev)
     fn = lib.ctc_beta_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(log_probs.data_ptr(), B, T, L, alphas.data_ptr(),
                   nll.data_ptr(), grad_nll.data_ptr(),
                   logit_lengths.data_ptr(), targets.data_ptr(), S,
-                  target_lengths.data_ptr(), blank, grad.data_ptr(), stream)
+                  target_lengths.data_ptr(), blank, grad.data_ptr(),
+                  beta.data_ptr(), order.data_ptr(), warps, stream)
     _build.check(lib, code, 'ctc_beta launch')
     ctc_beta.launches += 1
     return grad
