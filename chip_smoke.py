@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 
 1. Environment: torch/CUDA/nvcc versions, the card's name and power limit.
 2. Build every kernel under ``wav2letter_pytorch_tpu_torch/csrc/`` with
-   nvcc (one process per source, in parallel).
+   nvcc (one process per source, in parallel) and print each kernel's
+   registers, shared memory and spills from ptxas; K4 and K5 must spill
+   nothing.
 3. K1 (stft_mel_log: real FFT, banded mel) against its plain PyTorch
    version (the dense DFT) and a float64 oracle on the card, at 16 kHz,
    8 kHz and a 15 ms hop (B=4, 2 s, ragged lengths), at every n_fft from
@@ -46,11 +48,12 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 10. Train-step time and utterances per second at B=32 of ~8 s, peak
    memory, and a profiler breakdown with the device-busy share.
 11. K4/K5 (depthwise forward, input and weight gradient) against their
-   plain versions and a float64 oracle on the TPU check grid and the
-   QuartzNet main path's C1 shape; K6/K7 (fused separable unit, forward and
-   the three gradients) likewise, with ragged lengths, masks on and off,
-   on the TPU grid, the QuartzNet main path's unit shapes and shapes at
-   the edges of K6's tiles.
+   plain versions and a float64 oracle on the TPU check grid, the
+   QuartzNet main path's C1 shape and shapes at the edges of their tiles
+   (``DW_EDGE``), and K5's same bits from two calls; K6/K7 (fused
+   separable unit, forward and the three gradients) likewise, with ragged
+   lengths, masks on and off, on the TPU grid, the QuartzNet main path's
+   unit shapes and shapes at the edges of K6's tiles.
 12. QuartzNet-15x5 eval: ``evaluate.main model=quartznet`` at full width on
    the same 64 WAVs, B=32, seeded weights; per forward K4 must launch once
    and K6 76 times; the card's eval step against the CPU's.
@@ -105,7 +108,7 @@ from wav2letter_pytorch_tpu_torch.ops.ctc_kernel import (ctc_alpha,
                                                          ctc_loss_kernel)
 from wav2letter_pytorch_tpu_torch.ops.depthwise import (
     depthwise_dgrad, depthwise_fwd, depthwise_fwd_reference, depthwise_wgrad,
-    depthwise_wgrad_reference)
+    depthwise_wgrad_reference, fwd_plan, wgrad_plan)
 from wav2letter_pytorch_tpu_torch.ops.depthwise import \
     out_length as dw_out_length
 from wav2letter_pytorch_tpu_torch.ops.sep_conv import (mask_lengths, sep_bwd,
@@ -166,6 +169,19 @@ SEP_ORACLE_RTOL = 10 * SEP_PLAIN_ORACLE
 DW_GRID = [(4, 400, 256, 33, 1, 1), (4, 400, 512, 74, 1, 1),
            (4, 801, 64, 33, 2, 1), (2, 400, 512, 87, 1, 2)]
 DW_MAIN = (32, 808, 64, 33, 2, 1)
+# Shapes at the edges of K4's and K5's tiles (ops/depthwise.py's plans: K4
+# tiles and K5 chunks of ~128 frames, K4's in whole groups of 16 d', 32
+# channels a block, 16-byte copies when C % 4 == 0): T_out one short of a
+# tile, one tile, one over (C = 40, not a multiple of 32); the same at two
+# tiles (C = 48); C = 8 and C = 50 (4-byte copies) at stride 2 with even
+# and odd T; K = 1; an even K at stride 2; C2's K = 87 at d = 2; B = 521,
+# where K5's second launch sums 521 partials.
+DW_EDGE = [(2, 127, 40, 33, 1, 1), (2, 128, 40, 33, 1, 1),
+           (2, 129, 40, 33, 1, 1), (3, 255, 48, 33, 1, 1),
+           (3, 256, 48, 33, 1, 1), (3, 257, 48, 33, 1, 1),
+           (2, 100, 8, 33, 2, 1), (2, 101, 50, 33, 2, 1),
+           (3, 50, 32, 1, 1, 1), (2, 100, 50, 32, 2, 1),
+           (2, 150, 40, 87, 1, 2), (521, 40, 8, 5, 1, 1)]
 # (B, T, Cin, Cout, K, dilation): run_tpu_checks.py's separable grid, then
 # QuartzNet's unit shapes at the main path (B1/B2, B3's first, B5, C2).
 SEP_GRID = [(4, 400, 256, 256, 33, 1), (4, 400, 512, 512, 74, 1),
@@ -332,6 +348,11 @@ def phase_build():
             elif 'Used' in line or 'spill' in line:
                 ptxas.append(line.replace('ptxas info    :', '').strip())
         print(f'  {name}: ' + ' '.join(ptxas))
+        if name == 'depthwise':
+            spills = [line for line in lines if re.search(
+                r'[1-9]\d* bytes spill (stores|loads)', line)]
+            check(not spills, 'ptxas: K4 and K5 spill nothing'
+                  + ''.join(f'; {line.strip()}' for line in spills))
     for name in paths:
         _build.load(name)
 
@@ -688,7 +709,7 @@ def dw_kernel(x, w, g, s, d, p):
 
 def phase_k4_k5():
     errs = {'K4': [], 'K5': []}
-    for i, shape in enumerate(DW_GRID + [DW_MAIN]):
+    for i, shape in enumerate(DW_GRID + [DW_MAIN] + DW_EDGE):
         B, T, C, K, s, d = shape
         (x, w, g), p = dw_inputs(*shape, 20 + i, DEVICE)
         got = dw_kernel(x, w, g, s, d, p)
@@ -700,13 +721,20 @@ def phase_k4_k5():
         ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
         errs['K4'] += ab[:2]
         errs['K5'].append(ab[2])
-        name = 'main path' if shape == DW_MAIN else f'grid{i}'
+        name = ('main path' if shape == DW_MAIN else
+                'edge' if shape in DW_EDGE else f'grid{i}')
         check(max(r) < SEP_DW_RTOL and max(o) < DW_ORACLE_RTOL
               and all(bool(torch.isfinite(t).all()) for t in got),
               f'K4/K5 {name} (B,T,C,K,s,d)={shape}: y, dx, dw vs plain '
               f'{r[0]:.2e} {r[1]:.2e} {r[2]:.2e} (gate {SEP_DW_RTOL}); vs '
               f'float64 oracle {o[0]:.2e} {o[1]:.2e} {o[2]:.2e} (gate '
               f'{DW_ORACLE_RTOL})')
+    # No float atomics: two calls give the same bits.
+    B, T, C, K, s, d = DW_MAIN
+    (x, w, g), p = dw_inputs(*DW_MAIN, 98, DEVICE)
+    first = depthwise_wgrad(x, g, K, s, d, p)
+    check(torch.equal(first, depthwise_wgrad(x, g, K, s, d, p)),
+          f'K5 at {DW_MAIN}: two calls give the same bits')
     return max(errs['K4']), max(errs['K5'])
 
 
@@ -1539,7 +1567,7 @@ def k4_numbers():
     nbytes = 4 * (B * T * C + K * C + B * t_out * C)
     ops = 2 * B * t_out * C * K
     print(f'K4 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
-          f'cuDNN agrees to {lib_err:.2e}')
+          f'cuDNN agrees to {lib_err:.2e}; {fwd_plan(t_out, K, s, d)}')
     return ms, plain_ms, library_ms, nbytes, ops
 
 
@@ -1566,7 +1594,8 @@ def k5_numbers():
     nbytes = 4 * (B * T * C + B * t_out * C + K * C)
     ops = 2 * B * t_out * C * K
     print(f'K5 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
-          f'cuDNN agrees to {lib_err:.2e} (relative)')
+          f'cuDNN agrees to {lib_err:.2e} (relative); '
+          f'{wgrad_plan(B, t_out, K, s, d)}')
     return ms, plain_ms, library_ms, nbytes, ops
 
 

@@ -65,7 +65,7 @@ __device__ __forceinline__ void load_chunk(float* ring, const float* lp,
     ctc::cp_async_floats(ring + (size_t)(c % RING_CHUNKS) * CHUNK_FRAMES * L,
                          lp + (size_t)lo * L, frames * L);
   }
-  ctc::cp_async_commit();
+  cp_async_commit();
 }
 
 template <int J, bool STORE>
@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(ctc::max_threads(J))
     }
   }
 
-  ctc::cp_async_wait<RING_CHUNKS - 1>();  // chunk 0
+  cp_async_wait<RING_CHUNKS - 1>();  // chunk 0
   __syncthreads();
 
   float ab[J], al[J];  // alpha at the pair's blank and label
@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(ctc::max_threads(J))
     }
     if (multi && lane == 31) edge_out[parity] = al[J - 1];
     const bool chunk_end = (t + 1) % CHUNK_FRAMES == 0;
-    if (chunk_end) ctc::cp_async_wait<RING_CHUNKS - 2>();  // chunk of t+1
+    if (chunk_end) cp_async_wait<RING_CHUNKS - 2>();  // chunk of t+1
     if (multi) {
       __syncthreads();
     } else if (chunk_end) {
@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(ctc::max_threads(J))
     }
   }
 
-  ctc::cp_async_wait<0>();  // no copy outlives the block
+  cp_async_wait<0>();  // no copy outlives the block
   // -log Z from the final blank (2*S_b) and, for S_b > 0, the final label.
 #pragma unroll
   for (int j = 0; j < J; ++j) {

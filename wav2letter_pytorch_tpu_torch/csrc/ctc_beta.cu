@@ -90,7 +90,7 @@ __device__ __forceinline__ void load_chunk(float* ring, const float* lp,
                                  (lo - lo_slot)) * L,
                          lp + (size_t)lo * L, (hi - lo + 1) * L);
   }
-  ctc::cp_async_commit();
+  cp_async_commit();
 }
 
 template <int J>
@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(ctc::max_threads(J))
     skip[j] = k + 1 < tl && s_tgt[k + 1] != s_tgt[k];
   }
 
-  ctc::cp_async_wait<RING_CHUNKS - 1>();  // chunk 0
+  cp_async_wait<RING_CHUNKS - 1>();  // chunk 0
   __syncthreads();
 
   // Step i = 0 is frame t_last: beta = 0 on the read positions.
@@ -261,14 +261,14 @@ __global__ void __launch_bounds__(ctc::max_threads(J))
       edge_out[parity + 1] = ul[0];
     }
     const bool chunk_end = (i + 1) % CHUNK_FRAMES == 0;
-    if (chunk_end) ctc::cp_async_wait<RING_CHUNKS - 2>();  // chunk of i+1
+    if (chunk_end) cp_async_wait<RING_CHUNKS - 2>();  // chunk of i+1
     if (multi) {
       __syncthreads();
     } else if (chunk_end) {
       __syncwarp();
     }
   }
-  ctc::cp_async_wait<0>();  // no copy outlives the block
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -14,174 +14,417 @@
 // is 2K operations per 8 bytes moved (x read, y written): at K = 33 that is
 // ~8 FLOP/byte, under the card's ~20 FLOP/byte FP32 balance point (67
 // TFLOP/s over 3.35 TB/s). The QuartzNet layer (C1: B=32, T=808, C=64,
-// stride 2) moves ~10 MB, a few microseconds; launch cost and the halo
-// re-read are of the same order.
+// stride 2) moves ~10 MB, ~3 us. In practice both are short one-wave
+// kernels whose staging, shared-memory-fed FMAs and stores run one after
+// the other in every block (PERF.md, the K4/K5 findings).
 //
-// Design. K4: one block per (time tile of 64 outputs, 32 channels, batch
-// row). The block stages its input span, the tile plus its halo of d(K-1)
-// frames (zero outside [0, T): the padding), and the tile's K weights in
-// shared memory. A lane owns one channel, so global loads and stores of
-// the [B, T, C] layout are 128-byte rows, and shared rows are padded to 33
-// floats. Each thread runs the K-tap FMA chain for 8 output frames; stride
-// and dilation are index arithmetic, no phase planes as on the TPU. Any T.
-// K5: the TPU carried dw in VMEM across the batch grid dimension. Here a
-// block per (32 channels, batch row) walks that row's time tiles and keeps
-// its [K, 32] sums in shared memory (each entry owned by one thread, summed
-// in time order), writes them as one partial, and a second launch sums the
-// B partials in index order (partials.cuh): no float atomics, so two runs
-// give the same bits.
+// Phase planes, as the TPU kernel's _phase_views: a block stages its span
+// of x_pad (zero outside [0, T): the padding) in shared memory as s
+// stride-1 planes, plane r row i = x_pad[u0 + i*s + r], so tap k reads
+// plane (k d) mod s at row t + (k d) div s, one row a frame. With
+// g = gcd(s, d), s' = s/g and d' = d/g, the taps k = kr, kr + s', kr + 2s',
+// ... (a class, kr < s') share a plane and sit d' rows apart. Copies are
+// cp.async, 16 bytes where C % 4 == 0 (and the bases are aligned), else 4.
+// A shared row holds a block's CT = 32 channels. A lane owns two of them
+// (float2: with one 32-bit shared load per R FMAs the loads' issue rate,
+// not the FMAs', was the limit, and a 64-bit load moves twice the bytes
+// for one issue), so a half-warp reads a whole row and each half-warp
+// works on an item of its own.
+//
+// K4: a block per (time tile, 32 channels, batch row). A thread computes R
+// outputs of its channels, frames f0 + i d' (i < R). For the taps of one
+// class, the x values are V[m] = plane[f0 + o + m d'] (o the class's first
+// row): tap j of the class needs V[j .. j+R-1], a register window that
+// slides by one from one tap to the next. So a tap costs one shared load of
+// x, one of w and R independent FMAs a channel. The taps are summed class
+// by class.
+//
+// K5: a block per (32 channels, time chunk, batch row), so C1 fills the
+// card (2 x 4 x 32 = 256 blocks). A thread owns a group of up to R
+// consecutive taps of one class and a slice of the chunk's frames (fa,
+// fa + d', ...): over them it keeps the x values its taps need in a
+// register window that slides one row a frame, so a frame costs one shared
+// load of x, one of g and R independent FMAs a channel. Its sums go to
+// shared memory (each entry owned by one thread), are added over the
+// slices in a fixed order and written as the block's partial [K, 32]. A
+// second launch sums the partials in index order (partials.cuh). No float
+// atomics: two runs give the same bits.
+//
+// Windows are circular: V[m] lives in slot m % R, and the loops over taps
+// (K4) and frames (K5) are unrolled by R, so the slots are registers and
+// nothing moves. K4's R is DW_FWD_R, fixed when the library is built
+// (tools/dw_sweep.py builds other values to sweep it); K5's R is the
+// wrapper's choice from the tap groups, one of 4, 8 or 16. The wrapper
+// plans the rest of the tiling (tile lengths, plane rows, warps, shared
+// memory) and passes it in.
+//
+// Every launch uses programmatic dependent launch (common.cuh): a kernel's
+// blocks may be scheduled while the previous kernel on the stream drains,
+// and wait (griddepcontrol.wait) before their first global access. At
+// these sizes the gap between two launches is a large share of a kernel's
+// time.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "partials.cuh"
 
+#ifndef DW_FWD_R
+#define DW_FWD_R 16  // K4 outputs a thread
+#endif
+
 namespace {
 
-constexpr int CT = 32;       // channels per block, one per lane
-constexpr int WARPS = 8;     // 256 threads
-constexpr int THREADS = 32 * WARPS;
-constexpr int TT = 64;       // output frames per tile
-constexpr int XS = CT + 1;   // padded shared row: no bank conflicts
+constexpr int CT = 32;           // channels per block, two a lane
+constexpr int MAX_WARPS = 16;    // a block has 1-16 warps (the plan's)
+constexpr int MAX_THREADS = 32 * MAX_WARPS;
+constexpr int FWD_R = DW_FWD_R;
 
-__host__ __device__ inline int span_rows(int K, int s, int d) {
-  return (TT - 1) * s + d * (K - 1) + 1;
+__device__ __forceinline__ int gcd_int(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Stage `rows` rows of each of the s phase planes [s][L][CT]: plane r row i
+// = x row u0 + i*s + r of this batch row, zero outside [0, T) and past C.
+template <int STRIDE>
+__device__ __forceinline__ void stage_planes(float* planes,
+                                             const float* __restrict__ xb,
+                                             int u0, int rows, int L, int s,
+                                             int T, int C, int c0) {
+  constexpr int PER_ROW = CT / STRIDE;
+  for (int r = 0; r < s; ++r) {
+    for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
+      const int cq = (i % PER_ROW) * STRIDE;
+      const int row = i / PER_ROW;
+      const int t = u0 + row * s + r;
+      const bool ok = t >= 0 && t < T && c0 + cq < C;
+      const float* src = ok ? xb + (size_t)t * C + c0 + cq : xb;
+      float* dst = planes + ((size_t)r * L + row) * CT + cq;
+      if constexpr (STRIDE == 4) {
+        cp_async16(dst, src, ok);
+      } else {
+        cp_async4(dst, src, ok);
+      }
+    }
+  }
+}
+
+// Stage rows t0 .. t0 + rows - 1 of a [n_rows, C] array into [rows][CT],
+// zero past n_rows and past C.
+template <int STRIDE>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src0,
+                                           int t0, int rows, int n_rows,
+                                           int C, int c0) {
+  constexpr int PER_ROW = CT / STRIDE;
+  for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
+    const int cq = (i % PER_ROW) * STRIDE;
+    const int r = i / PER_ROW;
+    const bool ok = t0 + r < n_rows && c0 + cq < C;
+    const float* src = ok ? src0 + (size_t)(t0 + r) * C + c0 + cq : src0;
+    if constexpr (STRIDE == 4) {
+      cp_async16(dst + r * CT + cq, src, ok);
+    } else {
+      cp_async4(dst + r * CT + cq, src, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ void fma2(float2& acc, float2 x, float2 w) {
+  acc.x = fmaf(x.x, w.x, acc.x);
+  acc.y = fmaf(x.y, w.y, acc.y);
+}
+
+// K4. Grid (tiles, C / CT, B); the plan gives the tile length TT (a
+// multiple of R d', R = FWD_R) and the plane rows L = TT + ((K-1) d) div
+// s. Lane l owns channels c0 + 2 (l % 16) and the next; half-warp
+// h = l / 16 of warp w computes the items 2w + h, 2w + h + 2 warps, ...;
+// item it: R outputs at frames f0 + i d', f0 = (it / d') R d' + it % d'.
+template <int STRIDE>
+__global__ void __launch_bounds__(MAX_THREADS)
 dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               float* __restrict__ y, int T, int C, int K, int s, int d, int p,
-              int T_out) {
-  extern __shared__ float smem[];
-  const int rows = span_rows(K, s, d);
-  float* x_s = smem;              // [rows][XS]
-  float* w_s = smem + rows * XS;  // [K][CT]
+              int T_out, int TT, int L) {
+  constexpr int R = FWD_R;
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem;                      // [s][L][CT]
+  float* w_s = planes + (size_t)s * L * CT;  // [K][CT]
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int half = lane >> 4, hl = lane & 15;
+  const int slot = 2 * (threadIdx.x >> 5) + half;
+  const int slots = blockDim.x >> 4;
   const int t0 = blockIdx.x * TT;
-  const int c = blockIdx.y * CT + lane;
+  const int c0 = blockIdx.y * CT;
+  const int c = c0 + 2 * hl;
   const int b = blockIdx.z;
-  const bool c_ok = c < C;
-  const float* xb = x + (size_t)b * T * C;
-  const int in0 = t0 * s - p;
+  wait_prior_grid();
+  stage_planes<STRIDE>(planes, x + (size_t)b * T * C, t0 * s - p, L, L, s, T,
+                       C, c0);
+  stage_rows<STRIDE>(w_s, w, 0, K, K, C, c0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (c >= C) return;
 
-  for (int r = warp; r < rows; r += WARPS) {
-    const int t = in0 + r;
-    x_s[r * XS + lane] =
-        (c_ok && t >= 0 && t < T) ? xb[(size_t)t * C + c] : 0.f;
+  const int g = gcd_int(s, d);
+  const int sp = s / g, dp = d / g;
+  const int n_t = min(TT, T_out - t0);
+  const int items = TT / R;  // TT / (R d') groups of d' items
+  const int xstep = dp * CT / 2;  // in float2
+  const int wstep = sp * CT / 2;
+  float* yb = y + ((size_t)b * T_out + t0) * C + c;
+  for (int it = slot; it < items; it += slots) {
+    const int f0 = (it / dp) * R * dp + it % dp;
+    if (f0 >= n_t) continue;
+    float2 acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = make_float2(0.f, 0.f);
+    for (int kr = 0; kr < sp && kr < K; ++kr) {
+      const int n = (K - kr + sp - 1) / sp;  // taps kr, kr + s', ...
+      const float2* xr = reinterpret_cast<const float2*>(
+          planes + ((size_t)((kr * d) % s) * L + f0 + (kr * d) / s) * CT) +
+          hl;
+      const float2* wr = reinterpret_cast<const float2*>(w_s + kr * CT) + hl;
+      float2 win[R];  // V[m] in slot m % R
+#pragma unroll
+      for (int i = 0; i + 1 < R; ++i) win[i] = xr[i * xstep];
+      xr += (R - 1) * xstep;
+      // Tap j + jj reads V[j + jj .. j + jj + R - 1]: whole runs of R taps
+      // unguarded (so their loads can issue ahead), then the rest.
+      int j = 0;
+      for (; j + R <= n; j += R) {
+#pragma unroll
+        for (int jj = 0; jj < R; ++jj) {
+          win[(jj + R - 1) % R] = xr[jj * xstep];
+          const float2 wk = wr[jj * wstep];
+#pragma unroll
+          for (int i = 0; i < R; ++i) fma2(acc[i], win[(jj + i) % R], wk);
+        }
+        xr += R * xstep;
+        wr += R * wstep;
+      }
+#pragma unroll
+      for (int jj = 0; jj + 1 < R; ++jj) {
+        if (j + jj < n) {
+          win[(jj + R - 1) % R] = xr[jj * xstep];
+          const float2 wk = wr[jj * wstep];
+#pragma unroll
+          for (int i = 0; i < R; ++i) fma2(acc[i], win[(jj + i) % R], wk);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int f = f0 + i * dp;
+      if (f < n_t) {
+        yb[(size_t)f * C] = acc[i].x;
+        if (c + 1 < C) yb[(size_t)f * C + 1] = acc[i].y;
+      }
+    }
   }
-  for (int k = warp; k < K; k += WARPS) {
-    w_s[k * CT + lane] = c_ok ? w[(size_t)k * C + c] : 0.f;
+  allow_next_grid();
+}
+
+// K5's partials. Grid (C / CT, chunks, B); block (cx, ch, b) sums frames
+// ch*TC .. of row b into part[b * chunks + ch] [K, C]. The plan gives TC,
+// the staged rows a plane (TC + ((K-1) d) div s), the plane rows L (room
+// for the last group's taps past its class too: their sums are dropped)
+// and the time slices `slices`. Item (group, slice, u) covers frames
+// slice*ceil(TC/slices) + u + m d'. Lanes and half-warps as in K4.
+template <int R, int STRIDE>
+__global__ void __launch_bounds__(MAX_THREADS)
+dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                float* __restrict__ part, int T, int C, int K, int s, int d,
+                int p, int T_out, int TC, int staged, int L, int slices) {
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem;                       // [s][L][CT]
+  float* g_s = planes + (size_t)s * L * CT;   // [TC][CT]
+  float* acc_s = g_s + (size_t)TC * CT;       // [slices * d'][K][CT]
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4, hl = lane & 15;
+  const int slot = 2 * (threadIdx.x >> 5) + half;
+  const int slots = blockDim.x >> 4;
+  const int c0 = blockIdx.x * CT;
+  const int t0 = blockIdx.y * TC;
+  const int b = blockIdx.z;
+  const int n_t = min(TC, T_out - t0);
+  const int gg = gcd_int(s, d);
+  const int sp = s / gg, dp = d / gg;
+  const int subs = slices * dp;
+  for (int i = threadIdx.x; i < subs * K * CT; i += blockDim.x) acc_s[i] = 0.f;
+  wait_prior_grid();
+  stage_planes<STRIDE>(planes, x + (size_t)b * T * C, t0 * s - p, staged, L,
+                       s, T, C, c0);
+  stage_rows<STRIDE>(g_s, g + (size_t)b * T_out * C, t0, TC, T_out, C, c0);
+  cp_async_commit();
+  int groups = 0;
+  for (int kr = 0; kr < sp && kr < K; ++kr) {
+    groups += ((K - kr + sp - 1) / sp + R - 1) / R;
+  }
+  const int items = groups * subs;
+  const int slice = (TC + slices - 1) / slices;
+  const int xstep = dp * CT / 2;  // in float2
+  cp_async_wait<0>();
+  __syncthreads();  // the row landed (and acc_s is zero)
+
+  for (int item = slot; item < items; item += slots) {
+    const int sub = item % subs;  // slice * d' + u
+    const int u = sub % dp;
+    const int ts = sub / dp;
+    const int fa = ts * slice + u;
+    const int fb = min((ts + 1) * slice, n_t);
+    if (fa >= fb) continue;
+    const int steps = (fb - fa + dp - 1) / dp;
+    int grp = item / subs;
+    int kr = 0, n = 0;
+    for (;; ++kr) {  // group -> (class kr, its taps j0 ..)
+      n = (K - kr + sp - 1) / sp;
+      const int gk = (n + R - 1) / R;
+      if (grp < gk) break;
+      grp -= gk;
+    }
+    const int j0 = grp * R;
+    float2 acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = make_float2(0.f, 0.f);
+    // V[m] = plane row fa + (kr d) div s + (j0 + m) d': frame step m', tap
+    // j0 + j reads V[m' + j].
+    const float2* xr = reinterpret_cast<const float2*>(
+        planes + ((size_t)((kr * d) % s) * L + fa + (kr * d) / s + j0 * dp) *
+                     CT) + hl;
+    const float2* gr = reinterpret_cast<const float2*>(g_s + fa * CT) + hl;
+    float2 win[R];  // V[m] in slot m % R
+#pragma unroll
+    for (int i = 0; i + 1 < R; ++i) win[i] = xr[i * xstep];
+    xr += (R - 1) * xstep;
+    // Frame step m + mm: whole runs of R steps unguarded (so their loads
+    // can issue ahead), then the rest.
+    int m = 0;
+    for (; m + R <= steps; m += R) {
+#pragma unroll
+      for (int mm = 0; mm < R; ++mm) {
+        win[(mm + R - 1) % R] = xr[mm * xstep];
+        const float2 gv = gr[mm * xstep];
+#pragma unroll
+        for (int j = 0; j < R; ++j) fma2(acc[j], win[(mm + j) % R], gv);
+      }
+      xr += R * xstep;
+      gr += R * xstep;
+    }
+#pragma unroll
+    for (int mm = 0; mm + 1 < R; ++mm) {
+      if (m + mm < steps) {
+        win[(mm + R - 1) % R] = xr[mm * xstep];
+        const float2 gv = gr[mm * xstep];
+#pragma unroll
+        for (int j = 0; j < R; ++j) fma2(acc[j], win[(mm + j) % R], gv);
+      }
+    }
+    const int nj = min(R, n - j0);
+    float2* a = reinterpret_cast<float2*>(
+        acc_s + ((size_t)sub * K + kr + j0 * sp) * CT) + hl;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j < nj) a[(size_t)j * sp * CT / 2] = acc[j];  // its own entry
+    }
   }
   __syncthreads();
-  if (!c_ok) return;
-
-  float* yb = y + (size_t)b * T_out * C;
-  for (int tt = warp; tt < TT && t0 + tt < T_out; tt += WARPS) {
-    const float* xr = x_s + tt * s * XS + lane;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      acc = fmaf(xr[k * d * XS], w_s[k * CT + lane], acc);
-    }
-    yb[(size_t)(t0 + tt) * C + c] = acc;
+  // The block's partial: acc_s added over the slices, in order.
+  float* pb = part + ((size_t)b * gridDim.y + blockIdx.y) * K * C;
+  for (int i = threadIdx.x; i < K * CT; i += blockDim.x) {
+    const int ln = i % CT;
+    if (c0 + ln >= C) continue;
+    float v = acc_s[i];
+    for (int sub = 1; sub < subs; ++sub) v += acc_s[(size_t)sub * K * CT + i];
+    pb[(size_t)(i / CT) * C + c0 + ln] = v;
   }
+  allow_next_grid();
 }
 
-__global__ void __launch_bounds__(THREADS)
-dw_wgrad_partial_kernel(const float* __restrict__ x,
-                        const float* __restrict__ g, float* __restrict__ part,
-                        int T, int C, int K, int s, int d, int p, int T_out) {
-  extern __shared__ float smem[];
-  const int rows = span_rows(K, s, d);
-  float* x_s = smem;                // [rows][XS]
-  float* g_s = x_s + rows * XS;     // [TT][XS]
-  float* acc_s = g_s + TT * XS;     // [K][CT]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * CT + lane;
-  const int b = blockIdx.y;
-  const bool c_ok = c < C;
-  const float* xb = x + (size_t)b * T * C;
-  const float* gb = g + (size_t)b * T_out * C;
-
-  for (int k = warp; k < K; k += WARPS) acc_s[k * CT + lane] = 0.f;
-  for (int t0 = 0; t0 < T_out; t0 += TT) {
-    __syncthreads();  // the previous tile's readers are done
-    const int in0 = t0 * s - p;
-    for (int r = warp; r < rows; r += WARPS) {
-      const int t = in0 + r;
-      x_s[r * XS + lane] =
-          (c_ok && t >= 0 && t < T) ? xb[(size_t)t * C + c] : 0.f;
-    }
-    for (int tt = warp; tt < TT; tt += WARPS) {
-      const int t = t0 + tt;
-      g_s[tt * XS + lane] = (c_ok && t < T_out) ? gb[(size_t)t * C + c] : 0.f;
-    }
-    __syncthreads();
-    const int n_t = min(TT, T_out - t0);
-    for (int k = warp; k < K; k += WARPS) {
-      const float* xr = x_s + k * d * XS + lane;
-      float a = 0.f;
-      for (int tt = 0; tt < n_t; ++tt) {
-        a = fmaf(xr[tt * s * XS], g_s[tt * XS + lane], a);
-      }
-      acc_s[k * CT + lane] += a;  // this thread's own entry
-    }
+int launch_fwd(const float* x, const float* w, float* y, int B, int T, int C,
+               int K, int s, int d, int p, int T_out, int TT, int L,
+               int warps, int vec, size_t smem, cudaStream_t st) {
+  static SmemLimit limit4, limit1;
+  const dim3 grid((T_out + TT - 1) / TT, (C + CT - 1) / CT, B);
+  int err;
+  if (vec) {
+    err = limit4.raise_to(dw_fwd_kernel<4>, smem);
+    if (err) return err;
+    return launch_pdl(dw_fwd_kernel<4>, grid, 32 * warps, smem, st, x, w, y,
+                      T, C, K, s, d, p, T_out, TT, L);
   }
-  if (!c_ok) return;
-  for (int k = warp; k < K; k += WARPS) {
-    part[((size_t)b * K + k) * C + c] = acc_s[k * CT + lane];
-  }
+  err = limit1.raise_to(dw_fwd_kernel<1>, smem);
+  if (err) return err;
+  return launch_pdl(dw_fwd_kernel<1>, grid, 32 * warps, smem, st, x, w, y, T,
+                    C, K, s, d, p, T_out, TT, L);
 }
 
-inline size_t fwd_smem(int K, int s, int d) {
-  return ((size_t)span_rows(K, s, d) * XS + (size_t)K * CT) * sizeof(float);
-}
-
-inline size_t wgrad_smem(int K, int s, int d) {
-  return ((size_t)span_rows(K, s, d) * XS + (size_t)TT * XS +
-          (size_t)K * CT) * sizeof(float);
+template <int R>
+int launch_wgrad(const float* x, const float* g, float* part, int B, int T,
+                 int C, int K, int s, int d, int p, int T_out, int TC,
+                 int staged, int L, int slices, int warps, int vec,
+                 size_t smem, cudaStream_t st) {
+  static SmemLimit limit4, limit1;
+  const dim3 grid((C + CT - 1) / CT, (T_out + TC - 1) / TC, B);
+  int err;
+  if (vec) {
+    err = limit4.raise_to(dw_wgrad_kernel<R, 4>, smem);
+    if (err) return err;
+    return launch_pdl(dw_wgrad_kernel<R, 4>, grid, 32 * warps, smem, st, x,
+                      g, part, T, C, K, s, d, p, T_out, TC, staged, L,
+                      slices);
+  }
+  err = limit1.raise_to(dw_wgrad_kernel<R, 1>, smem);
+  if (err) return err;
+  return launch_pdl(dw_wgrad_kernel<R, 1>, grid, 32 * warps, smem, st, x, g,
+                    part, T, C, K, s, d, p, T_out, TC, staged, L, slices);
 }
 
 }  // namespace
 
-extern "C" long long dw_fwd_smem_bytes(int K, int s, int d) {
-  return (long long)fwd_smem(K, s, d);
-}
-
-extern "C" long long dw_wgrad_smem_bytes(int K, int s, int d) {
-  return (long long)wgrad_smem(K, s, d);
-}
-
-// K4 on `stream`: y [B, T_out, C] from x [B, T, C] and w [K, C]. Returns a
-// cudaError_t (0 on success).
+// K4 on `stream`: y [B, T_out, C] from x [B, T, C] and w [K, C], with the
+// wrapper's plan (tile TT, a multiple of DW_FWD_R d'; plane rows L; warps;
+// `vec` for 16-byte copies; shared bytes). Returns a cudaError_t (0 on
+// success).
 extern "C" int dw_fwd_launch(const float* x, const float* w, float* y, int B,
                              int T, int C, int K, int s, int d, int p,
-                             int T_out, void* stream) {
-  const size_t smem = fwd_smem(K, s, d);
-  static SmemLimit limit;
-  int err = limit.raise_to(dw_fwd_kernel, smem);
-  if (err) return err;
-  const dim3 grid((T_out + TT - 1) / TT, (C + CT - 1) / CT, B);
-  dw_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w, y, T, C, K, s, d, p, T_out);
-  return static_cast<int>(cudaGetLastError());
+                             int T_out, int TT, int L, int warps, int vec,
+                             long long smem, void* stream) {
+  if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
+  return launch_fwd(x, w, y, B, T, C, K, s, d, p, T_out, TT, L, warps, vec,
+                    smem, static_cast<cudaStream_t>(stream));
 }
 
-// K5 on `stream`: dw [K, C] from x [B, T, C] and g [B, T_out, C], through
-// `part` [B, K, C] (scratch): two launches.
+// K5 on `stream`: dw [K, C] from x [B, T, C] and g [B, T_out, C], with the
+// wrapper's plan (R of 4, 8, 16; chunk TC; staged and plane rows; slices;
+// warps; `vec`; shared bytes), through `part` [B * chunks, K, C]
+// (scratch): two launches, the partials, then their sum in index order.
 extern "C" int dw_wgrad_launch(const float* x, const float* g, float* part,
                                float* dw, int B, int T, int C, int K, int s,
-                               int d, int p, int T_out, void* stream) {
+                               int d, int p, int T_out, int R, int TC,
+                               int staged, int L, int slices, int warps,
+                               int vec, long long smem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = wgrad_smem(K, s, d);
-  static SmemLimit limit;
-  int err = limit.raise_to(dw_wgrad_partial_kernel, smem);
+  if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
+#define DW_WGRAD_CASE(RR)                                                  \
+  case RR: err = launch_wgrad<RR>(x, g, part, B, T, C, K, s, d, p, T_out, \
+                                  TC, staged, L, slices, warps, vec, smem, \
+                                  st);                                     \
+    break;
+  int err;
+  switch (R) {
+    DW_WGRAD_CASE(4)
+    DW_WGRAD_CASE(8)
+    DW_WGRAD_CASE(16)
+    default: return cudaErrorInvalidValue;
+  }
+#undef DW_WGRAD_CASE
   if (err) return err;
-  const dim3 grid((C + CT - 1) / CT, B);
-  dw_wgrad_partial_kernel<<<grid, THREADS, smem, st>>>(x, g, part, T, C, K, s,
-                                                       d, p, T_out);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  return launch_sum_partials(part, B, (long long)K * C, dw, st);
+  const int parts = ((T_out + TC - 1) / TC) * B;
+  return launch_sum_partials(part, parts, (long long)K * C, dw, st);
 }

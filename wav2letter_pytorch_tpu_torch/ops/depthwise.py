@@ -10,12 +10,17 @@ falls back from one to the other. ``DepthwiseConv1d`` is the
 on the zero-stuffed cotangent with the flipped kernel, the weight gradient
 is K5. Layout ``[B, T, C]``, as in JAX. ``depthwise_fwd.launches`` and
 ``depthwise_wgrad.launches`` count calls that launched the kernel (K5 is
-two launches: partial sums, then their fixed-order sum).
+two launches: partial sums, then their fixed-order sum). ``fwd_plan`` and
+``wgrad_plan`` cut the kernels' work into blocks, register windows and
+shared memory; ``tests/test_torch_dw_tiles.py`` models that tiling in
+numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -77,17 +82,102 @@ def _check_geometry(name, T, K, s, d, p):
                          f's={s}, d={d}, p={p}')
 
 
-def _load(smem_fn: str, K: int, s: int, d: int) -> ctypes.CDLL:
-    lib = _build.load('depthwise')
-    fn = getattr(lib, smem_fn)
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 3
-    smem = fn(K, s, d)
+# The kernels' tiling, as csrc/depthwise.cu takes it (the tiling test reads
+# CT, MAX_WARPS, DW_FWD_R and the K5 R cases back from the source). A lane
+# owns two channels, and each half-warp an item of work.
+CT = 32                   # channels a block
+MAX_WARPS = 16            # warps a block at most
+# The values are tools/dw_sweep.py's picks at QuartzNet's C1 and the TPU
+# check grid (PERF.md, the K4/K5 findings); the sweep sets them to other
+# values for its own runs.
+FWD_R = 16                # K4 outputs a thread: the library's DW_FWD_R
+FWD_TILE = 128            # K4: output frames a block aims for
+WGRAD_R_CHOICES = (4, 8, 16)  # K5 taps a thread, as built
+WGRAD_CHUNK = 128         # K5: frames a block aims for
+WGRAD_WARPS = 8           # K5: warps a block aims for (slicing its frames)
+WGRAD_MIN_SLICE = 16      # K5: fewest frames of a slice
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _class_sizes(K: int, s: int, d: int) -> list:
+    """Taps of each plane class kr < s' (taps kr, kr + s', ...)."""
+    sp = s // math.gcd(s, d)
+    return [_cdiv(K - kr, sp) for kr in range(min(sp, K))]
+
+
+class FwdPlan(NamedTuple):
+    """How K4 cuts its work: blocks of ``tile`` output frames (a multiple
+    of r*d'), ``rows`` rows a phase plane, ``warps`` a block (each
+    half-warp taking items of ``r`` outputs), ``smem`` bytes."""
+    r: int
+    tile: int
+    rows: int
+    warps: int
+    smem: int
+
+
+class WgradPlan(NamedTuple):
+    """How K5 cuts its work: a block per (32 channels, chunk of ``chunk``
+    frames, batch row), ``staged`` of ``rows`` rows a phase plane, groups
+    of up to ``r`` taps, the chunk cut into ``slices`` in time; ``warps`` a
+    block, ``partials`` summed by the second launch, ``smem`` bytes."""
+    r: int
+    chunk: int
+    staged: int
+    rows: int
+    slices: int
+    warps: int
+    partials: int
+    smem: int
+
+
+def fwd_plan(T_out: int, K: int, s: int, d: int) -> FwdPlan:
+    """K4's plan: about FWD_TILE frames a block, the tiles of a row as even
+    as whole groups of FWD_R*d' frames allow."""
+    r = FWD_R
+    span = r * (d // math.gcd(s, d))
+    tt = _cdiv(_cdiv(T_out, _cdiv(T_out, FWD_TILE)), span) * span
+    rows = tt + (K - 1) * d // s
+    warps = min(_cdiv(tt // r, 2), MAX_WARPS)
+    return FwdPlan(r, tt, rows, warps, 4 * CT * (s * rows + K))
+
+
+def wgrad_plan(B: int, T_out: int, K: int, s: int, d: int) -> WgradPlan:
+    """K5's plan: about WGRAD_CHUNK frames a block (as even as the chunks
+    of a row allow); the smallest R whose tap groups fit the block; the
+    frames sliced until a block has about WGRAD_WARPS warps."""
+    dp = d // math.gcd(s, d)
+    sizes = _class_sizes(K, s, d)
+
+    def n_groups(r_):
+        return sum(_cdiv(n, r_) for n in sizes)
+    r = next((c for c in WGRAD_R_CHOICES
+              if n_groups(c) * dp <= 2 * MAX_WARPS), WGRAD_R_CHOICES[-1])
+    chunks = _cdiv(T_out, WGRAD_CHUNK)
+    tc = _cdiv(T_out, chunks)
+    per_sub = n_groups(r) * dp
+    slices = max(1, min(_cdiv(2 * WGRAD_WARPS, per_sub),
+                        2 * MAX_WARPS // per_sub, tc // WGRAD_MIN_SLICE))
+    staged = tc + (K - 1) * d // s
+    rows = staged + (r - 1) * dp
+    warps = min(_cdiv(per_sub * slices, 2), MAX_WARPS)
+    smem = 4 * CT * (s * rows + tc + slices * dp * K)
+    return WgradPlan(r, tc, staged, rows, slices, warps, chunks * B, smem)
+
+
+def _check_smem(smem: int, K: int, s: int, d: int):
     if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(f'depthwise: K={K}, stride {s}, dilation {d} need '
                          f'{smem} bytes of shared memory, over the limit of '
                          f'{_build.SMEM_LIMIT_BYTES}')
-    return lib
+
+
+def _vec(C: int, *tensors) -> int:
+    """1 where 16-byte copies are safe: C % 4 == 0 and aligned bases."""
+    return int(C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _launch_fwd(x, w, s, d, p):
@@ -99,16 +189,19 @@ def _launch_fwd(x, w, s, d, p):
                          f'{tuple(w.shape)}')
     _check_geometry('depthwise_fwd', T, K, s, d, p)
     t_out = out_length(T, K, s, d, p)
-    lib = _load('dw_fwd_smem_bytes', K, s, d)
+    plan = fwd_plan(t_out, K, s, d)
+    _check_smem(plan.smem, K, s, d)
+    lib = _build.load('depthwise')
     y = torch.empty((B, t_out, C), dtype=torch.float32, device=x.device)
     fn = lib.dw_fwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [
+        ctypes.c_longlong, ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, C, K, s, d,
-                  p, t_out, stream)
+                  p, t_out, plan.tile, plan.rows, plan.warps, _vec(C, x, w),
+                  plan.smem, stream)
     _build.check(lib, code, 'depthwise K4 launch')
     depthwise_fwd.launches += 1
     return y
@@ -141,17 +234,22 @@ def _launch_wgrad(x, g, K, s, d, p):
     if tuple(g.shape) != (B, t_out, C):
         raise ValueError(f'depthwise_wgrad: g must be {(B, t_out, C)}, got '
                          f'{tuple(g.shape)}')
-    lib = _load('dw_wgrad_smem_bytes', K, s, d)
-    part = torch.empty((B, K, C), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(B, t_out, K, s, d)
+    _check_smem(plan.smem, K, s, d)
+    lib = _build.load('depthwise')
+    part = torch.empty((plan.partials, K, C), dtype=torch.float32,
+                       device=x.device)
     dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
     fn = lib.dw_wgrad_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [
+        ctypes.c_longlong, ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                  B, T, C, K, s, d, p, t_out, stream)
+                  B, T, C, K, s, d, p, t_out, plan.r, plan.chunk, plan.staged,
+                  plan.rows, plan.slices, plan.warps, _vec(C, x, g),
+                  plan.smem, stream)
     _build.check(lib, code, 'depthwise K5 launch')
     depthwise_wgrad.launches += 1
     return dw
@@ -174,12 +272,12 @@ def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, K: int, stride: int = 1,
 depthwise_wgrad.launches = 0
 
 
-def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
-                    dilation: int, padding: int) -> torch.Tensor:
-    """The input gradient [B, T, C] from the cotangent g [B, T_out, C], as
-    ``_dw_op_bwd`` forms it: a stride-1 depthwise conv (K4) of g, zero-
-    stuffed for stride > 1 with ``rem`` extra right zeros, with the flipped
-    kernel at padding d(K-1) - p; trimmed (or zero-padded) to T frames."""
+def dgrad_args(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
+               dilation: int, padding: int):
+    """The stride-1 K4 call of the input gradient, as ``_dw_op_bwd`` forms
+    it: (g stuffed with stride - 1 zeros between frames and ``rem`` extra
+    right zeros, the flipped w, padding d(K-1) - p; where that padding is
+    negative, g is trimmed instead)."""
     B, t_out, C = g.shape
     K = w.shape[0]
     if stride > 1:
@@ -192,8 +290,15 @@ def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
     if pad_t < 0:
         g_in = g_in[:, -pad_t:g_in.shape[1] + pad_t, :]
         pad_t = 0
-    dx = depthwise_fwd(g_in.contiguous(), w.flip(0).contiguous(), 1,
-                       dilation, pad_t)
+    return g_in.contiguous(), w.flip(0).contiguous(), pad_t
+
+
+def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
+                    dilation: int, padding: int) -> torch.Tensor:
+    """The input gradient [B, T, C] from the cotangent g [B, T_out, C]: K4
+    on ``dgrad_args``, trimmed (or zero-padded) to T frames."""
+    g_in, w_flip, pad_t = dgrad_args(g, w, T, stride, dilation, padding)
+    dx = depthwise_fwd(g_in, w_flip, 1, dilation, pad_t)
     if dx.shape[1] < T:
         dx = F.pad(dx, (0, 0, 0, T - dx.shape[1]))
     return dx[:, :T]
