@@ -64,7 +64,22 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    repeated batch.
 14. QuartzNet eval-step and train-step time, utterances per second, peak
    memory and profiler breakdown.
-15. One ``{"kernels": [...]}`` line: per kernel its launches on the
+15. Decoding, on the runs of phases 7 and 13 (the host library of
+   ``csrc/host/`` is built by g++ in phase 2, its time printed): a 3-gram
+   ARPA trained by ``ngram_train`` on the corpus transcripts; sharpened
+   random log-probs at the main shape (B=32, T=404, V=29, ragged lengths,
+   k=8) searched by the device beam search on the card and on the CPU, the
+   C++ host search and (4 utterances) the Python DP: equal strings
+   LM-free, LM-fused, with hotwords and with both, and the card's n-best
+   scores within 1e-5 of the CPU's; ``evaluate.main --model-path
+   <Wav2Letter-20 run> --average-last 2 --lm-path ... --word-timings
+   --dump-jsonl`` on the device and on the host beam backend: equal
+   hypotheses (a difference only where the host DP ranks both within
+   1e-5), K1 and K2 launched, the loss of the same state restored by hand;
+   QuartzNet's run through the host beam on its probabilities (K4 and K6
+   launched); decode ms a batch under each decoder, evaluate() utt/s under
+   each, and the device search's ops a frame.
+16. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K4-K7 QuartzNet's), max error
    against the plain version, time, plain time, roofline bound and the time
    of the nearest PyTorch library call (timed here only). K2 and K3 are
@@ -98,6 +113,16 @@ from wav2letter_pytorch_tpu_torch.config import load_config
 from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
+from wav2letter_pytorch_tpu_torch.data.label_sets import resolve_labels
+from wav2letter_pytorch_tpu_torch.decoding.arpa_lm import ArpaLM
+from wav2letter_pytorch_tpu_torch.decoding.beam_device import (
+    DeviceBeamDecoder, beam_search_device, beam_search_device_lm)
+from wav2letter_pytorch_tpu_torch.decoding.beam_native import \
+    prefix_beam_search_native
+from wav2letter_pytorch_tpu_torch.decoding.decoder import (
+    DEFAULT_BEAM_ALPHA, DEFAULT_BEAM_BETA, DEFAULT_BEAM_K, DEFAULT_BEAM_PRUNE,
+    PrefixBeamSearchLMDecoder, prefix_beam_search)
+from wav2letter_pytorch_tpu_torch.decoding.ngram_train import train_arpa
 from wav2letter_pytorch_tpu_torch.models.base import get_same_padding
 from wav2letter_pytorch_tpu_torch.models.jasper import Activation
 from wav2letter_pytorch_tpu_torch.ops.ctc import (ctc_beta_reference,
@@ -121,8 +146,10 @@ from wav2letter_pytorch_tpu_torch.optim import constant_lr
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          build_labels,
                                                          build_model,
-                                                         build_optimizer)
-from wav2letter_pytorch_tpu_torch.training.checkpoint import Checkpointer
+                                                         build_optimizer,
+                                                         run_config)
+from wav2letter_pytorch_tpu_torch.training.checkpoint import (
+    Checkpointer, average_checkpoints)
 from wav2letter_pytorch_tpu_torch.training.trainer import Trainer
 from wav2letter_pytorch_tpu_torch.ops.stft_mel import (K1Tables,
                                                        stft_mel_log,
@@ -355,6 +382,12 @@ def phase_build():
                   + ''.join(f'; {line.strip()}' for line in spills))
     for name in paths:
         _build.load(name)
+    t0 = time.time()
+    host = _build.build_host()
+    _build.load_host()
+    print(f'host library {os.path.relpath(host)} (g++ '
+          f'{" ".join(_build.GXX_FLAGS)}) built and loaded in '
+          f'{time.time() - t0:.1f} s', flush=True)
 
 
 def k1_inputs(conf: AudioConfig, B: int, T: int, lens, seed: int, device):
@@ -979,12 +1012,14 @@ def phase_train_main(manifest: str, root: str, overrides=(),
                      what='Wav2Letter-20',
                      kernels=('stft_mel_log', 'ctc_alpha', 'ctc_beta')):
     """train.main on cuda: 2 epochs x 2 steps, then --resume for 2 more;
-    ``kernels`` must have launched in the first run."""
+    ``kernels`` must have launched in the first run. Returns the first
+    run's launches and the run directory (its newest two checkpoints, at
+    steps 4 and 6, are kept for the decoding phase)."""
     run_dir = os.path.join(root, f'train_run_{len(os.listdir(root))}')
     base = [f'data.train_manifest={manifest}',
             f'data.val_manifest={manifest}', f'data.batch_size={BATCH}',
             *depth_overrides(overrides), *overrides,
-            'trainer.log_every_n_steps=1', 'trainer.checkpoint.keep_last=1',
+            'trainer.log_every_n_steps=1', 'trainer.checkpoint.keep_last=2',
             f'trainer.default_root_dir={run_dir}', '--device', str(DEVICE)]
     for fn in TRAIN_COUNTERS:
         fn.launches = 0
@@ -1028,7 +1063,7 @@ def phase_train_main(manifest: str, root: str, overrides=(),
           == 6 and sorted(losses) == [1, 2, 3, 4, 5, 6]
           and all(math.isfinite(v) for v in losses.values()),
           f'--resume continued from step 4 to 6: losses {losses}')
-    return launches
+    return launches, run_dir
 
 
 class BranchClamp(torch.autograd.Function):
@@ -1750,6 +1785,339 @@ def k7_split_line(parts: dict, ops: dict) -> str:
         for n, ms in sorted(parts.items()))
 
 
+# ---------------------------------------------------------------- decoding
+
+PEAKY_SHAPE = (32, 404, 29)  # the main path's eval-step output [B, T', V]
+PEAKY_K, PEAKY_ALPHA, PEAKY_BETA = 8, 0.5, 1.0
+HOTWORDS = ['the', 'would', 'people']
+PY_UTTS = 4                  # utterances the float64 Python DP checks
+NBEST_RTOL = 1e-5            # n-best log scores, card vs CPU search
+HYP_SCORE_RTOL = 1e-5        # a device/host hypothesis difference must be
+#                              a tie of the host DP's ranked scores
+LOSS_SAME_RTOL = 1e-5        # CLI loss vs the same state restored by hand
+
+
+def random_probs(rng, T: int, V: int, peaky: bool = True) -> np.ndarray:
+    """The JAX package's tests/test_beam_device.py::_random_probs."""
+    logits = rng.standard_normal((T, V)) * (3.0 if peaky else 1.0)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def manifest_texts(manifest: str) -> list:
+    with open(manifest) as f:
+        return [json.loads(line)['text'] for line in f if line.strip()]
+
+
+def phase_lm(manifest: str, root: str) -> str:
+    """A 3-gram ARPA trained by the port's ngram_train from the corpus
+    transcripts."""
+    path = os.path.join(root, 'corpus_3gram.arpa')
+    t0 = time.time()
+    lm = train_arpa(manifest_texts(manifest), path, order=3)
+    print(f'LM: 3-gram over {len(manifest_texts(manifest))} transcripts '
+          f'({len(lm.probs[0])} unigrams, {len(lm.probs[1])} bigrams, '
+          f'{len(lm.probs[2])} trigrams) in {time.time() - t0:.2f} s')
+    return path
+
+
+def phase_decoding_peaky(lm_path: str):
+    """Sharpened log-probs at the main shape: the device search on the card
+    and on the CPU, the C++ host search and (on PY_UTTS utterances) the
+    float64 Python DP give the same strings, LM-free, LM-fused, with
+    hotwords and with both; the card's and the CPU's n-best scores agree."""
+    B, T, V = PEAKY_SHAPE
+    labels = resolve_labels(port_eval.LABELS)
+    rng = np.random.default_rng(0)
+    probs = np.stack([random_probs(rng, T, V) for _ in range(B)]).astype(
+        np.float32)
+    lens = rng.integers(T // 2, T + 1, size=B)
+    lens[0] = T
+    lp = np.log(probs)
+    lp_card = torch.from_numpy(lp).to(DEVICE)
+    lm = ArpaLM(lm_path)
+
+    def lm_prob(sentence: str) -> float:
+        return 10.0 ** lm.score(sentence)
+    kw = dict(k=PEAKY_K, beta=PEAKY_BETA)
+    for what, use_lm, hot in (('LM-free', False, None),
+                              ('LM-fused', True, None),
+                              ('hotwords', False, HOTWORDS),
+                              ('LM-fused + hotwords', True, HOTWORDS)):
+        times = {}
+        if use_lm or hot:
+            outs = []
+            for x in (lp_card, lp):
+                t0 = time.perf_counter()
+                outs.append(beam_search_device_lm(
+                    x, lens, labels, lm_prob if use_lm else None,
+                    alpha=PEAKY_ALPHA, hotwords=hot, **kw))
+                times['card' if x is lp_card else 'cpu'] = \
+                    time.perf_counter() - t0
+            card, cpu = outs
+        else:
+            nbest = []
+            for x in (lp_card, lp):
+                t0 = time.perf_counter()
+                nbest.append(beam_search_device(x, lens, labels,
+                                                n_best=PEAKY_K, **kw))
+                times['card' if x is lp_card else 'cpu'] = \
+                    time.perf_counter() - t0
+            strings = [[[''.join(labels[i] for i in h[0]) for h in hyps]
+                        for hyps in r] for r in nbest]
+            worst = max(abs(ha[j] - hb[j]) / abs(hb[j])
+                        for ra, rb in zip(*nbest) for ha, hb in zip(ra, rb)
+                        for j in (1, 2))
+            check(strings[0] == strings[1] and worst <= NBEST_RTOL,
+                  f'peaky {what}: card and CPU n-best lists (k={PEAKY_K}) '
+                  f'equal, scores within {worst:.2e} relative (gate '
+                  f'{NBEST_RTOL})')
+            card, cpu = [[s[0] for s in r] for r in strings]
+        t0 = time.perf_counter()
+        host = [prefix_beam_search_native(
+            probs[b, :lens[b]], labels, lm=lm if use_lm else None,
+            alpha=PEAKY_ALPHA, hotwords=hot, **kw) for b in range(B)]
+        times['host C++'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [prefix_beam_search(
+            probs[b, :lens[b]], labels, lm=lm_prob if use_lm else None,
+            alpha=PEAKY_ALPHA, hotwords=hot, **kw) for b in range(PY_UTTS)]
+        times[f'host Python ({PY_UTTS} utts)'] = time.perf_counter() - t0
+        bad = [b for b in range(B) if not card[b] == cpu[b] == host[b]]
+        check(not bad and py == host[:PY_UTTS],
+              f'peaky {what}, B={B} T={T} V={V} k={PEAKY_K}: card, CPU and '
+              f'host C++ strings equal on all {B} utterances (differ on '
+              f'{bad}), Python DP equal on {PY_UTTS}; '
+              f'{sum(" " in h for h in host)} hypotheses hold a space; '
+              + ', '.join(f'{k} {v:.2f} s' for k, v in times.items()))
+
+
+class timed_evaluate:
+    """Records the wall time of ``evaluate.evaluate`` while
+    ``evaluate.main`` runs inside the ``with`` block."""
+
+    def __enter__(self):
+        self.seconds = None
+        self._orig = port_eval.evaluate
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = self._orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+            return out
+        port_eval.evaluate = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        port_eval.evaluate = self._orig
+        return False
+
+
+def run_cli(argv, counters=()) -> tuple:
+    """evaluate.main(argv): (result, stdout lines, stderr, launches,
+    evaluate() seconds)."""
+    for fn in counters:
+        fn.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            timed_evaluate() as tm:
+        rc = port_eval.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, 'evaluate.main returned 0')
+    lines = out.getvalue().strip().splitlines()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    return json.loads(lines[-1]), lines[:-1], err.getvalue(), launches, \
+        tm.seconds
+
+
+def run_model_outputs(run_dir: str, manifest: str, average_last: int):
+    """The ``average_last`` state of a run restored by hand (not through
+    evaluate.main): (model, frontend, labels, {path: model output [T', V]
+    on the host}, the greedy loss of ``evaluate()``)."""
+    cfg = run_config(run_dir)
+    labels = build_labels(cfg['model'])
+    state = average_checkpoints(
+        Checkpointer(os.path.join(run_dir, 'checkpoints')), average_last)
+    model = build_model(cfg['model'], len(labels))
+    model.load_state_dict(state['model'])
+    model.to(DEVICE).eval()
+    fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE)
+    loader = port_eval.make_loader(manifest, BATCH, fe, labels)
+    greedy = port_eval.evaluate(model, fe, loader,
+                                port_eval.GreedyDecoder(labels), DEVICE)
+    outs = {}
+    for batch in loader:
+        _, out, lens = port_eval.eval_step(
+            model, fe, port_eval.to_device(batch, DEVICE), 'model')
+        out, lens = out.cpu().numpy(), lens.cpu().numpy()
+        for j, path in enumerate(batch['paths']):
+            if batch['batch_mask'][j]:
+                outs[path] = out[j, :lens[j]]
+    return model, fe, labels, outs, greedy['loss']
+
+
+def read_dump(path: str) -> dict:
+    with open(path) as f:
+        return {r['path']: r for r in map(json.loads, f) if r}
+
+
+def phase_decoding_w2l(manifest: str, run_dir: str, lm_path: str,
+                       root: str, card: str) -> dict:
+    """evaluate.main --model-path <Wav2Letter-20 run> --average-last 2
+    --lm-path <arpa> --word-timings --dump-jsonl, on the device backend and
+    on the host backend: equal hypotheses (a difference only where the
+    host DP ranks the two within HYP_SCORE_RTOL), K1 and K2 launched, and
+    the CLI's loss equal to the same state restored by hand."""
+    common = ['--model-path', run_dir, '--test-manifest', manifest,
+              '--device', str(DEVICE), '--batch-size', str(BATCH),
+              '--average-last', '2', '--lm-path', lm_path, '--word-timings']
+    runs = {}
+    for backend in ('device', 'host'):
+        dump = os.path.join(root, f'w2l_{backend}.jsonl')
+        runs[backend] = run_cli(
+            common + ['--beam-backend', backend, '--dump-jsonl', dump],
+            counters=(stft_mel_log, ctc_alpha)) + (read_dump(dump),)
+        result, lines, err, launches, secs, _ = runs[backend]
+        print(f'evaluate.main --beam-backend {backend} (Wav2Letter-20, '
+              f'beam + LM): {json.dumps(result)}; {err.strip()}; '
+              f'launches {launches}; evaluate() {secs:.2f} s, '
+              f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
+        check(launches['stft_mel_log'] > 0 and launches['ctc_alpha'] > 0
+              and 'Averaged last 2 checkpoints (through step 6)' in err
+              and sum(l.startswith('timings  :') for l in lines) == N_UTTS
+              and result['num_utterances'] == N_UTTS,
+              f'{backend} backend: K1 and K2 launched, the last 2 '
+              f'checkpoints averaged through step 6, {N_UTTS} timing lines')
+    dev, host = runs['device'][-1], runs['host'][-1]
+    check(sorted(dev) == sorted(host) and len(dev) == N_UTTS,
+          f'both dumps hold the {N_UTTS} utterances')
+    diff = [p for p in host if dev[p]['hyp'] != host[p]['hyp']]
+    _, _, labels, outs, hand_loss = run_model_outputs(run_dir, manifest, 2)
+    cli_loss = runs['device'][0]['loss']
+    rel = abs(cli_loss - hand_loss) / abs(hand_loss)
+    check(rel <= LOSS_SAME_RTOL and runs['host'][0]['loss'] == cli_loss,
+          f'the --average-last 2 state restored by hand, greedy: loss '
+          f'{hand_loss:.6f} vs the CLI\'s {cli_loss:.6f} (rel {rel:.1e}, gate '
+          f'{LOSS_SAME_RTOL})')
+    lm = ArpaLM(lm_path)
+    for p in diff:
+        probs = np.exp(outs[p])
+        nbest = dict(prefix_beam_search(
+            probs, labels, lm=lambda s: 10.0 ** lm.score(s),
+            k=DEFAULT_BEAM_K, alpha=DEFAULT_BEAM_ALPHA,
+            beta=DEFAULT_BEAM_BETA, prune=DEFAULT_BEAM_PRUNE,
+            return_nbest=DEFAULT_BEAM_K))
+        a, b = dev[p]['hyp'], host[p]['hyp']
+        sa, sb = nbest.get(a), nbest.get(b)
+        print(f'  {os.path.basename(p)}: device {a!r} host score {sa}, '
+              f'host {b!r} host score {sb}')
+        check(sa is not None and sb is not None
+              and abs(sa - sb) <= HYP_SCORE_RTOL * max(abs(sa), abs(sb)),
+              f'{os.path.basename(p)}: the hypotheses differ only by a tie '
+              f'(gate {HYP_SCORE_RTOL} relative)')
+    words = sum(len(r['hyp'].split()) for r in host.values())
+    print(f'Wav2Letter-20 device vs host backend: {N_UTTS - len(diff)} of '
+          f'{N_UTTS} hypotheses equal ({words} words in all), {len(diff)} '
+          'ties')
+    return {b: (runs[b][0], runs[b][4]) for b in runs}
+
+
+def phase_decoding_qn(manifest: str, run_dir: str, card: str):
+    """The probabilities branch: QuartzNet-15x5's run, host beam, no LM."""
+    result, _, err, launches, secs = run_cli(
+        ['--model-path', run_dir, '--test-manifest', manifest, '--device',
+         str(DEVICE), '--batch-size', str(BATCH), '--beam-search-params',
+         f'k={DEFAULT_BEAM_K}', '--beam-backend', 'host'],
+        counters=(stft_mel_log, ctc_alpha, depthwise_fwd, sep_fwd))
+    print(f'evaluate.main --beam-backend host (QuartzNet-15x5, k='
+          f'{DEFAULT_BEAM_K}): {json.dumps(result)}; {err.strip()}; '
+          f'launches {launches}; evaluate() {secs:.2f} s, '
+          f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
+    check(launches['depthwise_fwd'] > 0 and launches['sep_fwd'] > 0
+          and 'Loaded checkpoint at step 6' in err
+          and result['num_utterances'] == N_UTTS
+          and all(math.isfinite(result[k]) for k in ('loss', 'wer', 'cer')),
+          'QuartzNet-15x5 beam evaluation: K4 and K6 launched, finite '
+          'loss/WER/CER')
+
+
+def host_ms(fn, reps: int = 3, warmup: bool = True) -> float:
+    """Mean wall ms of ``fn`` over ``reps`` calls, synchronised."""
+    if warmup:
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def search_launches(fn, frames: int) -> tuple:
+    """(device ops: kernels and copies, the same a frame, device-busy ms)
+    of one call, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = kernel_rows(prof)
+    n = sum(e.count for e in events)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return n, n / frames, busy
+
+
+def phase_decoding_timing(manifest: str, run_dir: str, lm_path: str,
+                          card: str, cli: dict):
+    """Decode time of one Wav2Letter-20 batch (B=32) under each decoder,
+    evaluate() end to end under each, and the device search's launches."""
+    model, fe, labels, _, _ = run_model_outputs(run_dir, manifest, 2)
+    loader = port_eval.make_loader(manifest, BATCH, fe, labels)
+    torch.cuda.synchronize()
+    batch = port_eval.to_device(next(iter(loader)), DEVICE)
+    _, ids, lens = port_eval.eval_step(model, fe, batch)
+    _, lp, _ = port_eval.eval_step(model, fe, batch, 'model')
+    torch.cuda.synchronize()
+    B, T, _ = lp.shape
+    greedy = port_eval.GreedyDecoder(labels)
+    host_lm = PrefixBeamSearchLMDecoder(lm_path, labels)
+    dev_free = DeviceBeamDecoder(labels, device=DEVICE)
+    dev_lm = DeviceBeamDecoder(labels, lm_path=lm_path, device=DEVICE)
+    sizes = lens.cpu().numpy()
+    rows = (
+        ('host greedy (ids to the host, collapse)', 5,
+         lambda: greedy.decode_ids(ids.cpu().numpy(), sizes)),
+        ('host C++ beam + LM (log-probs to the host, exp)', 1,
+         lambda: host_lm.decode(np.exp(lp.cpu().numpy()), sizes)),
+        ('device beam, LM-free', 3,
+         lambda: dev_free.decode_log_probs(lp, lens)),
+        ('device beam + LM, fused', 1,
+         lambda: dev_lm.decode_log_probs(lp, lens)))
+    for what, reps, fn in rows:
+        ms = host_ms(fn, reps, warmup=reps > 1)
+        print(f"decode a batch, Wav2Letter-20 B={B} T'={T}, "
+              f'k={DEFAULT_BEAM_K}: {what}: {ms:.2f} ms [{card}]')
+    for what, dec in (('LM-free', dev_free), ('+ LM, fused', dev_lm)):
+        n, per_frame, busy = search_launches(
+            lambda: dec.decode_log_probs(lp, lens), T)
+        print(f'device beam {what}, one batch of {T} frames: {n} device '
+              f'ops, kernels and copies ({per_frame:.1f} a frame), device '
+              f'busy {busy:.2f} ms (profiler) [{card}]')
+    for what, dec in (('greedy', greedy), ('device beam, LM-free',
+                                           dev_free)):
+        t0 = time.perf_counter()
+        result = port_eval.evaluate(model, fe, loader, dec, DEVICE)
+        secs = time.perf_counter() - t0
+        print(f'evaluate() end to end, Wav2Letter-20, {what}: {secs:.2f} s '
+              f'for {result["num_utterances"]} utterances, '
+              f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
+    for backend, (result, secs) in cli.items():
+        print(f'evaluate() end to end, Wav2Letter-20, {backend} beam + LM '
+              f'(+ word timings): {secs:.2f} s for '
+              f'{result["num_utterances"]} utterances, '
+              f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
+
+
 def kernel_entry(name, source, replaces, launches, err, numbers):
     ms, plain_ms, library_ms, nbytes, ops = numbers
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1784,7 +2152,7 @@ def main() -> int:
         phase_main_path(manifest)
         phase_cpu_reference()
         phase_timing(manifest, card)
-        launches = phase_train_main(manifest, root)
+        launches, w2l_run = phase_train_main(manifest, root)
         torch.cuda.empty_cache()
         phase_train_cpu_reference(root)
         phase_overfit(root)
@@ -1802,7 +2170,7 @@ def main() -> int:
               'batches')
         phase_cpu_reference(**qn)
         phase_timing(manifest, card, **qn)
-        qn_launches = phase_train_main(
+        qn_launches, qn_run = phase_train_main(
             manifest, root, overrides=QN + ['optimizer=novograd'],
             what='QuartzNet-15x5', kernels=tuple(
                 fn.__name__ for fn in TRAIN_COUNTERS))
@@ -1814,6 +2182,13 @@ def main() -> int:
         phase_train_timing(manifest, root, card,
                            overrides=QN + ['optimizer=novograd'],
                            what='QuartzNet-15x5')
+        torch.cuda.empty_cache()
+        # Decoding: the training phases' runs, beam search and an LM
+        lm_path = phase_lm(manifest, root)
+        phase_decoding_peaky(lm_path)
+        cli = phase_decoding_w2l(manifest, w2l_run, lm_path, root, card)
+        phase_decoding_qn(manifest, qn_run, card)
+        phase_decoding_timing(manifest, w2l_run, lm_path, card, cli)
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'

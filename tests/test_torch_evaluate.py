@@ -5,6 +5,7 @@ Same WAV manifest, same weights (a JAX init carried across with
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +33,8 @@ from wav2letter_pytorch_tpu_torch.models.wav2letter import Wav2Letter
 from wav2letter_pytorch_tpu_torch.weights import state_dict_from_flax
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 LAYERS = [
     dict(output_size=32, kernel_size=11, stride=2, dilation=1, dropout=0.2),
@@ -262,3 +265,198 @@ def test_cli_batches_from_the_config_as_test_py(tmp_path, manifest, capsys,
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got['num_utterances'] == 5
     np.testing.assert_allclose(got['loss'], want, rtol=LOSS_RTOL)
+
+
+# --------------------------------------------------- run directories, beam
+
+def _train_port_run(root, manifest):
+    from wav2letter_pytorch_tpu_torch import train as port_train
+    run = root / 'run'
+    assert port_train.main([
+        f'data.train_manifest={manifest}', f'data.val_manifest={manifest}',
+        'data.batch_size=2', 'data.num_length_buckets=1',
+        'model.input_size=32', 'model.layers.0.output_size=24',
+        'model.layers.0.kernel_size=7', 'trainer.max_epochs=2',
+        'trainer.log_every_n_steps=1', f'trainer.default_root_dir={run}',
+        '--device', 'cpu']) == 0
+    return str(run)
+
+
+@pytest.fixture(scope='module')
+def port_run(tmp_path_factory):
+    """A port run over 6 short utterances: 2 epochs of 3 steps, a
+    checkpoint after each (steps 3 and 6), plus a 3-gram LM trained on
+    the transcripts."""
+    from tests.test_train_e2e import _make_corpus
+    from wav2letter_pytorch_tpu_torch.decoding.ngram_train import train_arpa
+    root = tmp_path_factory.mktemp('port_run')
+    manifest = _make_corpus(root)
+    run = _train_port_run(root, manifest)
+    lm = str(root / 'lm.arpa')
+    with open(manifest) as f:
+        train_arpa([json.loads(line)['text'] for line in f], lm, order=3)
+    return run, manifest, lm
+
+
+def _run_cli(argv, capsys):
+    assert port_eval.main(argv) == 0
+    captured = capsys.readouterr()
+    lines = captured.out.strip().splitlines()
+    return json.loads(lines[-1]), lines[:-1], captured.err
+
+
+def _hand_loss(state_dict, cfg, manifest):
+    model = port_eval.build_model(cfg['model'], 29)
+    model.load_state_dict(state_dict)
+    model.eval()
+    frontend = port_eval.build_frontend(cfg['model'], dither=0.0)
+    loader = port_eval.make_loader(manifest, 2, frontend, num_buckets=1,
+                                   prefetch=0)
+    return port_eval.evaluate(model, frontend, loader,
+                              GreedyDecoder('english_lowercase'),
+                              'cpu')['loss']
+
+
+def test_model_path_restores_and_averages_checkpoints(port_run, capsys):
+    from wav2letter_pytorch_tpu_torch.training.build import (load_run,
+                                                             run_config)
+    run, manifest, _ = port_run
+    ckpts = [torch.load(f'{run}/checkpoints/ckpt_{s}.pt', weights_only=True)
+             for s in (3, 6)]
+    averaged = {k: ((ckpts[0]['model'][k].double()
+                     + ckpts[1]['model'][k].double()) / 2).to(v.dtype)
+                if torch.is_floating_point(v) else v
+                for k, v in ckpts[1]['model'].items()}
+    _, model, _, step = load_run(run, average_last=2)
+    assert step == 6
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, averaged[k]), k
+    cfg = run_config(run)
+
+    common = ['--model-path', run, '--test-manifest', manifest,
+              '--device', 'cpu']
+    latest, _, err = _run_cli(common, capsys)
+    assert 'Loaded checkpoint at step 6' in err
+    avg, _, err = _run_cli(common + ['--average-last', '2'], capsys)
+    assert 'Averaged last 2 checkpoints (through step 6)' in err
+    assert latest['num_utterances'] == avg['num_utterances'] == 6
+    np.testing.assert_allclose(latest['loss'], _hand_loss(
+        ckpts[1]['model'], cfg, manifest), rtol=1e-6)
+    np.testing.assert_allclose(avg['loss'], _hand_loss(averaged, cfg,
+                                                        manifest), rtol=1e-6)
+    assert abs(avg['loss'] - latest['loss']) > 1e-3 * abs(latest['loss'])
+
+
+def test_model_path_without_checkpoint_and_bad_flags(tmp_path, port_run,
+                                                     capsys):
+    run, manifest, _ = port_run
+    empty = tmp_path / 'empty_run'
+    empty.mkdir()
+    (empty / 'config.json').write_text(
+        open(f'{run}/config.json').read())
+    result, _, err = _run_cli(['--model-path', str(empty), '--test-manifest',
+                               manifest, '--device', 'cpu'], capsys)
+    assert 'WARNING: no checkpoint found' in err
+    assert result['num_utterances'] == 6
+    for argv in (['--average-last', '2'],
+                 ['--model-path', run, '--weights', 'w.pt']):
+        with pytest.raises(SystemExit):
+            port_eval.main(['--test-manifest', manifest] + argv)
+
+
+@pytest.mark.parametrize('beam', [
+    ['--beam-search-params', 'k=4,alpha=0.5,beta=1'],
+    ['--hotwords', 'cab,bat', '--hotword-weight', '3',
+     '--beam-search-params', 'k=4']])
+def test_device_backend_gives_the_host_strings(tmp_path, port_run, capsys,
+                                               beam):
+    """Beam + LM (and hotwords) through the batched device search on the
+    CPU and through the host C++ search: the same records and lines."""
+    run, manifest, lm = port_run
+    outs = {}
+    for backend in ('host', 'device'):
+        dump = tmp_path / f'{backend}.jsonl'
+        result, lines, _ = _run_cli(
+            ['--model-path', run, '--test-manifest', manifest, '--device',
+             'cpu', '--lm-path', lm, '--beam-backend', backend,
+             '--word-timings', '--print-all', '--dump-jsonl', str(dump),
+             *beam], capsys)
+        outs[backend] = (result, lines, dump.read_text())
+    assert outs['host'] == outs['device']
+    result, lines, dump = outs['host']
+    hyps = [json.loads(line)['hyp'] for line in dump.splitlines()]
+    assert len(hyps) == 6 and sum(' ' in h for h in hyps) >= 2
+    assert sum(line.startswith('timings  :') for line in lines) == 6
+
+
+@pytest.fixture(scope='module')
+def jax_run(tmp_path_factory):
+    """A tiny JAX run (test_eval_cli's), its weights exported with
+    scripts/export_torch_checkpoint.py, and a 3-gram LM."""
+    import sys
+
+    import train as jax_train
+    from tests.test_train_e2e import _make_corpus
+    from wav2letter_pytorch_tpu.decoding.ngram_train import train_arpa
+    root = tmp_path_factory.mktemp('jax_run')
+    manifest = _make_corpus(root)
+    run = root / 'run'
+    assert jax_train.main([
+        f'data.train_manifest={manifest}', f'data.val_manifest={manifest}',
+        'data.batch_size=2', 'data.num_length_buckets=1',
+        'model.input_size=32',
+        'model.layers=[{output_size: 24, kernel_size: 7, stride: 2, '
+        'dilation: 1, dropout: 0.1}]',
+        'trainer.max_epochs=1', 'trainer.max_steps=3',
+        'trainer.string_metrics_interval=0', 'trainer.mesh.data=2',
+        f'trainer.default_root_dir={run}']) == 0
+    sys.path.insert(0, os.path.join(REPO, 'scripts'))
+    try:
+        import export_torch_checkpoint
+    finally:
+        sys.path.remove(os.path.join(REPO, 'scripts'))
+    export = str(root / 'export.ckpt')
+    assert export_torch_checkpoint.main(['--model-path', str(run), '--out',
+                                         export]) == 0
+    lm = str(root / 'lm.arpa')
+    with open(manifest) as f:
+        train_arpa([json.loads(line)['text'] for line in f], lm, order=3)
+    return str(run), manifest, export, lm
+
+
+# The JAX run's config.yaml, as the port's overrides.
+JAX_RUN_OVERRIDES = ['model.input_size=32', 'model.mid_layers=1',
+                     'model.layers.0.output_size=24',
+                     'model.layers.0.kernel_size=7',
+                     'model.layers.0.dropout=0.1', 'data.batch_size=2',
+                     'data.num_length_buckets=1']
+
+
+@pytest.mark.parametrize('decode', [
+    [], ['--beam-search-params', 'k=4,alpha=0.5,beta=1', '--lm-path']])
+def test_exported_jax_run_prints_what_test_py_prints(tmp_path, jax_run,
+                                                     capsys, decode):
+    """evaluate --weights <export> vs test.py --model-path <run>: the same
+    (reference, decoded) pairs, word timings and --dump-jsonl records, WER
+    and CER equal, the loss within LOSS_RTOL."""
+    import test as test_cli
+    run, manifest, export, lm = jax_run
+    decode = decode + [lm] if decode else decode
+    common = ['--test-manifest', manifest, '--print-all', '--word-timings',
+              *decode]
+    assert test_cli.main(['--model-path', run, *common, '--dump-jsonl',
+                          str(tmp_path / 'jax.jsonl')]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    want = json.loads(out[-1])
+    want_lines = [line for line in out[:-1] if line.startswith(
+        ('reference: ', 'decoded  : ', 'timings  : '))]
+    got, got_lines, _ = _run_cli(
+        ['--weights', export, '--device', 'cpu', *common, '--dump-jsonl',
+         str(tmp_path / 'port.jsonl'), *JAX_RUN_OVERRIDES], capsys)
+    assert len(want_lines) == 18
+    assert got_lines == want_lines
+    assert (tmp_path / 'port.jsonl').read_text() == \
+        (tmp_path / 'jax.jsonl').read_text()
+    assert got['num_utterances'] == want['num_utterances'] == 6
+    assert (got['wer'], got['cer']) == (want['wer'], want['cer'])
+    np.testing.assert_allclose(got['loss'], want['loss'], rtol=LOSS_RTOL)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-importing it builds or loads no CUDA library."""
+importing it builds or loads no CUDA library and no host library; the host
+library it loads is its own (csrc/host/), never native/libw2l_native.so."""
 
 import ast
 import os
@@ -51,6 +52,13 @@ def test_every_module_imports_with_the_jax_package_blocked():
             'assert not loaded, loaded\n'
             'from wav2letter_pytorch_tpu_torch import _build\n'
             'assert not _build._LIBS\n'
+            'assert not _build._HOST\n'
+            'maps = open("/proc/self/maps").read()\n'
+            'assert "libw2l" not in maps\n'
+            'from wav2letter_pytorch_tpu_torch.decoding import levenshtein\n'
+            'assert levenshtein.distance("kitten", "sitting") == 3\n'
+            'maps = open("/proc/self/maps").read()\n'
+            'assert "libw2l_host-" in maps and "libw2l_native" not in maps\n'
             'print("ok")\n')
     env = dict(os.environ, OMP_NUM_THREADS='1')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -76,6 +84,18 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
     assert not bad
 
 
+def test_no_source_names_the_jax_native_library():
+    """The port builds and loads its own host library (csrc/host/); it
+    never runs ``make -C native`` nor loads ``libw2l_native.so``."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        bad += [(path, w) for w in ('libw2l_native', '_load_native', 'make -C')
+                if w in text]
+    assert not bad
+
+
 def test_kernel_sources_and_build_hash():
     assert _build.kernel_sources() == ['ctc_alpha', 'ctc_beta', 'depthwise',
                                       'sep_conv', 'stft_mel']
@@ -85,3 +105,8 @@ def test_kernel_sources_and_build_hash():
     assert os.path.basename(a).startswith('stft_mel-')
     # nothing was built or loaded by importing or by the CPU tests
     assert _build._LIBS == {}
+    host = _build.host_library_path()
+    assert host.startswith(_build.HOST_BUILD_DIR)
+    assert os.path.basename(host).startswith('libw2l_host-')
+    assert sorted(os.path.basename(p) for p in _build._host_sources()) == [
+        'arpa_lm.cpp', 'beam_search.cpp', 'greedy.cpp', 'levenshtein.cpp']

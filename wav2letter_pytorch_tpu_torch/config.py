@@ -311,5 +311,7 @@ def check_supported(cfg: dict) -> None:
                              f'PyTorch port (only {default!r})')
     target = cfg['model']['decoder'].get('_target_')
     if target not in SUPPORTED_DECODERS:
-        raise ValueError(f'model.decoder._target_={target!r} is not ported; '
-                         'the PyTorch port decodes greedily')
+        raise ValueError(f'model.decoder._target_={target!r} is not ported: '
+                         'training-time validation decodes greedily (beam '
+                         'search with an LM is evaluate.py --lm-path / '
+                         '--beam-search-params)')

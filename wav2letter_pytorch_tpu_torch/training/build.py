@@ -8,9 +8,13 @@ for the JAX package resolve onto the port's optimizers and schedules.
 
 from __future__ import annotations
 
+import json
+import os
+
 import torch
 
 from .. import optim
+from ..config import check_supported, parse_value, set_path
 from ..data.features import AudioConfig, SpectrogramFrontend
 from ..data.label_sets import resolve_labels
 from ..models.jasper import Jasper
@@ -73,6 +77,53 @@ def build_model(model_cfg, num_labels: int, seed: int = 0):
                       generator=gen)
     raise ValueError(f'Unknown model name: {name!r} '
                      "(expected 'wav2letter' or 'jasper')")
+
+
+def run_config(run_dir: str, overrides=()) -> dict:
+    """The ``config.json`` that ``Trainer.fit`` wrote into ``run_dir``,
+    after ``key=value`` overrides (``+key=value`` adds a key)."""
+    with open(os.path.join(run_dir, 'config.json')) as f:
+        cfg = json.load(f)
+    for ov in overrides:
+        if '=' not in ov:
+            raise ValueError(f'Malformed override (need key=value): {ov!r}')
+        key, _, val = ov.partition('=')
+        set_path(cfg, key.lstrip('+'), parse_value(val),
+                 allow_new=key.startswith('+'))
+    check_supported(cfg)
+    return cfg
+
+
+def load_run(run_dir: str, overrides=(), average_last: int | None = None,
+             seed: int = 0):
+    """A training run directory of the port's ``Trainer``, for evaluation:
+    ``(cfg, model, labels, step)``.
+
+    ``cfg`` is the run's ``config.json`` after ``overrides``; ``model`` is
+    built from it on the CPU and given the newest checkpoint's ``'model'``
+    state, or with ``average_last`` > 1 the average of the newest K
+    (``checkpoint.average_checkpoints``); ``step`` is that checkpoint's
+    step. A run with no checkpoint gives ``step`` None and the model drawn
+    from ``seed``. The counterpart of ``wav2letter_pytorch_tpu.training.
+    build.load_run``.
+    """
+    from .checkpoint import Checkpointer, average_checkpoints
+
+    cfg = run_config(run_dir, overrides)
+    labels = build_labels(cfg['model'])
+    model = build_model(cfg['model'], len(labels), seed=seed)
+    ckpt_dir = os.path.join(run_dir, 'checkpoints')
+    if not os.path.isdir(ckpt_dir):
+        return cfg, model, labels, None
+    ckpt = Checkpointer(ckpt_dir)
+    if ckpt.latest_step() is None:
+        return cfg, model, labels, None
+    if average_last and average_last > 1:
+        state = average_checkpoints(ckpt, average_last)
+    else:
+        state = ckpt.restore()
+    model.load_state_dict(state['model'], strict=True)
+    return cfg, model, labels, int(state['step'])
 
 
 def build_frontend(model_cfg, dither: float | None = None,

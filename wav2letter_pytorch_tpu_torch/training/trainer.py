@@ -61,19 +61,26 @@ def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
 
 
 @torch.no_grad()
-def eval_step(model, frontend, batch):
-    """One batch of tensors on the device -> (loss, argmax ids [B, T'] int32,
-    out_lens [B]). The caller puts the model in eval mode. A model that
-    emits probabilities in eval mode (Jasper) is scored on
-    log(max(probs, 1e-30)), as the JAX trainer does."""
+def eval_step(model, frontend, batch, output: str = 'ids'):
+    """One batch of tensors on the device -> (loss, out, out_lens [B]).
+    ``output='ids'``: ``out`` is the argmax ids [B, T'] int32 (greedy
+    decoding: only they cross to the host); ``'model'``: the model's own
+    output [B, T', V] (Wav2Letter's log-probabilities, Jasper's eval-mode
+    probabilities), for beam decoding. One forward either way. The caller
+    puts the model in eval mode. A model that emits probabilities in eval
+    mode (Jasper) is scored on log(max(probs, 1e-30)), as the JAX trainer
+    does."""
+    if output not in ('ids', 'model'):
+        raise ValueError(f"output must be 'ids' or 'model', got {output!r}")
     feats, flens = frontend(batch['audio'], batch['audio_lengths'])
     out, out_lens = model(feats, flens)
     log_probs = (torch.log(torch.clamp(out, min=1e-30))
                  if getattr(model, 'eval_emits_probs', False) else out)
     loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
                            batch['target_lengths'], batch['batch_mask'])
-    ids = torch.argmax(out, dim=-1).to(torch.int32)
-    return loss, ids, out_lens
+    if output == 'ids':
+        out = torch.argmax(out, dim=-1).to(torch.int32)
+    return loss, out, out_lens
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
