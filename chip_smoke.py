@@ -79,8 +79,26 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    QuartzNet's run through the host beam on its probabilities (K4 and K6
    launched); decode ms a batch under each decoder, evaluate() utt/s under
    each, and the device search's ops a frame.
-16. One ``{"kernels": [...]}`` line: per kernel its launches on the
-   training path (K1-K3 Wav2Letter's, K4-K7 QuartzNet's), max error
+16. Serving, on phase 7's Wav2Letter-20 run: ``export_serving.main``
+   three times (f32 with corpus CMVN; int8 with CMVN and static
+   activation scales; f32 with the 3-gram LM bundled); the BN fold on the
+   card (``MeshInference('f32')`` on the artifact vs the unfolded model's
+   eval forward, within 1e-4 of max |logp|, every greedy string equal but
+   at near-ties); ``evaluate.main --artifact --offline`` at B=32 in five
+   modes (f32, f32 with CMVN, int8, int8 ``--int8-full``, the LM artifact
+   beam-decoding), the f32 one with the WER and CER of ``--model-path``;
+   ``transcribe_long.main`` over 5 minutes of the corpus, f32 and
+   int8_full, each within 1e-3 of the one-shot forward with every argmax
+   equal; K1 must have launched. Then int8 card vs CPU (the first layer's
+   int32 accumulators equal; int8_full log-probs within 1e-5 of max
+   |logp|, dynamic and static scales), int8 weight-only against f32, and
+   the serving times: ms a batch and at B=1, utt/s and peak memory a mode,
+   the int8_full stack against cuDNN's FP32 stack and its im2col share,
+   the widest layer's ``torch._int_mm`` against its cuDNN conv, weight
+   bytes, K1's share.
+17. One ``{"kernels": [...]}`` line: per kernel its launches on the
+   training path (K1-K3 Wav2Letter's, K1 also the serving path's, K4-K7
+   QuartzNet's), max error
    against the plain version, time, plain time, roofline bound and the time
    of the nearest PyTorch library call (timed here only). K2 and K3 are
    also timed at the long shape, and each prints its ns a dependent step.
@@ -105,12 +123,16 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from wav2letter_pytorch_tpu_torch import _build
 from wav2letter_pytorch_tpu_torch import evaluate as port_eval
+from wav2letter_pytorch_tpu_torch import export_serving as port_export
 from wav2letter_pytorch_tpu_torch import train as port_train
+from wav2letter_pytorch_tpu_torch import transcribe_long as port_long
 from wav2letter_pytorch_tpu_torch.config import load_config
 from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
+from wav2letter_pytorch_tpu_torch.data.dataset import ManifestDataset
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
 from wav2letter_pytorch_tpu_torch.data.label_sets import resolve_labels
@@ -143,10 +165,18 @@ from wav2letter_pytorch_tpu_torch.ops.sep_conv import (mask_lengths, sep_bwd,
 from wav2letter_pytorch_tpu_torch.ops.sep_conv import \
     out_length as sep_out_length
 from wav2letter_pytorch_tpu_torch.optim import constant_lr
+from wav2letter_pytorch_tpu_torch.serving import (MeshInference,
+                                                  artifact_frontend,
+                                                  load_serving,
+                                                  offline_forward,
+                                                  offline_forward_q8,
+                                                  quantized_bytes)
+from wav2letter_pytorch_tpu_torch.serving import infer as serving_infer
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          build_labels,
                                                          build_model,
                                                          build_optimizer,
+                                                         load_run,
                                                          run_config)
 from wav2letter_pytorch_tpu_torch.training.checkpoint import (
     Checkpointer, average_checkpoints)
@@ -2118,6 +2148,422 @@ def phase_decoding_timing(manifest: str, run_dir: str, lm_path: str,
               f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
 
 
+# ----------------------------------------------------------------- serving
+
+# MeshInference('f32') on the artifact's fold vs the unfolded model's eval
+# forward on the card, max |d logp| / max |logp|: the fold (w * g) rounds
+# once per weight and cuDNN may pick other algorithms; float32 rounding
+# through 20 layers. A greedy string may differ only at frames whose top-2
+# margin in the unfolded output is below this share of max |logp| (random
+# weights leave near-ties).
+SERVE_FOLD_RTOL = 1e-4
+# int8_full on the card vs on the CPU on the same features: the int8 sums
+# are exact and the elementwise float32 steps are IEEE on both, so only
+# log_softmax's exp/log may differ (a few ulp); max |d| / max |logp|.
+SERVE_Q8_RTOL = 1e-5
+SERVE_Q8_CPU_ROWS = 2        # batch rows of the CPU int8_full comparison
+LONG_MINUTES = 5.0           # long-form clip: the corpus concatenated
+# Chunked vs one-shot, max |d logp|: f32 convs may sum a window in another
+# order than the whole clip (1.43e-6 seen on the card); int8_full with
+# static scales is integer sums and elementwise float32 steps, so exact.
+LONG_ATOL = {'f32': 1e-5, 'int8_full': 0.0}
+SERVE_LM_PARAMS = 'k=8,alpha=0.5,beta=1.0,prune=0.05'
+WIDE_LAYER = 17              # k=29, 896 -> 896, dilation 2
+
+
+def run_quiet(main, argv, k1=None, what='', want=None) -> tuple:
+    """``main(argv)`` with stdout and stderr captured: (stdout lines,
+    stderr text, wall seconds). With ``k1`` (a dict), K1's count is set to
+    0 just before the call and read just after into ``k1[what]``, and must
+    be ``want``."""
+    out, err = io.StringIO(), io.StringIO()
+    stft_mel_log.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f'{main.__module__}.main returned 0')
+    if k1 is not None:
+        k1[what] = stft_mel_log.launches
+        check(k1[what] == want, f'{what}: K1 launched {k1[what]} times '
+              f'(want {want})')
+    return out.getvalue().strip().splitlines(), err.getvalue().strip(), secs
+
+
+def phase_serving_exports(manifest: str, run_dir: str, lm_path: str,
+                          root: str, card: str, k1: dict) -> dict:
+    """export_serving.main on the Wav2Letter-20 run: f32 with CMVN, int8
+    with CMVN and static activation scales, f32 with the corpus LM. K1
+    runs once an utterance for CMVN and once for the calibration batch."""
+    arts = {}
+    for name, extra, want in (
+            ('f32', ['--cmvn-manifest', manifest], N_UTTS),
+            ('int8', ['--int8', '--cmvn-manifest', manifest, '--calibrate'],
+             N_UTTS + 1),
+            ('lm', ['--lm-path', lm_path, '--lm-beam-params',
+                    SERVE_LM_PARAMS], 0)):
+        out = os.path.join(root, f'artifact_{name}')
+        _, err, secs = run_quiet(port_export.main, [
+            '--model-path', run_dir, '--out', out, '--device', str(DEVICE),
+            *extra], k1, f'export_serving --{name}', want)
+        meta, folded, stats = load_serving(out)
+        print(f'export_serving --{name}: {secs:.2f} s; '
+              f'{err.replace(chr(10), "; ")} [{card}]')
+        check(meta['num_layers'] == MID_LAYERS + 1
+              and meta['format'] == ('int8' if name == 'int8' else 'f32')
+              and (stats is not None) == (name != 'lm')
+              and (meta['act_scales'] is not None) == (name == 'int8')
+              and ('lm' in meta) == (name == 'lm'),
+              f'{name} artifact: {MID_LAYERS + 1} layers, its format, CMVN, '
+              'scales and LM as asked')
+        arts[name] = out
+    return arts
+
+
+def serving_outputs(run_dir: str, manifest: str, art: str) -> tuple:
+    """Per-utterance log-probs on the card of the run's newest checkpoint:
+    the unfolded model's eval forward and MeshInference('f32') on the
+    artifact's fold, batch for batch (B=32). (ref, got, labels)."""
+    cfg, model, labels, _ = load_run(run_dir)
+    model.to(DEVICE).eval()
+    fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE)
+    meta, folded, _ = load_serving(art)
+    mi = MeshInference(meta['layers'], folded,
+                       artifact_frontend(meta, device=DEVICE), device=DEVICE)
+    ref, got = {}, {}
+    for batch in port_eval.make_loader(manifest, BATCH, fe, labels):
+        b = port_eval.to_device(batch, DEVICE)
+        _, out, lens = port_eval.eval_step(model, fe, b, 'model')
+        lp, mlens = mi.logprobs_device(b['audio'], b['audio_lengths'])
+        check(torch.equal(lens, mlens), 'MeshInference gives the model\'s '
+              'output lengths')
+        for j, path in enumerate(batch['paths']):
+            if batch['batch_mask'][j]:
+                n = int(lens[j])
+                ref[path] = out[j, :n].cpu().numpy()
+                got[path] = lp[j, :n].cpu().numpy()
+    return ref, got, labels
+
+
+def phase_serving_fold(run_dir: str, manifest: str, art: str) -> tuple:
+    """The BN fold on the card: MeshInference('f32') against the unfolded
+    model. Returns (utterances whose greedy strings differ, all of them
+    near-ties; their greedy strings under each)."""
+    ref, got, labels = serving_outputs(run_dir, manifest, art)
+    scale = max(float(np.abs(r).max()) for r in ref.values())
+    err = max(float(np.abs(got[p] - ref[p]).max()) for p in ref)
+    check(err <= SERVE_FOLD_RTOL * scale,
+          f'BN-folded artifact (MeshInference f32) vs the unfolded eval '
+          f'forward, {len(ref)} utterances: max |d logp| {err:.3e}, '
+          f'{err / scale:.2e} of max |logp| {scale:.2f} (gate '
+          f'{SERVE_FOLD_RTOL})')
+    greedy = port_eval.GreedyDecoder(labels)
+    differ = {}
+    for p in ref:
+        a = greedy.decode(ref[p][None])[0]
+        b = greedy.decode(got[p][None])[0]
+        if a == b:
+            continue
+        top2 = np.sort(ref[p], axis=-1)[:, -2:]
+        flips = np.nonzero(ref[p].argmax(-1) != got[p].argmax(-1))[0]
+        margins = (top2[flips, 1] - top2[flips, 0]).tolist()
+        print(f'  {os.path.basename(p)}: unfolded {a!r}, folded {b!r}; '
+              f'argmax differs at frames {flips.tolist()}, top-2 margins '
+              f'{margins}')
+        check(max(margins) <= SERVE_FOLD_RTOL * scale,
+              f'{os.path.basename(p)}: the strings differ only at near-ties')
+        differ[p] = (a, b)
+    print(f'BN fold: {len(ref) - len(differ)} of {len(ref)} greedy strings '
+          f'equal, {len(differ)} near-ties')
+    return differ
+
+
+def phase_serving_card_vs_cpu(manifest: str, arts: dict, card: str):
+    """int8 on the card vs the CPU: the first layer's int32 accumulators
+    (B=32), the int8_full log-probs with dynamic and static scales
+    (SERVE_Q8_CPU_ROWS rows); int8 weight-only against f32 on the card."""
+    meta, folded_q, _ = load_serving(arts['int8'])
+    _, folded_f, _ = load_serving(arts['f32'])
+    layers = meta['layers']
+    fe = artifact_frontend(meta, device=DEVICE)
+    batch = next(iter(port_eval.make_loader(manifest, BATCH, fe,
+                                            meta['labels'])))
+    b = port_eval.to_device(batch, DEVICE)
+    with torch.no_grad():
+        feats, flens = fe(b['audio'], b['audio_lengths'])
+    q_dev = serving_infer.to_device(folded_q, DEVICE)
+    k, s, d = serving_infer._layer_geometry(layers)[0]
+    accs = []
+    for x, lens, q0 in ((feats, flens, q_dev[0][0]),
+                        (feats.cpu(), flens.cpu(),
+                         torch.from_numpy(folded_q[0][0]))):
+        xq = serving_infer.quantize_act(
+            x, serving_infer.dynamic_act_scale(x, lens))
+        accs.append(serving_infer.conv_q8(xq, q0, s, d).cpu())
+    check(accs[0].dtype == torch.int32 and torch.equal(accs[0], accs[1]),
+          f'int8 first layer, B={BATCH}: the int32 accumulators '
+          f'{tuple(accs[0].shape)} are equal on the card and the CPU')
+    rows = slice(0, SERVE_Q8_CPU_ROWS)
+    for what, scales in (('dynamic', None), ('static', meta['act_scales'])):
+        outs = []
+        for dev, w in ((DEVICE, q_dev), (torch.device('cpu'), folded_q)):
+            with torch.no_grad():
+                lp, _ = offline_forward_q8(
+                    layers, w, feats[rows].to(dev), flens[rows].to(dev),
+                    act_scales=scales)
+            outs.append(lp.cpu())
+        err = (outs[0] - outs[1]).abs().max().item()
+        scale = outs[1].abs().max().item()
+        same = (outs[0].argmax(-1) == outs[1].argmax(-1)).all().item()
+        check(err <= SERVE_Q8_RTOL * scale and same,
+              f'int8_full ({what} scales), card vs CPU on the same '
+              f'features, {SERVE_Q8_CPU_ROWS} rows: max |d logp| {err:.3e} '
+              f'({err / scale:.1e} of max |logp|, gate {SERVE_Q8_RTOL}), '
+              'argmax equal')
+    outs = {}
+    for mode, folded in (('f32', folded_f), ('int8', folded_q)):
+        mi = MeshInference(layers, folded, fe, mode=mode, device=DEVICE)
+        outs[mode] = [t.cpu().numpy() for t in mi.logprobs_device(
+            b['audio'], b['audio_lengths'])]
+    (f_lp, lens), (q_lp, _) = outs['f32'], outs['int8']
+    valid = np.arange(f_lp.shape[1])[None, :] < lens[:, None]
+    greedy = port_eval.GreedyDecoder(meta['labels'])
+    equal = sum(a == c for a, c in zip(greedy.decode(f_lp, lens),
+                                       greedy.decode(q_lp, lens)))
+    check(np.isfinite(q_lp).all(), 'int8 weight-only log-probs are finite')
+    print(f'int8 weight-only vs f32, B={BATCH}: max |d logp| '
+          f'{np.abs(q_lp - f_lp)[valid].max():.4f}, argmax agreement '
+          f'{(q_lp.argmax(-1) == f_lp.argmax(-1))[valid].mean():.4f}, '
+          f'{equal} of {BATCH} greedy strings equal [{card}]')
+
+
+def serving_common(manifest: str) -> list:
+    return ['--test-manifest', manifest, '--device', str(DEVICE),
+            '--batch-size', str(BATCH)]
+
+
+def serving_reference(manifest: str, run_dir: str, root: str) -> tuple:
+    """evaluate.main --model-path on the run (the unfolded model, outside
+    the serving path's counts): (result, dump)."""
+    dump = os.path.join(root, 'model_path.jsonl')
+    lines, _, _ = run_quiet(port_eval.main, [
+        '--model-path', run_dir, *serving_common(manifest), '--dump-jsonl',
+        dump])
+    return json.loads(lines[-1]), read_dump(dump)
+
+
+def phase_serving_cli(manifest: str, arts: dict, root: str, card: str,
+                      differ: dict, reference: tuple, k1: dict) -> dict:
+    """evaluate.main --artifact --offline (B=32) in each mode, held to
+    evaluate.main --model-path (``reference``) on the same batches;
+    transcribe_long.main over LONG_MINUTES of the corpus, f32 and int8_full
+    (static scales), each against the one-shot forward. Each entry point's
+    K1 launches go into ``k1``: once a batch; long form once for each of
+    its two runs (warm-up, timed) and once for the one-shot check."""
+    common = serving_common(manifest)
+    want, want_dump = reference
+    results = {}
+    for name, argv in (
+            ('f32', [arts['f32']]),
+            ('f32, CMVN', [arts['f32'], '--offline-norm', 'cmvn']),
+            ('int8', [arts['int8']]),
+            ('int8_full', [arts['int8'], '--int8-full']),
+            ('f32 + LM beam', [arts['lm']])):
+        dump = os.path.join(root, f'artifact_{len(results)}.jsonl')
+        lines, _, secs = run_quiet(port_eval.main, [
+            '--artifact', argv[0], '--offline', *common, *argv[1:],
+            '--dump-jsonl', dump], k1, f'evaluate --artifact ({name})',
+            N_UTTS // BATCH)
+        result = json.loads(lines[-1])
+        results[name] = (result, read_dump(dump), secs)
+        print(f'evaluate.main --artifact --offline ({name}): '
+              f'{json.dumps(result)}; {secs:.2f} s end to end (artifact '
+              f'load, WAV read, inference, decode), '
+              f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
+        check(result['num_utterances'] == N_UTTS and result['offline']
+              and result['decode'] == ('beam_lm' if 'LM' in name
+                                       else 'greedy')
+              and all(math.isfinite(result[k]) for k in ('wer', 'cer')),
+              f'{name}: {N_UTTS} utterances, finite WER/CER, the decoder '
+              'asked for')
+    got, got_dump, _ = results['f32']
+    diff = sorted(p for p in want_dump
+                  if want_dump[p]['hyp'] != got_dump[p]['hyp'])
+    check(set(diff) <= set(differ) and (
+        diff or (got['wer'], got['cer']) == (want['wer'], want['cer'])),
+          f'f32 artifact vs --model-path: WER {got["wer"]} / {want["wer"]}, '
+          f'CER {got["cer"]} / {want["cer"]}; {len(diff)} strings differ, '
+          'each a near-tie of the fold check')
+    for name, flags, art in (('f32', [], arts['f32']),
+                             ('int8_full', ['--int8-full'], arts['int8'])):
+        out = os.path.join(root, f'long_{name}.json')
+        lines, err, secs = run_quiet(port_long.main, [
+            '--artifact', art, '--concat-manifest', manifest, '--minutes',
+            str(LONG_MINUTES), '--verify-oneshot', '--device', str(DEVICE),
+            '--json-out', out, *flags], k1, f'transcribe_long ({name})', 3)
+        result = json.loads(lines[0])
+        print(f'transcribe_long ({name}, {result["audio_seconds"]} s of '
+              f'audio): {json.dumps(result)}; {secs:.2f} s in all; '
+              f'{result["x_realtime"]} s of audio a second [{card}]')
+        check(result['oneshot_argmax_equal']
+              and result['oneshot_max_abs_diff'] <= LONG_ATOL[name]
+              and result['audio_seconds'] >= LONG_MINUTES * 60
+              and result['mode'] == name,
+              f'long form {name}: chunked vs one-shot max |d logp| '
+              f'{result["oneshot_max_abs_diff"]:.3e} (gate '
+              f'{LONG_ATOL[name]}), '
+              'argmax equal at every frame, so the greedy strings are')
+    return results
+
+
+def im2col_ms(layers, B: int, T: int, cins) -> float:
+    """ms of int8_full's per-layer padding and im2col alone (the int8
+    inputs drawn at random; the values do not change the copies)."""
+    xs = []
+    t = T
+    for (k, s, d), cin in zip(serving_infer._layer_geometry(layers), cins):
+        xs.append((torch.randint(-127, 128, (B, t, cin), dtype=torch.int8,
+                                 device=DEVICE), k, s, d))
+        t = -(-t // s)
+
+    def run():
+        for x, k, s, d in xs:
+            cols = serving_infer.im2col(x, k, s, d)
+            cols.reshape(-1, cols.shape[2]).contiguous()
+    return cuda_ms(run, iters=5, warmup=1)
+
+
+def phase_serving_timing(manifest: str, arts: dict, card: str):
+    """ms a batch (B=32) and at B=1 in each mode, utt/s, peak memory; the
+    int8_full stack against the f32 cuDNN stack with its im2col share; the
+    widest layer's int8 product against its cuDNN FP32 conv; weight bytes;
+    K1's time in the pipeline."""
+    meta, folded_q, _ = load_serving(arts['int8'])
+    _, folded_f, _ = load_serving(arts['f32'])
+    layers = meta['layers']
+    fe = artifact_frontend(meta, device=DEVICE)
+    batch = next(iter(port_eval.make_loader(manifest, BATCH, fe,
+                                            meta['labels'])))
+    audio = torch.from_numpy(batch['audio']).to(DEVICE)
+    lens = torch.from_numpy(batch['audio_lengths']).to(DEVICE)
+    one = (audio[:1, :int(lens[0])].contiguous(), lens[:1])
+    pipe_ms = {}
+    for mode, folded, scales in (('f32', folded_f, None),
+                                 ('int8', folded_q, None),
+                                 ('int8_full', folded_q,
+                                  meta['act_scales'])):
+        mi = MeshInference(layers, folded, fe, mode=mode,
+                           act_scales=scales, device=DEVICE)
+        mi.logprobs_device(audio, lens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: mi.logprobs_device(audio, lens), iters=5,
+                     warmup=1, queued=False)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms1 = cuda_ms(lambda: mi.logprobs_device(*one), iters=10, warmup=2,
+                      queued=False)
+        pipe_ms[mode] = ms
+        print(f'serving {mode} (frontend K1 + folded stack), B={BATCH} x '
+              f'{audio.shape[1] / 16000:.2f} s: {ms:.3f} ms/batch, '
+              f'{BATCH / ms * 1e3:.1f} utt/s, peak memory {peak:.3f} GiB; '
+              f'B=1 ({int(lens[0]) / 16000:.2f} s): {ms1:.3f} ms [{card}]')
+    with torch.no_grad():
+        feats, flens = fe(audio, lens)
+    w_f = serving_infer.to_device(folded_f, DEVICE)
+    w_q = serving_infer.to_device(folded_q, DEVICE)
+    f32_ms = cuda_ms(lambda: offline_forward(layers, w_f, feats, flens),
+                     iters=5, warmup=1)
+    q8_ms = cuda_ms(lambda: offline_forward_q8(
+        layers, w_q, feats, flens, act_scales=meta['act_scales']),
+        iters=5, warmup=1)
+    cins = [int(np.asarray(w).shape[1]) for w, *_ in folded_q[:-1]]
+    col_ms = im2col_ms(layers, BATCH, feats.shape[1], cins)
+    fe_ms = cuda_ms(lambda: fe(audio, lens), iters=10, warmup=2)
+    macs = sum(int(np.asarray(w).size) * t for (w, *_), t in zip(
+        folded_q, serving_t_out(layers, feats.shape[1])))  # an utterance
+    print(f'conv stack alone, B={BATCH}, T={feats.shape[1]}: f32 cuDNN '
+          f'{f32_ms:.3f} ms ({2 * BATCH * macs / f32_ms / 1e9:.1f} TFLOP/s), '
+          f'int8_full {q8_ms:.3f} ms ({2 * BATCH * macs / q8_ms / 1e9:.1f} '
+          f'TOP/s), of which padding + im2col {col_ms:.3f} ms '
+          f'({col_ms / q8_ms:.1%}); {2 * BATCH * macs / 1e12:.3f} TOP a '
+          f'batch [{card}]')
+    print(f'K1 (frontend) in the serving pipeline, B={BATCH}: {fe_ms:.3f} ms'
+          f', {fe_ms / pipe_ms["f32"]:.1%} of f32, '
+          f'{fe_ms / pipe_ms["int8_full"]:.1%} of int8_full [{card}]')
+    k, s, d = serving_infer._layer_geometry(layers)[WIDE_LAYER]
+    q = w_q[WIDE_LAYER][0]
+    cin, cout = q.shape[1], q.shape[2]
+    t = serving_t_out(layers, feats.shape[1])[WIDE_LAYER]
+    a = torch.randint(-127, 128, (BATCH * t, k * cin), dtype=torch.int8,
+                      device=DEVICE)
+    wmat = q.reshape(k * cin, cout)
+    mm_ms = cuda_ms(lambda: serving_infer.int_mm(a, wmat), iters=10)
+    x = torch.randn(BATCH, cin, t + (k - 1) * d, device=DEVICE)
+    wf = w_f[WIDE_LAYER][0].permute(2, 1, 0)
+    conv_ms = cuda_ms(lambda: F.conv1d(x, wf, dilation=d), iters=10)
+    ops = 2 * BATCH * t * k * cin * cout
+    print(f'widest layer (k={k}, {cin} -> {cout}, d={d}), B={BATCH} x T={t}:'
+          f' torch._int_mm {mm_ms:.3f} ms, {ops / mm_ms / 1e9:.1f} TOP/s; '
+          f'cuDNN FP32 conv {conv_ms:.3f} ms, {ops / conv_ms / 1e9:.1f} '
+          f'TFLOP/s [{card}]')
+    f32_bytes = sum(w.nbytes + b.nbytes for w, b in folded_f)
+    print(f'weights: int8 {quantized_bytes(folded_q)} bytes (quantized_bytes)'
+          f' vs f32 {f32_bytes} bytes, '
+          f'{quantized_bytes(folded_q) / f32_bytes:.3f}x [{card}]')
+
+
+def phase_serving_k1(manifest: str, run_dir: str, arts: dict):
+    """K1 against its plain version at the serving path's own shapes: the
+    long-form clip (one row of LONG_MINUTES) and one CMVN row (B=1, the
+    unnormalised frontend, zero-padded to the 0.5 s grid)."""
+    meta, _, _ = load_serving(arts['f32'])
+    fe = artifact_frontend(meta, device=DEVICE)
+    audio, _ = port_long.read_input(port_long.parse_args(
+        ['--artifact', arts['f32'], '--concat-manifest', manifest,
+         '--minutes', str(LONG_MINUTES)]), meta, fe.conf.sample_rate)
+    raw_fe = build_frontend(run_config(run_dir)['model'], dither=0.0,
+                            device=DEVICE, normalize=False)
+    clip = np.asarray(ManifestDataset(manifest, fe.conf.sample_rate,
+                                      meta['labels'])[0][0], np.float32)
+    grid = fe.conf.sample_rate // 2
+    row = np.zeros(-(-len(clip) // grid) * grid, np.float32)
+    row[:len(clip)] = clip
+    for name, f, x, n in (('serving long form', fe, audio, len(audio)),
+                          ('serving CMVN row', raw_fe, row, len(clip))):
+        a = torch.from_numpy(x[None]).to(DEVICE)
+        lens = torch.tensor([n], dtype=torch.int32, device=DEVICE)
+        k1_compare(name, f, f.prepare(a, lens), lens, 1 + len(x) // f.hop)
+
+
+def phase_serving(manifest: str, run_dir: str, lm_path: str, root: str,
+                  card: str) -> dict:
+    """The serving slice on the Wav2Letter-20 run; returns K1's launches
+    on its path by entry point, each counted from 0 just before the entry
+    point ran and read just after."""
+    reference = serving_reference(manifest, run_dir, root)
+    k1 = {}
+    arts = phase_serving_exports(manifest, run_dir, lm_path, root, card, k1)
+    differ = phase_serving_fold(run_dir, manifest, arts['f32'])
+    phase_serving_cli(manifest, arts, root, card, differ, reference, k1)
+    print(f'serving path: K1 launched {sum(k1.values())} times: '
+          f'{json.dumps(k1)}')
+    phase_serving_k1(manifest, run_dir, arts)
+    phase_serving_card_vs_cpu(manifest, arts, card)
+    phase_serving_timing(manifest, arts, card)
+    return k1
+
+
+def serving_t_out(layers, T: int) -> list:
+    """Output frames of each layer (and the head) of the stack at input
+    length T."""
+    out = []
+    for k, s, d in serving_infer._layer_geometry(layers):
+        T = -(-T // s)
+        out.append(T)
+    return out + [T]
+
+
 def kernel_entry(name, source, replaces, launches, err, numbers):
     ms, plain_ms, library_ms, nbytes, ops = numbers
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2189,13 +2635,18 @@ def main() -> int:
         cli = phase_decoding_w2l(manifest, w2l_run, lm_path, root, card)
         phase_decoding_qn(manifest, qn_run, card)
         phase_decoding_timing(manifest, w2l_run, lm_path, card, cli)
+        torch.cuda.empty_cache()
+        # Serving: artifacts of the Wav2Letter-20 run
+        serve_k1 = phase_serving(manifest, w2l_run, lm_path, root, card)
+        torch.cuda.empty_cache()
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
     kernels = [
         kernel_entry('stft_mel_log', src + 'stft_mel.cu',
-                     tpu + 'stft_pallas.py:44', launches['stft_mel_log'],
-                     k1_err, k1_numbers(*k1_main)),
+                     tpu + 'stft_pallas.py:44',
+                     launches['stft_mel_log'], k1_err,
+                     k1_numbers(*k1_main)),
         kernel_entry('ctc_alpha', src + 'ctc_alpha.cu',
                      tpu + 'ctc_pallas.py:62', launches['ctc_alpha'], k2_err,
                      k2_numbers(k2_main)),
@@ -2215,6 +2666,8 @@ def main() -> int:
                      tpu + 'sep_conv_pallas.py:93', qn_launches['sep_bwd'],
                      k7_err, k7_numbers),
     ]
+    # K1's launches on the serving path, apart from the training path's
+    kernels[0]['serving_launches'] = sum(serve_k1.values())
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

@@ -460,3 +460,102 @@ def test_exported_jax_run_prints_what_test_py_prints(tmp_path, jax_run,
     assert got['num_utterances'] == want['num_utterances'] == 6
     assert (got['wer'], got['cer']) == (want['wer'], want['cer'])
     np.testing.assert_allclose(got['loss'], want['loss'], rtol=LOSS_RTOL)
+
+
+# ------------------------------------------------------ serving artifacts
+
+def _jax_export(run, out, *extra):
+    import sys
+    sys.path.insert(0, os.path.join(REPO, 'scripts'))
+    try:
+        import export_serving as jax_export
+    finally:
+        sys.path.remove(os.path.join(REPO, 'scripts'))
+    assert jax_export.main(['--model-path', run, '--out', out, *extra]) == 0
+    return out
+
+
+@pytest.mark.parametrize('export, flags', [
+    ([], []),
+    (['--cmvn-manifest', '{manifest}'], ['--offline-norm', 'cmvn']),
+    (['--int8', '--cmvn-manifest', '{manifest}', '--calibrate'],
+     ['--int8-full']),
+    (['--lm-beam-params', 'k=4,alpha=0.5,beta=1', '--lm-path', '{lm}'],
+     [])],
+    ids=['f32', 'cmvn', 'int8_full', 'bundled_lm'])
+def test_artifact_offline_eval_prints_what_test_py_prints(
+        tmp_path, jax_run, capsys, export, flags):
+    """An artifact written by the JAX package's scripts/export_serving.py,
+    evaluated by test.py --artifact --offline and by the port's evaluate
+    --artifact --offline on the CPU: the same (reference, decoded) pairs,
+    --dump-jsonl records and result line (but mesh_devices: JAX's test
+    mesh has 8 host devices, the port runs on one)."""
+    import test as test_cli
+    run, manifest, _, lm = jax_run
+    export = [a.format(manifest=manifest, lm=lm) for a in export]
+    art = _jax_export(run, str(tmp_path / 'art'), *export)
+    common = ['--artifact', art, '--offline', '--test-manifest', manifest,
+              '--print-all', *flags]
+    assert test_cli.main([*common, '--dump-jsonl',
+                          str(tmp_path / 'jax.jsonl')]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    want = json.loads(out[-1])
+    want_lines = [line for line in out[:-1]
+                  if line.startswith(('reference: ', 'decoded  : '))]
+    got, got_lines, _ = _run_cli([*common, '--device', 'cpu', '--dump-jsonl',
+                                  str(tmp_path / 'port.jsonl')], capsys)
+    assert len(want_lines) == 12 and got_lines == want_lines
+    assert (tmp_path / 'port.jsonl').read_text() == \
+        (tmp_path / 'jax.jsonl').read_text()
+    assert want.pop('mesh_devices') == 8 and got.pop('mesh_devices') == 1
+    assert got == want
+    assert got['decode'] == ('beam_lm' if '--lm-path' in export
+                             else 'greedy')
+
+
+def test_artifact_of_a_port_run_scores_as_its_run(port_run, tmp_path,
+                                                  capsys):
+    """The port's export of a run, evaluated --artifact --offline, gives
+    the WER and CER of evaluate --model-path on the same batches; the
+    bundled LM beam-decodes unless --no-lm."""
+    from wav2letter_pytorch_tpu_torch import export_serving as export_cli
+    run, manifest, lm = port_run
+    art = str(tmp_path / 'art')
+    assert export_cli.main(['--model-path', run, '--out', art, '--lm-path',
+                            lm, '--device', 'cpu']) == 0
+    want, _, _ = _run_cli(['--model-path', run, '--test-manifest', manifest,
+                           '--device', 'cpu', '--batch-size', '8',
+                           'data.num_length_buckets=4'], capsys)
+    common = ['--artifact', art, '--offline', '--test-manifest', manifest,
+              '--device', 'cpu']
+    greedy, _, _ = _run_cli(common + ['--no-lm'], capsys)
+    assert greedy['decode'] == 'greedy' and greedy['loss'] is None
+    assert (greedy['wer'], greedy['cer']) == (want['wer'], want['cer'])
+    beam, _, _ = _run_cli(common, capsys)
+    assert beam['decode'] == 'beam_lm' and beam['weights'] == 'f32'
+    assert beam['num_utterances'] == want['num_utterances'] == 6
+
+
+@pytest.mark.parametrize('argv, match', [
+    (['--artifact', '{art}'], 'A.8'),
+    (['--offline'], 'artifact-eval mode'),
+    (['--int8-full'], 'applies to --artifact --offline'),
+    (['--artifact', '{art}', '--offline', '--word-timings'],
+     '--word-timings is not supported with --artifact'),
+    (['--artifact', '{art}', '--lm-path', 'lm.arpa'],
+     '--lm-path is not supported with --artifact'),
+    (['--artifact', '{art}', '--offline', '--model-path', 'run'],
+     '--model-path is not supported with --artifact'),
+    (['--artifact', '{art}', '--offline', '--offline-norm', 'cmvn'],
+     'no CMVN stats'),
+    (['--artifact', '{art}', '--offline', '--beam-backend', 'device'],
+     'beam-backend device')])
+def test_artifact_flags_refused(port_run, tmp_path, argv, match):
+    from wav2letter_pytorch_tpu_torch import export_serving as export_cli
+    run, manifest, _ = port_run
+    art = str(tmp_path / 'art')
+    assert export_cli.main(['--model-path', run, '--out', art, '--device',
+                            'cpu']) == 0
+    with pytest.raises(SystemExit, match=match):
+        port_eval.main(['--test-manifest', manifest, '--device', 'cpu',
+                        *[a.format(art=art) for a in argv]])

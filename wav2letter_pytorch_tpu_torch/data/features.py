@@ -5,7 +5,9 @@ dither, pre-emphasis 0.97, reflect centre padding by n_fft // 2 at each
 sample's own length, a windowed real DFT (symmetric window centred in an
 n_fft = 2^ceil(log2(window)) frame), power, a Slaney mel filterbank,
 ``log1p(mel + 2^-24)``, then per-feature normalisation over each sample's
-valid frames (unbiased std) with padding frames zeroed.
+valid frames (unbiased std) with padding frames zeroed. Serving can instead
+normalise with fixed corpus statistics (``norm_stats``, CMVN) or not at all
+(``normalize=False``, the raw masked features CMVN is measured on).
 
 The framing -> DFT -> power -> mel -> log part is kernel K1
 (``ops/stft_mel.py``): a real FFT and a banded mel in a CUDA kernel on the
@@ -131,15 +133,27 @@ class SpectrogramFrontend(nn.Module):
     them with the module; so are kernel K1's tables (twiddles, mel band
     table; not saved in a state dict), built once here for every n_fft the
     kernel takes.
+
+    ``norm_stats``: ``(mean [n_mels], std [n_mels])`` corpus statistics;
+    features are then normalised as ``(x - mean) / (std + 1e-5)`` in place
+    of the per-utterance statistics. ``normalize=False`` emits the raw
+    log-mel features (padding frames zeroed).
     """
 
     def __init__(self, audio_conf: AudioConfig = AudioConfig(),
                  n_mels: int = 64, dither: float = DITHER,
-                 device: str | torch.device = 'cpu'):
+                 device: str | torch.device = 'cpu',
+                 norm_stats=None, normalize: bool = True):
         super().__init__()
         self.conf = audio_conf
         self.n_mels = n_mels
         self.dither = dither
+        self.normalize_features = normalize
+        self.has_norm_stats = norm_stats is not None
+        if self.has_norm_stats:
+            for name, a in zip(('norm_mean', 'norm_std'), norm_stats):
+                self.register_buffer(name, torch.as_tensor(
+                    np.asarray(a, np.float32)).to(device))
         self.hop = audio_conf.hop_samples
         self.n_fft = n_fft = audio_conf.n_fft
         win_len = audio_conf.window_size_samples
@@ -240,11 +254,18 @@ class SpectrogramFrontend(nn.Module):
     def normalize(self, feats: torch.Tensor, sample_lengths: torch.Tensor):
         """Per-feature normalisation of raw log-mel ``feats`` over each
         sample's valid frames (unbiased std), then padding frames zeroed.
-        Returns ``(features, frame_lengths)``."""
+        Returns ``(features, frame_lengths)``. With ``norm_stats`` the
+        corpus statistics replace the per-utterance ones; with
+        ``normalize=False`` the features are only masked."""
         flens = self.frame_lengths(sample_lengths.to(feats.device))
         mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
                 < flens[:, None])
         maskf = mask[:, :, None].to(feats.dtype)
+        if not self.normalize_features:
+            return feats * maskf, flens
+        if self.has_norm_stats:
+            feats = (feats - self.norm_mean) / (self.norm_std + NORM_EPS)
+            return feats * maskf, flens
         count = torch.clamp(flens, min=1).to(feats.dtype)[:, None, None]
         mean = torch.sum(feats * maskf, dim=1, keepdim=True) / count
         var = torch.sum((feats - mean) ** 2 * maskf, dim=1,

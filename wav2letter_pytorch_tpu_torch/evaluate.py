@@ -33,12 +33,24 @@ package's ``scripts/export_torch_checkpoint.py`` writes from a JAX run),
 or weights drawn from ``--seed``. Batches are bucketed as ``test.py``
 buckets them: ``--batch-size`` or the config's ``data.batch_size``, and
 its ``data.num_length_buckets`` and ``data.max_duration``.
+
+A serving artifact (``export_serving``'s, or the JAX package's
+``scripts/export_serving.py``'s) is evaluated with ``--artifact DIR
+--offline``, as ``test.py`` evaluates one: batched inference of the folded
+stack (``serving.MeshInference``: kernel K1 and the folded convs, f32 or
+int8 weights, or with ``--int8-full`` int8 activations on the int8 tensor
+cores), normalised per utterance or with the artifact's CMVN
+(``--offline-norm cmvn``), decoded greedily or, with the artifact's bundled
+LM (unless ``--no-lm``), an LM, beam parameters or hotwords, by the host
+beam search. The streaming artifact evaluation (``--artifact`` without
+``--offline``) waits for the streaming modules (ROADMAP A.8).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -52,6 +64,8 @@ from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
                                _beam_offsets, get_time_per_word,
                                parse_beam_params)
 from .runtime import resolve_device
+from .serving import (MeshInference, artifact_frontend, load_serving,
+                      quantize_folded)
 from .training.build import (build_frontend, build_labels, build_model,
                              load_run)
 from .training.metrics import RatioAccumulator
@@ -175,6 +189,21 @@ def decode_batch(decoder, out: torch.Tensor, out_lens: torch.Tensor,
             for j in range(probs.shape[0])], None
 
 
+def score_utterance(decoder, acc: RatioAccumulator, dump: UttDump,
+                    path: str, expected: str, decoded: str,
+                    print_pair: bool) -> None:
+    """Add one utterance's edit counts to ``acc`` and ``dump``; print its
+    (reference, decoded) pair when asked, as ``test.py`` does."""
+    c, cd = decoder.cer_ratio(expected, decoded)
+    w, wd = decoder.wer_ratio(expected, decoded)
+    acc.add('cer', c, cd)
+    acc.add('wer', w, wd)
+    dump.add(path, expected, decoded, w, wd, c, cd)
+    if print_pair:
+        print(f'reference: {expected}')
+        print(f'decoded  : {decoded}')
+
+
 def evaluate(model: torch.nn.Module, frontend: SpectrogramFrontend,
              loader: BucketBatchLoader, decoder, device: str | torch.device,
              word_timings: bool = False, print_samples: bool = False,
@@ -202,15 +231,9 @@ def evaluate(model: torch.nn.Module, frontend: SpectrogramFrontend,
             for j, expected in enumerate(batch['texts']):
                 if not batch['batch_mask'][j]:
                     continue
-                c, cd = decoder.cer_ratio(expected, decoded[j])
-                w, wd = decoder.wer_ratio(expected, decoded[j])
-                acc.add('cer', c, cd)
-                acc.add('wer', w, wd)
-                dump.add(batch['paths'][j], expected, decoded[j], w, wd, c,
-                         cd)
-                if print_all or (print_samples and j == 0):
-                    print(f'reference: {expected}')
-                    print(f'decoded  : {decoded[j]}')
+                score_utterance(decoder, acc, dump, batch['paths'][j],
+                                expected, decoded[j],
+                                print_all or (print_samples and j == 0))
                 if word_timings and offsets is not None:
                     times = get_time_per_word(list(decoded[j]),
                                               offsets[j].tolist(),
@@ -294,19 +317,149 @@ def parse_args(argv=None):
     parser.add_argument('--dump-jsonl', default='',
                         help='write one JSON record per utterance '
                              '(path/ref/hyp/edit counts)')
+    parser.add_argument('--artifact', default='',
+                        help='serving artifact directory (export_serving); '
+                             'evaluated with --offline')
+    parser.add_argument('--offline', action='store_true',
+                        help='artifact mode: batched offline inference of '
+                             'the folded stack (serving.MeshInference)')
+    parser.add_argument('--offline-norm', default='per-utterance',
+                        choices=['per-utterance', 'cmvn'],
+                        help='feature normalization for --artifact '
+                             '--offline: per-utterance (as in training) or '
+                             "the artifact's CMVN stats")
+    parser.add_argument('--int8-full', action='store_true',
+                        help='with --artifact --offline: int8 activations '
+                             'too (int8 tensor cores), the weights quantized '
+                             'if the artifact is f32')
+    parser.add_argument('--no-lm', action='store_true',
+                        help='greedy decode even if the artifact bundles '
+                             'an LM')
     parser.add_argument('overrides', nargs='*', metavar='key=value',
                         help='config overrides, e.g. model=quartznet')
     args = parser.parse_args(argv)
     if args.model_path and (args.weights or args.mid_layers is not None):
         parser.error('--weights and --mid-layers do not go with '
                      '--model-path (the run gives the model)')
-    if args.average_last and not args.model_path:
+    if args.average_last and not (args.model_path or args.artifact):
         parser.error('--average-last needs --model-path')
     return args
 
 
+def artifact_decoder(args, meta: dict):
+    """``test.py``'s decoder for an artifact: the prefix beam search when an
+    LM (``--lm-path``, or the artifact's bundled one unless ``--no-lm``),
+    beam parameters or hotwords are given, else greedy."""
+    labels = meta['labels']
+    beam_params = parse_beam_params(args.beam_search_params)
+    lm_path = args.lm_path
+    if not lm_path and meta.get('lm') and not args.no_lm:
+        lm_path = os.path.join(args.artifact, meta['lm']['file'])
+        beam_params = dict(meta['lm'].get('beam_params') or {},
+                           **beam_params)
+    hotwords = [w for w in args.hotwords.split(',') if w.strip()] or None
+    if lm_path or beam_params or hotwords:
+        return PrefixBeamSearchLMDecoder(
+            lm_path, labels, hotwords=hotwords,
+            hotword_weight=args.hotword_weight, **beam_params)
+    return GreedyDecoder(labels)
+
+
+def run_artifact_eval(args) -> int:
+    """``test.py``'s ``--artifact --offline`` evaluation (its flag checks,
+    then ``run_artifact_offline_eval``): batched inference of the folded
+    stack over the manifest; prints its JSON line. Without ``--offline``
+    ``test.py`` streams, which is ROADMAP A.8."""
+    rejected = [(args.word_timings, '--word-timings'),
+                (args.average_last, '--average-last'),
+                (args.model_path, '--model-path'),
+                (args.weights, '--weights'),
+                (args.mid_layers is not None, '--mid-layers'),
+                (args.overrides, 'key=value overrides')]
+    if not args.offline:
+        rejected += [(args.lm_path, '--lm-path'),
+                     (args.beam_search_params, '--beam-search-params'),
+                     (args.hotwords, '--hotwords')]
+    for flag, name in rejected:
+        if flag:
+            raise SystemExit(f'{name} is not supported with --artifact '
+                             '(the artifact fixes weights; streaming '
+                             'decoding is greedy — use --offline for '
+                             'beam/LM or --model-path eval)')
+    if not args.offline:
+        raise SystemExit('--artifact without --offline evaluates through '
+                         'the streaming path, which is not ported yet '
+                         '(ROADMAP A.8); pass --offline')
+    if args.beam_backend == 'device':
+        raise SystemExit('--beam-backend device is not supported with '
+                         '--artifact (artifact evaluation beam-decodes on '
+                         'the host, as test.py does)')
+    dev = resolve_device(args.device)
+    meta, folded, norm_stats = load_serving(args.artifact)
+    if meta.get('family', 'wav2letter') != 'wav2letter':
+        raise SystemExit('--offline artifact eval supports wav2letter')
+    use_cmvn = args.offline_norm == 'cmvn'
+    if use_cmvn and norm_stats is None:
+        raise SystemExit('--offline-norm cmvn: artifact has no CMVN stats')
+    try:
+        frontend = artifact_frontend(meta, norm_stats if use_cmvn else None,
+                                     device=dev)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    decoder = artifact_decoder(args, meta)
+    mode = meta['format']
+    if args.int8_full:
+        if meta['format'] != 'int8':
+            folded = quantize_folded(folded)
+        mode = 'int8_full'
+    mi = MeshInference(meta['layers'], folded, frontend, mode=mode,
+                       padding_mode=meta.get('padding_mode', 'reflect'),
+                       act_scales=meta.get('act_scales'), device=dev)
+    n_dev = 1   # one device; data parallelism over several is ROADMAP A.9
+    ds = ManifestDataset(args.test_manifest, frontend.conf.sample_rate,
+                         meta['labels'])
+    loader = BucketBatchLoader(ds, args.batch_size or max(8, n_dev),
+                               frontend.hop, num_buckets=4)
+    acc = RatioAccumulator()
+    dump = UttDump(args.dump_jsonl)
+    is_beam = isinstance(decoder, PrefixBeamSearchLMDecoder)
+    try:
+        for batch in loader:
+            logp, out_lens = mi.logprobs(batch['audio'],
+                                         batch['audio_lengths'])
+            if is_beam:
+                # The beam search takes probabilities.
+                probs = np.exp(logp)
+                decoded = [decoder.decode(probs[j][:int(out_lens[j])])
+                           for j in range(probs.shape[0])]
+            else:
+                decoded = decoder.decode(logp, sizes=out_lens)
+            for j, text in enumerate(batch['texts']):
+                if batch['batch_mask'][j]:
+                    score_utterance(decoder, acc, dump, batch['paths'][j],
+                                    text, decoded[j], args.print_all or (
+                                        args.print_samples and j == 0))
+    finally:
+        dump.close()
+    result = {'loss': None, 'num_utterances': len(ds), 'offline': True,
+              'artifact': args.artifact, 'weights': mode,
+              'decode': 'beam_lm' if is_beam else 'greedy',
+              'normalization': args.offline_norm, 'mesh_devices': n_dev}
+    result.update(acc.ratios())
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.offline and not args.artifact:
+        raise SystemExit('--offline is an artifact-eval mode; pass '
+                         '--artifact <dir>')
+    if args.int8_full and not (args.artifact and args.offline):
+        raise SystemExit('--int8-full applies to --artifact --offline '
+                         'evaluation only')
+    if args.artifact:
+        return run_artifact_eval(args)
     dev = resolve_device(args.device)
     if args.model_path:
         cfg, model, labels, step = load_run(

@@ -127,7 +127,10 @@ def load_run(run_dir: str, overrides=(), average_last: int | None = None,
 
 
 def build_frontend(model_cfg, dither: float | None = None,
-                   device='cpu') -> SpectrogramFrontend:
+                   device='cpu', normalize: bool = True,
+                   norm_stats=None) -> SpectrogramFrontend:
+    """The config's log-mel frontend on ``device``; ``normalize`` and
+    ``norm_stats`` as ``SpectrogramFrontend`` takes them (serving)."""
     ac = model_cfg['audio_conf']
     conf = AudioConfig(sample_rate=int(ac['sample_rate']),
                        window_size=float(ac['window_size']),
@@ -135,7 +138,8 @@ def build_frontend(model_cfg, dither: float | None = None,
                        window=ac.get('window', 'hamming'))
     kwargs = {} if dither is None else {'dither': dither}
     return SpectrogramFrontend(conf, n_mels=int(model_cfg['input_size']),
-                               device=device, **kwargs)
+                               device=device, normalize=normalize,
+                               norm_stats=norm_stats, **kwargs)
 
 
 def build_optimizer(params, model_cfg, steps_per_epoch: int,
