@@ -96,9 +96,31 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    the int8_full stack against cuDNN's FP32 stack and its im2col share,
    the widest layer's ``torch._int_mm`` against its cuDNN conv, weight
    bytes, K1's share.
-17. One ``{"kernels": [...]}`` line: per kernel its launches on the
-   training path (K1-K3 Wav2Letter's, K1 also the serving path's, K4-K7
-   QuartzNet's), max error
+17. Streaming, on phase 7's Wav2Letter-20 run, phase 16's artifacts and
+   phase 13's QuartzNet-15x5 run: K1 against its plain version at the
+   prime, step and finish buffers (B=1 and B=16, chunk 64); the 64
+   utterances streamed through ``streaming_from_artifact`` (f32 + CMVN)
+   against ``MeshInference('f32')`` under the same CMVN, within 1e-4 of
+   max |logp|, every greedy string equal but at near-ties; int8 weights
+   (1e-4) and int8_full with dynamic and static scales (1e-5, argmax
+   equal) streamed on the card against the CPU; ``evaluate.main``
+   streaming on the card (``--artifact``, its records those of
+   ``--artifact --offline --offline-norm cmvn`` where the strings are
+   equal; ``--model-path --streaming`` with cumulative and CMVN
+   normalisation and ``--int8``; ``--lookahead-frames`` 96 and the full
+   one-sided context), K1 counted and gated around each (one a prime,
+   step and finish; one a frontend chunk and a finish for the lookahead
+   streamer); the full-context lookahead streamer's interior rows within
+   1e-4 of the offline forward; QuartzNet's bounded lookahead (K4 once and
+   K6 76 times a window) on the card against the CPU; ``serve_tcp``'s
+   server with 16 slots and 16 concurrent clients (one s16, one at 8 kHz),
+   every FINAL a dedicated session's, the 17th refused BUSY; the times:
+   prime, step and finish at B=1, ``StreamMultiplexer.tick`` at 16, 64
+   and 256 slots per weights mode with the real-time factor, launches,
+   busy share, K1's share and peak memory.
+18. One ``{"kernels": [...]}`` line: per kernel its launches on the
+   training path (K1-K3 Wav2Letter's, K1 also the serving and streaming
+   paths', K4-K7 QuartzNet's, K4/K6 also its lookahead stream's), max error
    against the plain version, time, plain time, roofline bound and the time
    of the nearest PyTorch library call (timed here only). K2 and K3 are
    also timed at the long shape, and each prints its ns a dependent step.
@@ -128,6 +150,7 @@ import torch.nn.functional as F
 from wav2letter_pytorch_tpu_torch import _build
 from wav2letter_pytorch_tpu_torch import evaluate as port_eval
 from wav2letter_pytorch_tpu_torch import export_serving as port_export
+from wav2letter_pytorch_tpu_torch import serve_tcp as port_serve
 from wav2letter_pytorch_tpu_torch import train as port_train
 from wav2letter_pytorch_tpu_torch import transcribe_long as port_long
 from wav2letter_pytorch_tpu_torch.config import load_config
@@ -136,6 +159,7 @@ from wav2letter_pytorch_tpu_torch.data.dataset import ManifestDataset
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
 from wav2letter_pytorch_tpu_torch.data.label_sets import resolve_labels
+from wav2letter_pytorch_tpu_torch.data.resample import resample
 from wav2letter_pytorch_tpu_torch.decoding.arpa_lm import ArpaLM
 from wav2letter_pytorch_tpu_torch.decoding.beam_device import (
     DeviceBeamDecoder, beam_search_device, beam_search_device_lm)
@@ -165,13 +189,15 @@ from wav2letter_pytorch_tpu_torch.ops.sep_conv import (mask_lengths, sep_bwd,
 from wav2letter_pytorch_tpu_torch.ops.sep_conv import \
     out_length as sep_out_length
 from wav2letter_pytorch_tpu_torch.optim import constant_lr
-from wav2letter_pytorch_tpu_torch.serving import (MeshInference,
-                                                  artifact_frontend,
-                                                  load_serving,
-                                                  offline_forward,
-                                                  offline_forward_q8,
-                                                  quantized_bytes)
+from wav2letter_pytorch_tpu_torch.serving import (
+    BoundedLookaheadStreamer, MeshInference, StreamClient, StreamMultiplexer,
+    StreamingTranscriber, StreamingWav2Letter, artifact_frontend,
+    bounded_stream_logprobs, load_serving, offline_forward,
+    offline_forward_q8, quantized_bytes, stream_logprobs,
+    streaming_from_artifact)
 from wav2letter_pytorch_tpu_torch.serving import infer as serving_infer
+from wav2letter_pytorch_tpu_torch.serving.lookahead import (
+    _conv_specs_jasper, _conv_specs_w2l, one_sided_context)
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          build_labels,
                                                          build_model,
@@ -2171,24 +2197,38 @@ SERVE_LM_PARAMS = 'k=8,alpha=0.5,beta=1.0,prune=0.05'
 WIDE_LAYER = 17              # k=29, 896 -> 896, dilation 2
 
 
-def run_quiet(main, argv, k1=None, what='', want=None) -> tuple:
-    """``main(argv)`` with stdout and stderr captured: (stdout lines,
-    stderr text, wall seconds). With ``k1`` (a dict), K1's count is set to
-    0 just before the call and read just after into ``k1[what]``, and must
-    be ``want``."""
+def run_counted(main, argv, counters, what: str = '',
+                want: dict | None = None) -> tuple:
+    """``main(argv)`` with stdout and stderr captured, each of
+    ``counters`` set to 0 just before the call and read just after; the
+    call must return 0 and, unless ``want`` is None, the counts equal
+    ``want``. Returns (stdout lines, stderr text, wall seconds, counts)."""
+    for fn in counters:
+        fn.launches = 0
     out, err = io.StringIO(), io.StringIO()
-    stft_mel_log.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    check(rc == 0, f'{main.__module__}.main returned 0')
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(rc == 0 and want in (None, launches),
+          f'{what or main.__module__ + ".main"}: returned {rc}; launches '
+          f'{launches}' + ('' if want is None else f' (want {want})'))
+    return out.getvalue().strip().splitlines(), err.getvalue().strip(), \
+        secs, launches
+
+
+def run_quiet(main, argv, k1=None, what='', want=None) -> tuple:
+    """``run_counted`` on K1 alone: (stdout lines, stderr text, wall
+    seconds). With ``k1`` (a dict), K1's count goes into ``k1[what]`` and
+    must be ``want``."""
+    lines, err, secs, launches = run_counted(
+        main, argv, (stft_mel_log,), what,
+        None if k1 is None else {'stft_mel_log': want})
     if k1 is not None:
-        k1[what] = stft_mel_log.launches
-        check(k1[what] == want, f'{what}: K1 launched {k1[what]} times '
-              f'(want {want})')
-    return out.getvalue().strip().splitlines(), err.getvalue().strip(), secs
+        k1[what] = launches['stft_mel_log']
+    return lines, err, secs
 
 
 def phase_serving_exports(manifest: str, run_dir: str, lm_path: str,
@@ -2537,10 +2577,10 @@ def phase_serving_k1(manifest: str, run_dir: str, arts: dict):
 
 
 def phase_serving(manifest: str, run_dir: str, lm_path: str, root: str,
-                  card: str) -> dict:
+                  card: str) -> tuple:
     """The serving slice on the Wav2Letter-20 run; returns K1's launches
     on its path by entry point, each counted from 0 just before the entry
-    point ran and read just after."""
+    point ran and read just after, and the artifacts."""
     reference = serving_reference(manifest, run_dir, root)
     k1 = {}
     arts = phase_serving_exports(manifest, run_dir, lm_path, root, card, k1)
@@ -2551,7 +2591,701 @@ def phase_serving(manifest: str, run_dir: str, lm_path: str, root: str,
     phase_serving_k1(manifest, run_dir, arts)
     phase_serving_card_vs_cpu(manifest, arts, card)
     phase_serving_timing(manifest, arts, card)
-    return k1
+    return k1, arts
+
+
+# ---------------------------------------------------------------- streaming
+
+STREAM_CHUNK = 64            # frames a step: 640 ms at the 10 ms hop
+# Streamed log-probs vs MeshInference('f32') on the same fold and CMVN,
+# padded past the lookahead: the same float32 math, windows of other
+# lengths (cuDNN may pick other algorithms); max |d| / max |logp|.
+STREAM_RTOL = 1e-4
+NEAR_TIE = 1e-4              # top-2 gap below which a greedy flip is a tie
+# Card vs CPU streams: int8 weights run float32 math (rounding only);
+# int8_full's int32 sums are exact and its scales divide as on the CPU.
+STREAM_INT8_RTOL = 1e-4
+STREAM_Q8_RTOL = 1e-5
+# The bounded-lookahead streamer with the full one-sided context vs the
+# offline forward, interior rows (max |d logp|).
+LOOKAHEAD_ATOL = 1e-4
+LOOKAHEAD_UTTS = 3           # utterances concatenated for that check
+# QuartzNet-15x5 bounded lookahead: a small window (128 + 64 + 96 frames)
+# on two utterances; card vs CPU probabilities, float32 both (max |d|).
+QN_LA_LEFT, QN_LA = 128, 96
+QN_LA_UTTS = 2
+QN_LA_ATOL = 1e-3
+# evaluate.main's --model-path streaming modes run on the corpus's first
+# STREAM_CLI_UTTS utterances (--artifact on all, against --offline).
+STREAM_CLI_UTTS = 16
+TICK_SLOTS = (16, 64, 256)
+TICK_ITERS = 10
+TCP_SLOTS = 16
+TCP_PIECE_S = 0.1            # each client sends 100 ms pieces, unpaced
+
+
+def stream_steps(sw, n: int) -> int:
+    """K1 launches of one utterance of ``n`` samples through
+    ``stream_logprobs``: a prime, a step a full chunk after it, a finish."""
+    return 2 + (n - sw.prime_samples) // sw.chunk_samples
+
+
+def lookahead_k1(chunk_samples: int, n: int) -> int:
+    """K1 launches of one utterance through a bounded-lookahead session:
+    one a full frontend chunk, one for the finish (or the prime of a
+    stream shorter than a chunk)."""
+    return n // chunk_samples + 1
+
+
+def corpus_audio(manifest: str, labels) -> list:
+    ds = ManifestDataset(manifest, 16000, labels)
+    return [(ds[i][2], np.asarray(ds[i][0], np.float32))
+            for i in range(len(ds))]
+
+
+def phase_streaming_k1(arts: dict):
+    """K1 against its plain version at the streaming buffers: prime, step
+    and finish at B=1 and B=16, chunk 64 (phase 3's gates)."""
+    sw, _, _ = streaming_from_artifact(arts['f32'],
+                                       chunk_frames=STREAM_CHUNK,
+                                       device=DEVICE)
+    seen = []
+    orig = sw._frames_to_mel
+
+    def record(buf, n):
+        seen.append((buf.contiguous(), n))
+        return orig(buf, n)
+    sw._frames_to_mel = record
+    rng = np.random.default_rng(17)
+    for B in (1, 16):
+        audio = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, sw.prime_samples + sw.chunk_samples))).astype(np.float32)
+        ).to(DEVICE)
+        w = sw._weights_dev
+        state, _ = sw._prime_fn(w, audio[:, :sw.prime_samples])
+        state, _ = sw._step_fn(w, state, audio[:, sw.prime_samples:])
+        tail_len = torch.from_numpy(rng.integers(
+            0, sw.chunk_samples + 1, B)).to(DEVICE)
+        sw._finish_fn(w, state, audio[:, :sw.chunk_samples], tail_len)
+    sw._frames_to_mel = orig
+    errs = []
+    for (buf, n), what in zip(seen, ['prime', 'step', 'finish'] * 2):
+        lens = torch.full((buf.shape[0],), (n - 1) * sw.hop,
+                          dtype=torch.int32, device=DEVICE)
+        errs.append(k1_compare(f'streaming {what} B={buf.shape[0]}',
+                               sw.frontend, buf, lens, n))
+    return max(errs)
+
+
+def stream_all(sw, utts) -> dict:
+    with torch.no_grad():
+        return {p: stream_logprobs(sw, a[None])[0] for p, a in utts}
+
+
+def phase_streaming_exact(manifest: str, arts: dict, card: str,
+                          k1: dict) -> dict:
+    """Every utterance streamed (B=1) through ``streaming_from_artifact``
+    on the f32 + CMVN artifact against MeshInference('f32') under the
+    same CMVN on the audio zero-padded past the lookahead (an even frame
+    count): the valid frames within STREAM_RTOL of max |logp|, greedy
+    strings equal but at near-ties. Returns the streamed strings."""
+    meta, folded, stats = load_serving(arts['f32'])
+    labels = meta['labels']
+    utts = corpus_audio(manifest, labels)
+    stft_mel_log.launches = 0
+    t0 = time.perf_counter()
+    sw, _, _ = streaming_from_artifact(arts['f32'],
+                                       chunk_frames=STREAM_CHUNK,
+                                       device=DEVICE)
+    got = stream_all(sw, utts)
+    secs = time.perf_counter() - t0
+    k1['streaming_from_artifact + stream_logprobs'] = stft_mel_log.launches
+    want_k1 = sum(stream_steps(sw, len(a)) for _, a in utts)
+    check(stft_mel_log.launches == want_k1,
+          f'K1 launched {stft_mel_log.launches} times over {len(utts)} '
+          f'streams: one a prime, step and finish ({want_k1})')
+    mi = MeshInference(meta['layers'], folded,
+                       artifact_frontend(meta, stats, device=DEVICE),
+                       device=DEVICE)
+    hop = sw.hop
+    pad = max(len(a) for _, a in utts) + (sw.lookahead_frames + 8) * hop
+    pad += -pad % hop
+    if (1 + pad // hop) % 2:
+        pad += hop
+    ref = {}
+    for i in range(0, len(utts), BATCH):
+        rows = utts[i:i + BATCH]
+        audio = np.zeros((len(rows), pad), np.float32)
+        for j, (_, a) in enumerate(rows):
+            audio[j, :len(a)] = a
+        lp, lens = mi.logprobs(audio, [len(a) for _, a in rows])
+        for j, (p, _) in enumerate(rows):
+            ref[p] = lp[j, :int(lens[j])]
+    scale = max(float(np.abs(r).max()) for r in ref.values())
+    err = 0.0
+    for p, r in ref.items():
+        check(got[p].shape == r.shape, f'{os.path.basename(p)}: streamed '
+              f'{got[p].shape[0]} frames, offline {r.shape[0]}')
+        err = max(err, float(np.abs(got[p] - r).max()))
+    check(err <= STREAM_RTOL * scale,
+          f'streaming (B=1, chunk {STREAM_CHUNK}) vs MeshInference f32, '
+          f'{len(utts)} utterances, same CMVN: max |d logp| {err:.3e}, '
+          f'{err / scale:.2e} of max |logp| {scale:.2f} (gate {STREAM_RTOL})')
+    greedy = port_eval.GreedyDecoder(labels)
+    strings, ties = {}, 0
+    for p, r in ref.items():
+        a = greedy.decode(r[None])[0]
+        strings[p] = b = greedy.decode(got[p][None])[0]
+        if a != b:
+            top2 = np.sort(r, axis=-1)[:, -2:]
+            flips = np.nonzero(r.argmax(-1) != got[p].argmax(-1))[0]
+            gaps = (top2[flips, 1] - top2[flips, 0]).tolist()
+            check(max(gaps) < NEAR_TIE, f'{os.path.basename(p)}: the '
+                  f'strings differ only at near-ties (gaps {gaps})')
+            ties += 1
+    audio_s = sum(len(a) for _, a in utts) / 16000
+    print(f'streaming exactness: {len(utts) - ties} of {len(utts)} greedy '
+          f'strings equal offline, {ties} near-ties; {len(utts)} streams '
+          f'({audio_s:.1f} s of audio, B=1) in {secs:.2f} s, '
+          f'{audio_s / secs:.1f} s of audio a second [{card}]')
+    return strings
+
+
+def stack_card_vs_cpu(sw_card, sw_cpu, audio) -> tuple:
+    """One stream on the card with the features each phase hands its conv
+    stack recorded, then the CPU streamer's conv stack over the same
+    features in the same order (prime, steps, finish): (card rows, CPU
+    rows) of every phase's output, flush rows included."""
+    seen = []
+    orig = sw_card._conv_layers
+
+    def record(folded, feats, carries, primed):
+        out = orig(folded, feats, carries, primed)
+        seen.append((feats.cpu(), primed, out[0].cpu()))
+        return out
+    sw_card._conv_layers = record
+    stream_all(sw_card, [('a', audio)])
+    sw_card._conv_layers = orig
+    carries, rows = None, []
+    with torch.no_grad():
+        for feats, primed, _ in seen:
+            logp, carries = sw_cpu._conv_layers(
+                sw_cpu._weights_dev, feats, None if primed else carries,
+                primed)
+            rows.append(logp)
+    return (torch.cat([o for *_, o in seen], 1)[0].numpy(),
+            torch.cat(rows, 1)[0].numpy())
+
+
+def phase_streaming_card_vs_cpu(manifest: str, arts: dict):
+    """One utterance cut to a prime, a step and a tail on the card and on
+    the CPU: int8 weights streamed end to end on each; int8_full (dynamic
+    and static scales) with both conv stacks on the card's features, as
+    phase 16 holds int8_full: K1 and the plain DFT differ in the last
+    bits, which flips an int8 rounding at a step's edge now and then
+    (end to end with dynamic scales on an H100: 4.4e-05 of max |logp|,
+    argmax agreement 0.9884)."""
+    meta, folded_q, stats = load_serving(arts['int8'])
+    _, audio = corpus_audio(manifest, meta['labels'])[0]
+    for what, weights, scales in (('int8 weights', 'int8', None),
+                                  ('int8_full dynamic', 'int8_full', None),
+                                  ('int8_full static', 'int8_full',
+                                   meta['act_scales'])):
+        sws = [StreamingWav2Letter(
+            meta['layers'], meta['num_labels'], None,
+            artifact_frontend(meta, device=dev), folded=folded_q,
+            weights=weights, act_scales=scales, chunk_frames=STREAM_CHUNK,
+            norm='precomputed', norm_stats=stats, device=dev)
+            for dev in (DEVICE, torch.device('cpu'))]
+        a = audio[:sws[0].prime_samples + sws[0].chunk_samples + 5000]
+        if weights == 'int8':
+            card, cpu = (stream_all(sw, [('a', a)])['a'] for sw in sws)
+            how, gate = 'streamed end to end', STREAM_INT8_RTOL
+        else:
+            card, cpu = stack_card_vs_cpu(*sws, a)
+            how, gate = 'conv stacks on the card\'s features', STREAM_Q8_RTOL
+        err = float(np.abs(card - cpu).max())
+        scale = float(np.abs(cpu).max())
+        same = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+        check(err <= gate * scale and (weights == 'int8' or same),
+              f'streaming {what}, card vs CPU ({how}), {card.shape[0]} '
+              f'frames: max |d logp| {err:.3e} ({err / scale:.1e} of max '
+              f'|logp|, gate {gate}), argmax equal: {same}')
+
+
+def phase_streaming_cli(manifest: str, arts: dict, run_dir: str, root: str,
+                        card: str, strings: dict, k1: dict):
+    """evaluate.main's streaming modes on the card, K1 counted and gated
+    around each: --artifact over the corpus (its strings those of the
+    exact check, its records those of --artifact --offline --offline-norm
+    cmvn where the strings are equal); over its first STREAM_CLI_UTTS
+    utterances --model-path --streaming with cumulative and CMVN
+    normalisation (the CMVN over the whole corpus) and with --int8,
+    --lookahead-frames 96 and the full one-sided context."""
+    labels = load_serving(arts['f32'])[0]['labels']
+    with open(manifest) as f:
+        rows = f.read().splitlines()
+    subset = os.path.join(root, 'stream_subset.jsonl')
+    with open(subset, 'w') as f:
+        f.write('\n'.join(rows[:STREAM_CLI_UTTS]) + '\n')
+    lens = [len(a) for _, a in corpus_audio(manifest, labels)]
+    sub = lens[:STREAM_CLI_UTTS]
+    sw, _, _ = streaming_from_artifact(arts['f32'],
+                                       chunk_frames=STREAM_CHUNK,
+                                       device=DEVICE)
+    n_stream = sum(stream_steps(sw, n) for n in sub)
+    n_la = sum(lookahead_k1(sw.chunk_samples, n) for n in sub)
+    run = ['--model-path', run_dir, '--test-manifest', subset, '--streaming']
+    dumps, results = {}, {}
+    for name, argv, want, n_utts in (
+            ('--artifact', ['--artifact', arts['f32'], '--test-manifest',
+                            manifest],
+             sum(stream_steps(sw, n) for n in lens), N_UTTS),
+            ('--streaming', run, n_stream, STREAM_CLI_UTTS),
+            ('--streaming --streaming-norm cmvn',
+             [*run, '--streaming-norm', 'cmvn', '--streaming-cmvn-manifest',
+              manifest], n_stream + N_UTTS, STREAM_CLI_UTTS),
+            ('--streaming --int8', [*run, '--int8'], n_stream,
+             STREAM_CLI_UTTS),
+            ('--streaming --lookahead-frames 96',
+             [*run, '--lookahead-frames', '96'], n_la, STREAM_CLI_UTTS),
+            ('--streaming --lookahead-frames full',
+             [*run, '--lookahead-frames', str(sw.lookahead_frames)], n_la,
+             STREAM_CLI_UTTS)):
+        dump = os.path.join(root, f'stream_{len(dumps)}.jsonl')
+        lines, err, secs, launches = run_counted(
+            port_eval.main, [*argv, '--device', str(DEVICE), '--dump-jsonl',
+                             dump],
+            (stft_mel_log,), f'evaluate {name}', {'stft_mel_log': want})
+        k1[f'evaluate {name}'] = launches['stft_mel_log']
+        results[name] = result = json.loads(lines[-1])
+        dumps[name] = read_dump(dump)
+        print(f'evaluate.main {name}: {json.dumps(result)}; '
+              f'{err.strip().splitlines()[-1] if err.strip() else ""}; '
+              f'{secs:.2f} s end to end [{card}]')
+        check(result['num_utterances'] == n_utts and result['streaming']
+              and all(math.isfinite(result[k]) for k in ('wer', 'cer')),
+              f'{name}: {n_utts} utterances streamed, finite WER/CER')
+    art = dumps['--artifact']
+    check(all(art[p]['hyp'] == strings[p] for p in art),
+          '--artifact streaming gives the strings of the exactness check')
+    dump = os.path.join(root, 'offline_cmvn.jsonl')
+    lines, _, _ = run_quiet(port_eval.main, [
+        '--artifact', arts['f32'], '--offline', '--offline-norm', 'cmvn',
+        *serving_common(manifest), '--dump-jsonl', dump])
+    off, offline = read_dump(dump), json.loads(lines[-1])
+    same = [p for p in art if art[p]['hyp'] == off[p]['hyp']]
+    streamed = results['--artifact']
+    check(all(art[p] == off[p] for p in same) and (
+        len(same) < len(art) or (streamed['wer'], streamed['cer'])
+        == (offline['wer'], offline['cer'])),
+          f'--artifact streaming (WER {streamed["wer"]}, CER '
+          f'{streamed["cer"]}) vs --artifact --offline --offline-norm cmvn '
+          f'(WER {offline["wer"]}, CER {offline["cer"]}): {len(same)} of '
+          f'{len(art)} strings equal, each with the same edit counts')
+
+
+def phase_streaming_lookahead_exact(manifest: str, run_dir: str,
+                                    arts: dict, card: str):
+    """The bounded-lookahead streamer with the full one-sided context on
+    the run's Wav2Letter-20, LOOKAHEAD_UTTS utterances concatenated (an
+    even frame count), the artifact's CMVN: its interior rows (a receptive
+    field from the edges) within LOOKAHEAD_ATOL of the offline forward."""
+    cfg, model, labels, _ = load_run(run_dir)
+    model.to(DEVICE).eval()
+    mcfg = cfg['model']
+    _, _, stats = load_serving(arts['f32'])
+    specs = _conv_specs_w2l(mcfg['layers'][:int(mcfg['mid_layers'])])
+    rf = one_sided_context(specs)
+    la = -(-rf // 2) * 2 + 2
+    sw = BoundedLookaheadStreamer(
+        model, build_frontend(mcfg, dither=0.0, device=DEVICE), specs,
+        chunk_frames=STREAM_CHUNK, lookahead_frames=la, norm='precomputed',
+        norm_stats=stats, device=DEVICE)
+    audio = np.concatenate([a for _, a in corpus_audio(
+        manifest, labels)[:LOOKAHEAD_UTTS]])
+    n = (len(audio) // sw.hop) * sw.hop
+    if (1 + n // sw.hop) % 2:
+        n -= sw.hop
+    audio = audio[:n]
+    t0 = time.perf_counter()
+    got = bounded_stream_logprobs(sw, audio[None])[0]
+    secs = time.perf_counter() - t0
+    fe = build_frontend(mcfg, dither=0.0, device=DEVICE, norm_stats=stats)
+    with torch.no_grad():
+        feats, flens = fe(torch.from_numpy(audio[None]).to(DEVICE),
+                          torch.tensor([n], device=DEVICE))
+        want, lens = model(feats, flens)
+    want = want[0, :int(lens[0])].cpu().numpy()
+    edge = -(-rf // 2) + 1
+    err = float(np.abs(got[edge:-edge] - want[edge:-edge]).max())
+    scale = float(np.abs(want).max())
+    check(got.shape == want.shape and err <= LOOKAHEAD_ATOL,
+          f'bounded lookahead at the full one-sided context ({la} frames, '
+          f'window {sw.window_frames}), {n / 16000:.2f} s: interior rows '
+          f'[{edge}, {want.shape[0] - edge}) of {want.shape[0]} vs the '
+          f'offline forward, max |d logp| {err:.3e} ({err / scale:.1e} of '
+          f'max |logp|; gate {LOOKAHEAD_ATOL}); {secs:.2f} s [{card}]')
+
+
+class count_windows:
+    """Counts ``BoundedLookaheadStreamer._win_fn`` calls (model windows)
+    inside the ``with`` block."""
+
+    def __enter__(self):
+        self.n = 0
+        self._orig = BoundedLookaheadStreamer._win_fn
+
+        def counted(sw, feats):
+            self.n += 1
+            return self._orig(sw, feats)
+        BoundedLookaheadStreamer._win_fn = counted
+        return self
+
+    def __exit__(self, *exc):
+        BoundedLookaheadStreamer._win_fn = self._orig
+        return False
+
+
+def phase_streaming_qn(manifest: str, qn_run: str, root: str, card: str,
+                       k1: dict) -> dict:
+    """Bounded lookahead on the QuartzNet-15x5 run (left 128, chunk 64,
+    lookahead 96 frames) over QN_LA_UTTS utterances: evaluate.main on the
+    card, K1 once a frontend chunk and a finish, K4 once and K6 76 times
+    a window; the card's probabilities against the CPU's. Returns K4's and
+    K6's launches."""
+    with open(manifest) as f:
+        rows = f.read().splitlines()[:QN_LA_UTTS]
+    small = os.path.join(root, 'qn_lookahead.jsonl')
+    with open(small, 'w') as f:
+        f.write('\n'.join(rows) + '\n')
+    cfg, _, labels, _ = load_run(qn_run)
+    mcfg = cfg['model']
+    utts = corpus_audio(small, labels)
+    chunk = STREAM_CHUNK * build_frontend(mcfg).hop
+    with count_windows() as win:
+        lines, _, secs, launches = run_counted(
+            port_eval.main, ['--model-path', qn_run, '--test-manifest', small,
+                             '--device', str(DEVICE), '--streaming',
+                             '--lookahead-frames', str(QN_LA),
+                             '--lookahead-left-frames', str(QN_LA_LEFT)],
+            (stft_mel_log, depthwise_fwd, sep_fwd),
+            'evaluate --streaming --lookahead-frames (QuartzNet-15x5)', None)
+    k1['evaluate --lookahead-frames (QuartzNet-15x5)'] = \
+        launches['stft_mel_log']
+    want = {'stft_mel_log': sum(lookahead_k1(chunk, len(a))
+                                for _, a in utts),
+            'depthwise_fwd': win.n, 'sep_fwd': QN_UNITS * win.n}
+    result = json.loads(lines[-1])
+    print(f'evaluate.main --streaming --lookahead-frames {QN_LA} '
+          f'--lookahead-left-frames {QN_LA_LEFT} (QuartzNet-15x5): '
+          f'{json.dumps(result)}; {secs:.2f} s [{card}]')
+    check(launches == want and win.n > 0
+          and result['num_utterances'] == QN_LA_UTTS
+          and all(math.isfinite(result[k]) for k in ('wer', 'cer')),
+          f'QuartzNet bounded lookahead: {win.n} windows, launches '
+          f'{launches} (want {want}: K1 a frontend chunk and a finish, K4 '
+          f'once and K6 {QN_UNITS} times a window), finite WER/CER')
+    specs = _conv_specs_jasper(
+        mcfg['jasper_blocks'][:int(mcfg['mid_layers'])])
+    outs = {}
+    for dev in (DEVICE, torch.device('cpu')):
+        sw = BoundedLookaheadStreamer(
+            load_run(qn_run)[1], build_frontend(mcfg, dither=0.0,
+                                                device=dev), specs,
+            chunk_frames=STREAM_CHUNK, lookahead_frames=QN_LA,
+            left_frames=QN_LA_LEFT, device=dev)
+        outs[dev.type] = [bounded_stream_logprobs(sw, a[None])[0]
+                          for _, a in utts]
+        if dev == DEVICE:
+            window = torch.zeros(1, sw.window_frames, sw.feat_dim,
+                                 device=DEVICE)
+            win_ms = cuda_ms(lambda: sw._win_fn(window), iters=10, warmup=2,
+                             queued=False)
+    pairs = list(zip(outs[DEVICE.type], outs['cpu']))
+    err = max(float(np.abs(a - b).max()) for a, b in pairs)
+    agree = np.mean(np.concatenate([a.argmax(-1) == b.argmax(-1)
+                                    for a, b in pairs]))
+    check(err <= QN_LA_ATOL,
+          f'QuartzNet bounded lookahead, card vs CPU, {QN_LA_UTTS} '
+          f'utterances: max |d prob| {err:.3e} (gate {QN_LA_ATOL}), argmax '
+          f'agreement {agree:.4f}; a window of {QN_LA_LEFT} + '
+          f'{STREAM_CHUNK} + {QN_LA} frames {win_ms:.3f} ms at B=1 [{card}]')
+    return {'depthwise_fwd': launches['depthwise_fwd'],
+            'sep_fwd': launches['sep_fwd']}
+
+
+def serve_in_thread(srv):
+    """Run a StreamingServer's loop in a thread; returns its stopper."""
+    import asyncio
+    import threading
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(srv.start())
+        started.set()
+        loop.run_forever()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    check(started.wait(60), f'serve_tcp listening on 127.0.0.1:{srv.port}')
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+    return stop
+
+
+def dedicated_text(sw, labels, audio) -> str:
+    """A dedicated one-stream StreamingTranscriber's final text."""
+    tr = StreamingTranscriber(sw.start(1), labels)
+    tr.feed(audio[None])
+    return tr.finish(np.array([len(audio)]))[0]
+
+
+def phase_streaming_tcp(manifest: str, arts: dict, card: str):
+    """serve_tcp's server (16 slots, 127.0.0.1, the f32 + CMVN artifact)
+    and 16 concurrent StreamClients, one in s16 and one at 8 kHz (the
+    server resamples), sending 100 ms pieces unpaced: every FINAL equals
+    a dedicated StreamingTranscriber's on the card; the 17th connection
+    gets BUSY."""
+    import threading
+    srv, meta = port_serve.build_server(port_serve.parse_args(
+        ['--artifact', arts['f32'], '--host', '127.0.0.1', '--port', '0',
+         '--slots', str(TCP_SLOTS), '--chunk-frames', str(STREAM_CHUNK),
+         '--device', str(DEVICE)]))
+    sw, labels = srv.mux.m, meta['labels']
+    plans = []
+    for i, (_, a) in enumerate(corpus_audio(manifest, labels)[:TCP_SLOTS]):
+        if i == 0:      # s16 on the wire: the server hears it quantized
+            heard = np.clip(a * 32768.0, -32768, 32767).astype('<i2') \
+                .astype(np.float32) / 32768.0
+            plans.append((a, 16000, 's16', heard))
+        elif i == 1:    # an 8 kHz client, resampled by the server
+            a8 = resample(a, 16000, 8000)
+            plans.append((a8, 8000, 'f32', resample(a8, 8000, 16000)))
+        else:
+            plans.append((a, 16000, 'f32', a))
+    expected = [dedicated_text(sw, labels, heard) for *_, heard in plans]
+    stop = serve_in_thread(srv)
+    finals = [None] * TCP_SLOTS
+    try:
+        clients = [StreamClient('127.0.0.1', srv.port, sample_rate=rate,
+                                fmt=fmt, timeout=300)
+                   for _, rate, fmt, _ in plans]
+        try:
+            StreamClient('127.0.0.1', srv.port, timeout=60)
+            busy = ''
+        except RuntimeError as e:
+            busy = str(e)
+        check('busy' in busy, f'connection {TCP_SLOTS + 1} refused: '
+              f'{busy!r}')
+
+        def send(i):
+            audio, rate, _, _ = plans[i]
+            piece = int(rate * TCP_PIECE_S)
+            for j in range(0, len(audio), piece):
+                clients[i].send(audio[j:j + piece])
+            finals[i] = clients[i].finish()
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(TCP_SLOTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        stop()
+    audio_s = sum(len(a) / r for a, r, _, _ in plans)
+    check(finals == expected,
+          f'serve_tcp: {TCP_SLOTS} concurrent clients ({audio_s:.1f} s of '
+          f'audio in {TCP_PIECE_S * 1000:.0f} ms pieces, unpaced; one s16, '
+          f'one at 8 kHz): every FINAL equals its dedicated session\'s; '
+          f'{wall:.2f} s wall, {audio_s / wall:.1f} s of audio a second '
+          f'[{card}]')
+
+
+def profile_ticks(mux, n: int) -> tuple:
+    """(launches a tick, device-busy share, K1's share of the busy time)
+    over ``n`` ticks under the profiler; None where no device time was
+    recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mux.tick()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e6
+    events = kernel_rows(prof)
+    busy = sum(e.self_device_time_total for e in events)
+    if busy <= 0:
+        return None
+    k1 = sum(e.self_device_time_total for e in events
+             if 'stft_mel_log_kernel' in e.key)
+    return (sum(e.count for e in events) / n, busy / window, k1 / busy)
+
+
+def time_ticks(sw, slots: int, labels, rng, profiled: bool = True):
+    """A StreamMultiplexer of ``slots`` streams, each attached and primed
+    (B=1), then TICK_ITERS ticks timed (chained: each returns the host's
+    text, so it ends synchronised) after two warm-up ticks: (ms a tick,
+    peak GiB, profile_ticks over three more, or None)."""
+    mux = StreamMultiplexer(sw, slots=slots, labels=labels)
+    n = sw.prime_samples + (TICK_ITERS + 5) * sw.chunk_samples
+    audio = (0.1 * rng.standard_normal((slots, n))).astype(np.float32)
+    for s in range(slots):
+        mux.feed(mux.attach(), audio[s])
+    for _ in range(2):
+        mux.tick()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TICK_ITERS):
+        mux.tick()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TICK_ITERS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_ticks(mux, 3) if profiled else None
+    del mux
+    torch.cuda.empty_cache()
+    return ms, peak, prof
+
+
+def phase_streaming_timing(arts: dict, card: str):
+    """B=1 prime, step and finish ms (f32); StreamMultiplexer.tick ms at
+    TICK_SLOTS slots for f32, int8 weights and int8_full (static scales),
+    the real-time factor (tick / chunk), the streams a card keeps at real
+    time at that batch, peak memory; launches, busy share and K1's share
+    of a tick (profiler). Then the f32 step at B=1 and ticks again with
+    cuDNN's autotuner on (``torch.backends.cudnn.benchmark``), which the
+    port leaves off, to see what cuDNN's algorithm choice costs at these
+    small shapes."""
+    meta, folded_f, stats = load_serving(arts['f32'])
+    meta_q, folded_q, _ = load_serving(arts['int8'])
+    labels = meta['labels']
+
+    def streamer(mode):
+        return StreamingWav2Letter(
+            meta['layers'], meta['num_labels'], None,
+            artifact_frontend(meta, device=DEVICE),
+            folded=folded_f if mode == 'f32' else folded_q,
+            weights='int8_full' if mode == 'int8_full' else 'f32',
+            act_scales=meta_q['act_scales'] if mode == 'int8_full' else None,
+            chunk_frames=STREAM_CHUNK, norm='precomputed', norm_stats=stats,
+            device=DEVICE)
+    rng = np.random.default_rng(29)
+    sw = streamer('f32')
+    w = sw._weights_dev
+    a = torch.from_numpy((0.1 * rng.standard_normal(
+        (1, sw.prime_samples + sw.chunk_samples))).astype(np.float32)).to(
+        DEVICE)
+    prime, step = a[:, :sw.prime_samples], a[:, sw.prime_samples:]
+    state, _ = sw._prime_fn(w, prime)
+    tail = torch.tensor([sw.chunk_samples // 2], device=DEVICE)
+    phases = {'prime': lambda: sw._prime_fn(w, prime),
+              'step': lambda: sw._step_fn(w, state, step),
+              'finish': lambda: sw._finish_fn(w, state, step, tail)}
+    print('streaming phases, B=1, f32, chunk 64: ' + '; '.join(
+        f'{k} {cuda_ms(f, iters=10, warmup=2, queued=False):.3f} ms '
+        f'({cuda_ms(f, iters=10, warmup=2):.3f} ms device)'
+        for k, f in phases.items()) + f' [{card}]')
+    profile_top(lambda: [phases['step']() for _ in range(3)],
+                'three f32 steps at B=1')
+    # The widest layer at a step's shapes: cuDNN against the same
+    # convolution as an unfold and one cuBLAS product.
+    k, _, d = serving_infer._layer_geometry(meta['layers'])[WIDE_LAYER]
+    wf = w[WIDE_LAYER][0].permute(2, 1, 0)              # [C_out, C_in, k]
+    cout, cin, _ = wf.shape
+    wmat = wf.permute(2, 1, 0).reshape(k * cin, cout)
+    t_out = sw._chunk_outs[WIDE_LAYER + 1]
+    for B in (1, 16):
+        x = torch.randn(B, cin, t_out + (k - 1) * d, device=DEVICE)
+
+        def gemm():
+            cols = x.unfold(2, (k - 1) * d + 1, 1)[..., ::d]
+            return cols.permute(0, 2, 3, 1).reshape(B * t_out, k * cin) \
+                @ wmat
+        conv = F.conv1d(x, wf, dilation=d)
+        agree = (gemm().view(B, t_out, cout).transpose(1, 2)
+                 - conv).abs().max().item()
+        conv_ms = cuda_ms(lambda: F.conv1d(x, wf, dilation=d))
+        gemm_ms = cuda_ms(gemm)
+        ops = 2 * B * t_out * k * cin * cout
+        bound = max(4 * (wf.numel() + x.numel() + B * t_out * cout)
+                    / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
+        print(f'widest layer (k={k}, {cin} -> {cout}, d={d}) at a step, '
+              f'B={B} x {t_out} frames: cuDNN {conv_ms:.3f} ms '
+              f'({ops / conv_ms / 1e9:.2f} TFLOP/s), unfold + cuBLAS '
+              f'{gemm_ms:.3f} ms (agrees to {agree:.1e}); bound {bound:.4f} '
+              f'ms [{card}]')
+    chunk_ms = sw.chunk_samples / sw.sample_rate * 1e3
+    f32_ms = {}
+    for mode in ('f32', 'int8', 'int8_full'):
+        sw_mode = sw if mode == 'f32' else streamer(mode)
+        for slots in TICK_SLOTS:
+            ms, peak, prof = time_ticks(sw_mode, slots, labels, rng)
+            if mode == 'f32':
+                f32_ms[slots] = ms
+            prof_text = 'profiler: no device time (not measured)' \
+                if prof is None else (
+                    f'{prof[0]:.0f} launches a tick, device busy '
+                    f'{prof[1]:.1%}, K1 {prof[2]:.2%} of the busy time')
+            rtf = ms / chunk_ms
+            print(f'StreamMultiplexer.tick, {mode}, {slots} slots: '
+                  f'{ms:.3f} ms a tick (chained, synchronised), real-time '
+                  f'factor {rtf:.4f}, {int(slots / rtf)} streams at real '
+                  f'time at this batch; peak memory {peak:.3f} GiB; '
+                  f'{prof_text} [{card}]')
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        step_ms = cuda_ms(phases['step'], iters=10, warmup=3)
+        ticks = {s: time_ticks(sw, s, labels, rng, profiled=False)[0]
+                 for s in TICK_SLOTS}
+    finally:
+        torch.backends.cudnn.benchmark = before
+    print(f'f32 with cuDNN autotuning on (not the port\'s setting): step at '
+          f'B=1 {step_ms:.3f} ms device; ticks ' + ', '.join(
+              f'{s} slots {ticks[s]:.3f} ms (off: {f32_ms[s]:.3f})'
+              for s in TICK_SLOTS) + f' [{card}]')
+
+
+def phase_streaming(manifest: str, w2l_run: str, qn_run: str, arts: dict,
+                    root: str, card: str) -> dict:
+    """The streaming slice on the Wav2Letter-20 run and its artifacts and
+    the QuartzNet-15x5 run. Returns K1's streaming launches by entry point
+    (each counted from 0 just before and read just after), K4's and K6's
+    on the QuartzNet lookahead, and K1's largest error at the streaming
+    shapes."""
+    t0 = time.time()
+    k1, secs = {}, {}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        secs[name] = round(time.time() - t, 1)
+        return out
+    k1_err = timed('K1', phase_streaming_k1, arts)
+    strings = timed('exact', phase_streaming_exact, manifest, arts, card, k1)
+    timed('card vs CPU', phase_streaming_card_vs_cpu, manifest, arts)
+    timed('evaluate', phase_streaming_cli, manifest, arts, w2l_run, root,
+          card, strings, k1)
+    timed('full lookahead', phase_streaming_lookahead_exact, manifest,
+          w2l_run, arts, card)
+    qn = timed('QuartzNet lookahead', phase_streaming_qn, manifest, qn_run,
+               root, card, k1)
+    timed('TCP', phase_streaming_tcp, manifest, arts, card)
+    timed('times', phase_streaming_timing, arts, card)
+    print(f'streaming path: K1 launched {sum(k1.values())} times: '
+          f'{json.dumps(k1)}; K4/K6 on the QuartzNet lookahead: '
+          f'{json.dumps(qn)}; phase {time.time() - t0:.1f} s, by part '
+          f'{json.dumps(secs)}')
+    return {'k1': k1, 'qn': qn, 'k1_err': k1_err}
 
 
 def serving_t_out(layers, T: int) -> list:
@@ -2637,7 +3371,11 @@ def main() -> int:
         phase_decoding_timing(manifest, w2l_run, lm_path, card, cli)
         torch.cuda.empty_cache()
         # Serving: artifacts of the Wav2Letter-20 run
-        serve_k1 = phase_serving(manifest, w2l_run, lm_path, root, card)
+        serve_k1, arts = phase_serving(manifest, w2l_run, lm_path, root,
+                                       card)
+        torch.cuda.empty_cache()
+        # Streaming: the Wav2Letter-20 run and its artifacts, QuartzNet's
+        stream = phase_streaming(manifest, w2l_run, qn_run, arts, root, card)
         torch.cuda.empty_cache()
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
@@ -2666,8 +3404,14 @@ def main() -> int:
                      tpu + 'sep_conv_pallas.py:93', qn_launches['sep_bwd'],
                      k7_err, k7_numbers),
     ]
-    # K1's launches on the serving path, apart from the training path's
+    # K1's launches on the serving and streaming paths, apart from the
+    # training path's; K4's and K6's on the QuartzNet lookahead stream
     kernels[0]['serving_launches'] = sum(serve_k1.values())
+    kernels[0]['streaming_launches'] = sum(stream['k1'].values())
+    kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
+                                    stream['k1_err'])
+    kernels[3]['streaming_launches'] = stream['qn']['depthwise_fwd']
+    kernels[5]['streaming_launches'] = stream['qn']['sep_fwd']
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

@@ -537,7 +537,7 @@ def test_artifact_of_a_port_run_scores_as_its_run(port_run, tmp_path,
 
 
 @pytest.mark.parametrize('argv, match', [
-    (['--artifact', '{art}'], 'A.8'),
+    (['--artifact', '{jasper_art}'], 'A.8, second part'),
     (['--offline'], 'artifact-eval mode'),
     (['--int8-full'], 'applies to --artifact --offline'),
     (['--artifact', '{art}', '--offline', '--word-timings'],
@@ -551,11 +551,115 @@ def test_artifact_of_a_port_run_scores_as_its_run(port_run, tmp_path,
     (['--artifact', '{art}', '--offline', '--beam-backend', 'device'],
      'beam-backend device')])
 def test_artifact_flags_refused(port_run, tmp_path, argv, match):
+    """Flags an artifact evaluation refuses, as test.py's; streaming a
+    Jasper artifact (here a Wav2Letter artifact relabelled as one) is
+    ROADMAP A.8's second part."""
     from wav2letter_pytorch_tpu_torch import export_serving as export_cli
     run, manifest, _ = port_run
     art = str(tmp_path / 'art')
     assert export_cli.main(['--model-path', run, '--out', art, '--device',
                             'cpu']) == 0
+    jasper_art = tmp_path / 'jasper_art'
+    jasper_art.mkdir()
+    meta = json.loads((tmp_path / 'art' / 'serving.json').read_text())
+    (jasper_art / 'serving.json').write_text(json.dumps(
+        {**meta, 'family': 'jasper', 'blocks_meta': []}))
+    arrays = dict(np.load(tmp_path / 'art' / 'serving.npz'))
+    n = meta['num_layers'] - 1
+    np.savez(jasper_art / 'serving.npz', head_w=arrays[f'w{n}'],
+             head_b=arrays[f'b{n}'])
     with pytest.raises(SystemExit, match=match):
         port_eval.main(['--test-manifest', manifest, '--device', 'cpu',
-                        *[a.format(art=art) for a in argv]])
+                        *[a.format(art=art, jasper_art=str(jasper_art))
+                          for a in argv]])
+
+
+# ------------------------------------------------------------- streaming
+
+def _print_lines(lines):
+    return [line for line in lines if line.startswith(
+        ('reference: ', 'decoded  : ', 'timings  : '))]
+
+
+@pytest.mark.parametrize('mode', [
+    ['--streaming-chunk-frames', '16', '--word-timings'],
+    ['--streaming-chunk-frames', '16', '--int8', '--streaming-norm', 'cmvn',
+     '--streaming-cmvn-manifest', '{manifest}', '--word-timings',
+     '--beam-search-params', 'k=4,alpha=0.5,beta=1', '--lm-path', '{lm}'],
+    ['--streaming-chunk-frames', '16', '--lookahead-frames', '8'],
+    []],
+    ids=['greedy', 'int8_cmvn_beam_lm', 'lookahead', 'below_prime'])
+def test_streaming_prints_what_test_py_prints(tmp_path, jax_run, capsys,
+                                              mode):
+    """test.py --streaming on the JAX run and the port's evaluate
+    --streaming on its exported weights, on the CPU: the same
+    (reference, decoded) pairs, word timings, dump records and JSON line
+    (keys and values, WER and CER included). Chunk 16 streams every
+    utterance (beam + LM and word timings on int8 weights with corpus
+    CMVN); the default chunk of 64 puts every one below the prime window,
+    through the eval-forward fallback; --lookahead-frames 8 runs the
+    bounded-lookahead streamer."""
+    import test as test_cli
+    run, manifest, export, lm = jax_run
+    mode = [a.format(manifest=manifest, lm=lm) for a in mode]
+    common = ['--test-manifest', manifest, '--streaming', '--print-all',
+              *mode]
+    assert test_cli.main(['--model-path', run, *common, '--dump-jsonl',
+                          str(tmp_path / 'jax.jsonl')]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    want = json.loads(out[-1])
+    got, got_lines, _ = _run_cli(
+        ['--weights', export, '--device', 'cpu', *common, '--dump-jsonl',
+         str(tmp_path / 'port.jsonl'), *JAX_RUN_OVERRIDES], capsys)
+    assert _print_lines(got_lines) == _print_lines(out[:-1])
+    assert len(_print_lines(got_lines)) >= 12
+    assert (tmp_path / 'port.jsonl').read_text() == \
+        (tmp_path / 'jax.jsonl').read_text()
+    assert got == want and got['num_utterances'] == 6
+    if not mode:
+        assert got['offline_fallback'] == 6
+
+
+def test_artifact_streaming_prints_what_test_py_prints(tmp_path, jax_run,
+                                                       port_run, capsys):
+    """test.py --artifact (streaming) on a JAX export with CMVN and the
+    port's evaluate --artifact on the CPU: the same pairs, dump and JSON
+    line; utterances no longer than the prime window skipped as JAX
+    skips them. The port's own artifact of its run streams too, and a
+    Jasper model without --lookahead-frames is refused (A.8, second
+    part)."""
+    import test as test_cli
+    run, manifest, _, _ = jax_run
+    art = _jax_export(run, str(tmp_path / 'art'), '--cmvn-manifest',
+                      manifest)
+    for chunk in ('16', '32'):
+        common = ['--artifact', art, '--test-manifest', manifest,
+                  '--print-all', '--streaming-chunk-frames', chunk]
+        assert test_cli.main([*common, '--dump-jsonl',
+                              str(tmp_path / 'jax.jsonl')]) == 0
+        out = capsys.readouterr().out.strip().splitlines()
+        want = json.loads(out[-1])
+        got, got_lines, _ = _run_cli([*common, '--device', 'cpu',
+                                      '--dump-jsonl',
+                                      str(tmp_path / 'port.jsonl')], capsys)
+        assert _print_lines(got_lines) == _print_lines(out[:-1])
+        assert (tmp_path / 'port.jsonl').read_text() == \
+            (tmp_path / 'jax.jsonl').read_text()
+        assert got == want and got['streaming']
+    assert want['skipped_below_prime'] > 0 and want['num_utterances'] > 0
+    from wav2letter_pytorch_tpu_torch import export_serving as export_cli
+    prun, pmanifest, lm = port_run
+    part = str(tmp_path / 'port_art')
+    assert export_cli.main(['--model-path', prun, '--out', part,
+                            '--cmvn-manifest', pmanifest, '--lm-path', lm,
+                            '--device', 'cpu']) == 0
+    got, _, _ = _run_cli(['--artifact', part, '--test-manifest', pmanifest,
+                          '--streaming-chunk-frames', '16', '--device',
+                          'cpu'], capsys)
+    assert got['num_utterances'] + got['skipped_below_prime'] == 6
+    assert got['weights'] == 'f32' and 'decode' not in got
+    with pytest.raises(SystemExit, match='A.8, second part'):
+        port_eval.main(['--test-manifest', pmanifest, '--device', 'cpu',
+                        '--streaming', 'model=quartznet',
+                        'model.mid_layers=1',
+                        'model.jasper_blocks.0.layer_size=16'])

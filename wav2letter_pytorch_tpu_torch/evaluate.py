@@ -42,8 +42,19 @@ int8 weights, or with ``--int8-full`` int8 activations on the int8 tensor
 cores), normalised per utterance or with the artifact's CMVN
 (``--offline-norm cmvn``), decoded greedily or, with the artifact's bundled
 LM (unless ``--no-lm``), an LM, beam parameters or hotwords, by the host
-beam search. The streaming artifact evaluation (``--artifact`` without
-``--offline``) waits for the streaming modules (ROADMAP A.8).
+beam search. Without ``--offline`` an artifact is evaluated through the
+streaming path (``serving.streaming_from_artifact``), one session an
+utterance, greedily, skipping utterances no longer than the prime window.
+
+Streaming, as ``test.py --streaming``: ``--model-path`` (or a model from
+the config) runs through ``serving.StreamingWav2Letter`` (kernel K1 on
+every prime, step and finish, f32 or ``--int8`` weights, cumulative or
+corpus-CMVN normalisation by ``--streaming-norm``), utterances shorter
+than the prime window through the eval forward; with
+``--lookahead-frames`` through ``serving.BoundedLookaheadStreamer`` (the
+model over a window a chunk; Wav2Letter, Jasper and QuartzNet). Streaming
+a Jasper model without ``--lookahead-frames`` is ROADMAP A.8's second
+part.
 """
 
 from __future__ import annotations
@@ -64,8 +75,13 @@ from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
                                _beam_offsets, get_time_per_word,
                                parse_beam_params)
 from .runtime import resolve_device
-from .serving import (MeshInference, artifact_frontend, load_serving,
-                      quantize_folded)
+from .serving import (MeshInference, artifact_frontend, compute_cmvn,
+                      load_serving, quantize_folded, streaming_from_artifact)
+from .serving.export import JASPER_STREAMING_TODO
+from .serving.lookahead import (BoundedLookaheadStreamer,
+                                _conv_specs_jasper, _conv_specs_w2l,
+                                bounded_stream_logprobs)
+from .serving.streaming import StreamingWav2Letter, stream_logprobs
 from .training.build import (build_frontend, build_labels, build_model,
                              load_run)
 from .training.metrics import RatioAccumulator
@@ -335,6 +351,42 @@ def parse_args(argv=None):
     parser.add_argument('--no-lm', action='store_true',
                         help='greedy decode even if the artifact bundles '
                              'an LM')
+    parser.add_argument('--streaming', action='store_true',
+                        help='evaluate through the chunked streaming serving '
+                             'path (serving/streaming.py), one session per '
+                             'utterance; utterances shorter than the prime '
+                             'window fall back to the eval forward')
+    parser.add_argument('--streaming-chunk-frames', type=int, default=64,
+                        help='streaming chunk size in STFT frames (64 = '
+                             '640 ms at the default 10 ms hop)')
+    parser.add_argument('--streaming-norm', default='cumulative',
+                        choices=['cumulative', 'cmvn', 'precomputed'],
+                        help='feature normalization for --streaming: '
+                             'cumulative (running masked stats) or corpus '
+                             'CMVN over --streaming-cmvn-manifest (cmvn, '
+                             'or its synonym precomputed)')
+    parser.add_argument('--streaming-cmvn-manifest', default='',
+                        help='manifest to compute corpus CMVN over for '
+                             '--streaming-norm cmvn (use the TRAIN '
+                             'manifest)')
+    parser.add_argument('--streaming-cmvn-limit', type=int, default=1000,
+                        help='max utterances for the CMVN pass')
+    parser.add_argument('--int8', action='store_true',
+                        help='weight-only int8 quantized inference '
+                             '(streaming mode only)')
+    parser.add_argument('--lookahead-frames', type=int, default=0,
+                        help='with --streaming: bounded-lookahead mode '
+                             '(serving/lookahead.py), committing outputs '
+                             'after this many frames of future context')
+    parser.add_argument('--lookahead-extrap-frames', type=int, default=0,
+                        help='with --lookahead-frames: extend each window '
+                             'with this many synthesized future frames')
+    parser.add_argument('--lookahead-extrap-mode', default='reflect',
+                        choices=['reflect', 'repeat'])
+    parser.add_argument('--lookahead-left-frames', type=int, default=None,
+                        help='with --lookahead-frames: past context per '
+                             'window (default: the full one-sided '
+                             'receptive field)')
     parser.add_argument('overrides', nargs='*', metavar='key=value',
                         help='config overrides, e.g. model=quartznet')
     args = parser.parse_args(argv)
@@ -348,12 +400,13 @@ def parse_args(argv=None):
 
 def artifact_decoder(args, meta: dict):
     """``test.py``'s decoder for an artifact: the prefix beam search when an
-    LM (``--lm-path``, or the artifact's bundled one unless ``--no-lm``),
-    beam parameters or hotwords are given, else greedy."""
+    LM (``--lm-path``, or with ``--offline`` the artifact's bundled one
+    unless ``--no-lm``), beam parameters or hotwords are given, else
+    greedy."""
     labels = meta['labels']
     beam_params = parse_beam_params(args.beam_search_params)
     lm_path = args.lm_path
-    if not lm_path and meta.get('lm') and not args.no_lm:
+    if args.offline and not lm_path and meta.get('lm') and not args.no_lm:
         lm_path = os.path.join(args.artifact, meta['lm']['file'])
         beam_params = dict(meta['lm'].get('beam_params') or {},
                            **beam_params)
@@ -366,11 +419,12 @@ def artifact_decoder(args, meta: dict):
 
 
 def run_artifact_eval(args) -> int:
-    """``test.py``'s ``--artifact --offline`` evaluation (its flag checks,
-    then ``run_artifact_offline_eval``): batched inference of the folded
-    stack over the manifest; prints its JSON line. Without ``--offline``
-    ``test.py`` streams, which is ROADMAP A.8."""
+    """``test.py``'s ``--artifact`` evaluation (its flag checks, then
+    ``run_artifact_offline_eval`` or its streaming loop): with
+    ``--offline`` batched inference of the folded stack over the manifest,
+    else one streaming session an utterance; prints its JSON line."""
     rejected = [(args.word_timings, '--word-timings'),
+                (args.int8, '--int8'),
                 (args.average_last, '--average-last'),
                 (args.model_path, '--model-path'),
                 (args.weights, '--weights'),
@@ -386,16 +440,14 @@ def run_artifact_eval(args) -> int:
                              '(the artifact fixes weights; streaming '
                              'decoding is greedy — use --offline for '
                              'beam/LM or --model-path eval)')
-    if not args.offline:
-        raise SystemExit('--artifact without --offline evaluates through '
-                         'the streaming path, which is not ported yet '
-                         '(ROADMAP A.8); pass --offline')
     if args.beam_backend == 'device':
         raise SystemExit('--beam-backend device is not supported with '
                          '--artifact (artifact evaluation beam-decodes on '
                          'the host, as test.py does)')
     dev = resolve_device(args.device)
     meta, folded, norm_stats = load_serving(args.artifact)
+    if not args.offline:
+        return run_artifact_streaming_eval(args, meta, dev)
     if meta.get('family', 'wav2letter') != 'wav2letter':
         raise SystemExit('--offline artifact eval supports wav2letter')
     use_cmvn = args.offline_norm == 'cmvn'
@@ -450,6 +502,212 @@ def run_artifact_eval(args) -> int:
     return 0
 
 
+def run_artifact_streaming_eval(args, meta: dict, dev) -> int:
+    """``test.py --artifact`` without ``--offline``: each utterance longer
+    than the prime window through a fresh streaming session of the
+    artifact (its weights and CMVN), decoded greedily; prints the JSON
+    line with ``num_in_manifest`` and ``skipped_below_prime``."""
+    try:
+        sw, labels, _ = streaming_from_artifact(
+            args.artifact, chunk_frames=args.streaming_chunk_frames,
+            device=dev)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e))
+    decoder = GreedyDecoder(labels)
+    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels)
+    acc = RatioAccumulator()
+    dump = UttDump(args.dump_jsonl)
+    n_skipped = 0
+    try:
+        for i in range(len(ds)):
+            audio, _, path, text = ds[i]
+            audio = np.asarray(audio, np.float32)[None, :]
+            if audio.shape[1] <= sw.prime_samples:
+                n_skipped += 1
+                continue
+            decoded = decoder.decode(stream_logprobs(sw, audio))[0]
+            score_utterance(decoder, acc, dump, path, text, decoded,
+                            args.print_all or (args.print_samples
+                                               and i == 0))
+    finally:
+        dump.close()
+    # num_utterances = utterances the WER/CER cover (those shorter than
+    # the prime window are skipped, not silently included).
+    result = {'loss': None, 'num_utterances': len(ds) - n_skipped,
+              'num_in_manifest': len(ds), 'streaming': True,
+              'artifact': args.artifact, 'weights': meta['format'],
+              'skipped_below_prime': n_skipped}
+    result.update(acc.ratios())
+    print(json.dumps(result))
+    return 0
+
+
+def streaming_norm_kwargs(args, cfg, labels, dev) -> dict:
+    """norm/norm_stats of the streamers per ``--streaming-norm``:
+    cumulative (no side data), or corpus CMVN over
+    ``--streaming-cmvn-manifest`` (the train manifest), as a deployed
+    artifact ships it."""
+    if args.streaming_norm == 'cumulative':
+        return {}
+    if not args.streaming_cmvn_manifest:
+        raise SystemExit('--streaming-norm cmvn requires '
+                         '--streaming-cmvn-manifest (the train manifest)')
+    mcfg = cfg['model']
+    stats = compute_cmvn(
+        args.streaming_cmvn_manifest,
+        lambda normalize: build_frontend(mcfg, dither=0.0, device=dev,
+                                         normalize=normalize),
+        labels, mcfg['audio_conf'], limit=args.streaming_cmvn_limit)
+    print(f'streaming CMVN over {args.streaming_cmvn_manifest}: '
+          f'mean[0]={stats[0][0]:.3f} std[0]={stats[1][0]:.3f}',
+          file=sys.stderr)
+    return dict(norm='precomputed', norm_stats=stats)
+
+
+def _eval_forward_padded(model, frontend, audio: np.ndarray, dev):
+    """The eval forward of one utterance zero-padded to the 0.5 s grid:
+    log-probs ``[1, T', L]`` over its valid frames (numpy)."""
+    L = audio.shape[1]
+    grid = max(frontend.conf.sample_rate // 2, 1)
+    buf = np.zeros((1, -(-L // grid) * grid), np.float32)
+    buf[0, :L] = audio[0]
+    with torch.no_grad():
+        feats, flens = frontend(torch.from_numpy(buf).to(dev),
+                                torch.tensor([L], dtype=torch.int32,
+                                             device=dev))
+        logp, out_lens = model(feats, flens)
+    return logp[:, :int(out_lens[0])].cpu().numpy()
+
+
+def run_streaming_eval(args, cfg, model, frontend, decoder, labels,
+                       dev) -> int:
+    """``test.py --streaming``: each utterance through a fresh
+    ``StreamingWav2Letter`` session (or, no longer than the prime window,
+    the eval forward at the 0.5 s-grid length), decoded by ``decoder``;
+    prints the JSON line."""
+    mcfg = cfg['model']
+    if mcfg['name'] == 'jasper':
+        raise SystemExit(f'--streaming without --lookahead-frames: '
+                         f'{JASPER_STREAMING_TODO}')
+    layers = [dict(l) for l in mcfg['layers']][:int(mcfg['mid_layers'])]
+    sw = StreamingWav2Letter(
+        layers, len(labels), model,
+        build_frontend(mcfg, dither=0.0, device=dev),
+        chunk_frames=args.streaming_chunk_frames,
+        weights='int8' if args.int8 else 'f32',
+        padding_mode=mcfg.get('padding_mode', 'reflect'), device=dev,
+        **streaming_norm_kwargs(args, cfg, labels, dev))
+    sr = sw.sample_rate
+    hop_ms = float(mcfg['audio_conf']['window_stride']) * 1e3
+    print(f'streaming: prime {sw.prime_samples / sr:.2f}s, chunk '
+          f'{args.streaming_chunk_frames * hop_ms:.0f} ms, lookahead '
+          f'{sw.lookahead_frames * hop_ms / 1e3:.2f}s', file=sys.stderr)
+    frame_seconds = (float(mcfg['audio_conf']['window_stride'])
+                     * model.scaling_factor)
+    ds = ManifestDataset(args.test_manifest, sr, labels)
+    acc = RatioAccumulator()
+    dump = UttDump(args.dump_jsonl)
+    n_fallback = 0
+    try:
+        for i in range(len(ds)):
+            audio, _, upath, text = ds[i]
+            audio = np.asarray(audio, np.float32)[None, :]
+            if audio.shape[1] <= sw.prime_samples:
+                n_fallback += 1
+                logp = _eval_forward_padded(model, frontend, audio, dev)
+            else:
+                logp = stream_logprobs(sw, audio)
+            timed = args.word_timings
+            if isinstance(decoder, DeviceBeamDecoder):
+                out = decoder.decode(np.exp(logp), np.array([logp.shape[1]]),
+                                     return_offsets=timed)
+                decoded, offsets0 = (out[0][0], out[1][0]) if timed \
+                    else (out[0], None)
+            elif isinstance(decoder, PrefixBeamSearchLMDecoder):
+                out = decoder.decode(np.exp(logp)[0], return_offsets=timed)
+                decoded, offsets0 = out if timed else (out, None)
+            else:
+                decoded, offsets = decoder.decode(logp, return_offsets=True)
+                decoded, offsets0 = decoded[0], offsets[0]
+            if args.word_timings and offsets0 is not None:
+                times = get_time_per_word(list(decoded), offsets0.tolist(),
+                                          ratio=frame_seconds)
+                print('timings  : ' + ' '.join(
+                    f'{w0}[{s0:.2f}-{e0:.2f}]' for w0, s0, e0 in times))
+            score_utterance(decoder, acc, dump, upath, text, decoded,
+                            args.print_all or (args.print_samples
+                                               and i == 0))
+    finally:
+        dump.close()
+    result = {'loss': None, 'num_utterances': len(ds), 'streaming': True,
+              'normalization': args.streaming_norm,
+              'offline_fallback': n_fallback,
+              'weights': 'int8' if args.int8 else 'f32'}
+    result.update(acc.ratios())
+    print(json.dumps(result))
+    return 0
+
+
+def run_bounded_streaming_eval(args, cfg, model, decoder, labels,
+                               dev) -> int:
+    """``test.py --streaming --lookahead-frames``: each utterance through
+    a ``BoundedLookaheadStreamer`` session that commits outputs after
+    ``--lookahead-frames`` of future context (Wav2Letter log-probs, or
+    Jasper probabilities scored as their log); prints the JSON line."""
+    mcfg = cfg['model']
+    emits_probs = mcfg['name'] == 'jasper'
+    mid = int(mcfg['mid_layers'])
+    if emits_probs:
+        specs = _conv_specs_jasper(
+            [dict(b) for b in mcfg['jasper_blocks']][:mid])
+    else:
+        specs = _conv_specs_w2l([dict(l) for l in mcfg['layers']][:mid])
+    scale = int(model.scaling_factor)
+    la = -(-int(args.lookahead_frames) // scale) * scale
+    left = args.lookahead_left_frames
+    if left is not None:
+        left = -(-int(left) // scale) * scale
+    sw = BoundedLookaheadStreamer(
+        model, build_frontend(mcfg, dither=0.0, device=dev), specs,
+        chunk_frames=args.streaming_chunk_frames, lookahead_frames=la,
+        left_frames=left, extrap_frames=args.lookahead_extrap_frames,
+        extrap_mode=args.lookahead_extrap_mode, device=dev,
+        **streaming_norm_kwargs(args, cfg, labels, dev))
+    hop_s = float(mcfg['audio_conf']['window_stride'])
+    print(f'bounded-lookahead streaming: lookahead {la * hop_s:.2f}s, '
+          f'chunk {args.streaming_chunk_frames * hop_s:.2f}s, window '
+          f'{sw.window_frames} frames '
+          f'({sw.window_frames / args.streaming_chunk_frames:.1f}x offline '
+          'compute)', file=sys.stderr)
+    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels)
+    acc = RatioAccumulator()
+    dump = UttDump(args.dump_jsonl)
+    try:
+        for i in range(len(ds)):
+            audio, _, upath, text = ds[i]
+            audio = np.asarray(audio, np.float32)[None, :]
+            out = bounded_stream_logprobs(sw, audio)
+            logp = np.log(np.maximum(out, 1e-30)) if emits_probs else out
+            score_utterance(decoder, acc, dump, upath, text,
+                            decoder.decode(logp)[0],
+                            args.print_all or (args.print_samples
+                                               and i == 0))
+    finally:
+        dump.close()
+    result = {'loss': None, 'num_utterances': len(ds), 'streaming': True,
+              'normalization': args.streaming_norm,
+              'bounded_lookahead_frames': la,
+              'bounded_lookahead_seconds': round(la * hop_s, 3),
+              'left_frames': sw.left_frames,
+              'window_frames': sw.window_frames}
+    if args.lookahead_extrap_frames:
+        result['extrap_frames'] = sw.extrap_frames
+        result['extrap_mode'] = sw.extrap_mode
+    result.update(acc.ratios())
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.offline and not args.artifact:
@@ -458,6 +716,10 @@ def main(argv=None) -> int:
     if args.int8_full and not (args.artifact and args.offline):
         raise SystemExit('--int8-full applies to --artifact --offline '
                          'evaluation only')
+    if (args.lookahead_frames or args.int8) and not (args.streaming
+                                                     or args.artifact):
+        raise SystemExit('--lookahead-frames and --int8 apply to '
+                         '--streaming evaluation only')
     if args.artifact:
         return run_artifact_eval(args)
     dev = resolve_device(args.device)
@@ -480,6 +742,12 @@ def main(argv=None) -> int:
         model, frontend, labels = build(dev, args.seed, args.weights,
                                         cfg=cfg)
     decoder = make_decoder(labels, args, dev)
+    if args.streaming and args.lookahead_frames:
+        return run_bounded_streaming_eval(args, cfg, model, decoder, labels,
+                                          dev)
+    if args.streaming:
+        return run_streaming_eval(args, cfg, model, frontend, decoder,
+                                  labels, dev)
     data = cfg['data']
     loader = make_loader(args.test_manifest,
                          args.batch_size or int(data['batch_size']), frontend,

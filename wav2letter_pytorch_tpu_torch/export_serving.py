@@ -14,8 +14,8 @@ labels and audio config; with ``--cmvn-manifest`` corpus CMVN statistics;
 with ``--calibrate`` static int8 activation scales for int8_full
 inference; with ``--lm-path`` the ARPA LM and its decode settings.
 CMVN and calibration run the frontend (kernel K1) and the folded stack on
-``--device``. Jasper artifacts wait for the streaming modules (ROADMAP
-A.8).
+``--device``. Jasper artifacts wait for the Jasper streamer (ROADMAP
+A.8, second part).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     if name != 'wav2letter':
         raise SystemExit(f'model {name!r}: the port exports wav2letter '
                          'artifacts only; Jasper artifacts come with the '
-                         'streaming modules (ROADMAP A.8)')
+                         'Jasper streamer (ROADMAP A.8, second part)')
     cfg, model, labels, step = load_run(args.model_path,
                                         average_last=args.average_last)
     mcfg = cfg['model']

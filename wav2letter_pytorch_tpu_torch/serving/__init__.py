@@ -11,23 +11,45 @@ the JAX package's ``serving/``.
 * ``parallel_infer`` — batched inference, frontend and stack in one call
   (``MeshInference``, one device);
 * ``longform`` — exact overlap-chunked inference over one long recording
-  (``LongFormTranscriber``).
+  (``LongFormTranscriber``);
+* ``streaming`` — chunked stateful Wav2Letter inference, exact against
+  the offline forward (``StreamingWav2Letter``, ``StreamingSession``),
+  with greedy and beam transcribers; ``streaming_from_artifact``;
+* ``lookahead`` — bounded-lookahead streaming over the eval-mode models
+  (``BoundedLookaheadStreamer``, Wav2Letter and Jasper);
+* ``endpoint`` — live endpointing into segments
+  (``SegmentingTranscriber``);
+* ``server`` / ``net`` — many streams batched into one session
+  (``StreamMultiplexer``) and its TCP server and client
+  (``StreamingServer``, ``StreamClient``), on one device.
 
-Streaming, endpointing and the servers are ROADMAP A.8; quantization-aware
-finetuning (``qat``) is left for a later slice of A.7.
+The Jasper streamer (``streaming_jasper``) is ROADMAP A.8's second part;
+quantization-aware finetuning (``qat``) is left for a later slice of A.7.
 """
 
+from .endpoint import Segment, SegmentingTranscriber
 from .export import (artifact_frontend, compute_cmvn, export_serving,
-                     load_serving)
+                     load_serving, streaming_from_artifact)
 from .fold import fold_batchnorm
 from .infer import offline_forward, offline_forward_q8
 from .longform import LongFormTranscriber, longform_logprobs
+from .lookahead import BoundedLookaheadStreamer, bounded_stream_logprobs
+from .net import StreamClient, StreamingServer
 from .parallel_infer import MeshInference
 from .quantize import (calibrate_activation_scales, quantize_folded,
                        quantized_bytes)
+from .server import StreamMultiplexer
+from .streaming import (StreamingBeamTranscriber, StreamingSession,
+                        StreamingTranscriber, StreamingWav2Letter,
+                        stream_logprobs)
 
 __all__ = ['fold_batchnorm', 'offline_forward', 'offline_forward_q8',
            'quantize_folded', 'quantized_bytes',
            'calibrate_activation_scales', 'export_serving', 'load_serving',
            'compute_cmvn', 'artifact_frontend', 'MeshInference',
-           'LongFormTranscriber', 'longform_logprobs']
+           'LongFormTranscriber', 'longform_logprobs', 'StreamingWav2Letter',
+           'StreamingSession', 'StreamingTranscriber',
+           'StreamingBeamTranscriber', 'stream_logprobs',
+           'streaming_from_artifact', 'BoundedLookaheadStreamer',
+           'bounded_stream_logprobs', 'Segment', 'SegmentingTranscriber',
+           'StreamMultiplexer', 'StreamingServer', 'StreamClient']

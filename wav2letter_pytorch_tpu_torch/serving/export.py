@@ -11,9 +11,10 @@ format, so an artifact written by either package loads in the other:
   scales and, with ``lm_path``, the bundled ``lm.arpa`` with its decode
   settings.
 
-``load_serving`` reads Jasper artifacts too (numpy only). Exporting one
-(``export_serving_jasper``) and building a streaming model from an artifact
-(``streaming_from_artifact``) wait for the streaming modules (ROADMAP A.8).
+``load_serving`` reads Jasper artifacts too (numpy only);
+``streaming_from_artifact`` builds the streaming model of a Wav2Letter
+artifact. Exporting a Jasper artifact (``export_serving_jasper``) and
+streaming one wait for the Jasper streamer (ROADMAP A.8, second part).
 """
 
 from __future__ import annotations
@@ -224,3 +225,35 @@ def artifact_frontend(meta: dict, norm_stats=None, device='cuda'):
                        window=ac.get('window', 'hamming'))
     return SpectrogramFrontend(conf, n_mels=int(n_mels), dither=0.0,
                                device=device, norm_stats=norm_stats)
+
+
+JASPER_STREAMING_TODO = ('streaming a Jasper/QuartzNet model is not ported '
+                         '(StreamingJasper: ROADMAP A.8, second part)')
+
+
+def streaming_from_artifact(artifact_dir: str, chunk_frames: int = 64,
+                            device='cuda'):
+    """Build a ready-to-stream model from a serving artifact.
+
+    Returns ``(model, labels, meta)``: ``model`` is a
+    ``StreamingWav2Letter`` on ``device`` in the artifact's weight format
+    (f32, or int8 weights with float32 math) with its CMVN statistics as
+    fixed normalisation when it has them (else cumulative), as
+    ``evaluate --artifact`` streams and ``serve_tcp`` serves. A Jasper
+    artifact raises ``NotImplementedError``.
+    """
+    from .streaming import StreamingWav2Letter
+
+    meta, folded, norm_stats = load_serving(artifact_dir)
+    if meta.get('family', 'wav2letter') == 'jasper':
+        raise NotImplementedError(JASPER_STREAMING_TODO)
+    frontend = artifact_frontend(meta, device=device)
+    kw = {}
+    if norm_stats is not None:
+        kw = dict(norm='precomputed', norm_stats=norm_stats)
+    model = StreamingWav2Letter(
+        meta['layers'], meta['num_labels'], None, frontend, folded=folded,
+        chunk_frames=chunk_frames,
+        padding_mode=meta.get('padding_mode', 'reflect'), device=device,
+        **kw)
+    return model, meta['labels'], meta

@@ -202,11 +202,31 @@ def im2col(xq: torch.Tensor, k: int, stride: int, dilation: int,
     ``Tensor.unfold`` with the taps strided by the dilation, tap-major
     within a row (the order of ``q [k, C_in, C_out]`` reshaped). A view
     where the strides allow it, else a copy."""
-    B, T, cin = xq.shape
-    left, right = same_pad_amount(T, k, stride, dilation)
-    xp = _pad_time(xq, left, right, padding_mode)
+    left, right = same_pad_amount(xq.shape[1], k, stride, dilation)
+    return _windows(_pad_time(xq, left, right, padding_mode), k, stride,
+                    dilation)
+
+
+def _windows(xp: torch.Tensor, k: int, stride: int,
+             dilation: int) -> torch.Tensor:
+    """The rows ``[B, T_out, k * C_in]`` of a VALID 1-D convolution over
+    ``xp [B, T, C_in]`` (``im2col`` without the padding)."""
+    B, _, cin = xp.shape
     cols = xp.unfold(1, (k - 1) * dilation + 1, stride)[..., ::dilation]
     return cols.transpose(2, 3).reshape(B, cols.shape[1], k * cin)
+
+
+def conv_q8_valid(xq: torch.Tensor, q: torch.Tensor, stride: int,
+                  dilation: int) -> torch.Tensor:
+    """int32 accumulators ``[B, T_out, C_out]`` of a VALID 1-D convolution
+    of int8 ``xq [B, T, C_in]`` with int8 ``q [k, C_in, C_out]``: the
+    windows' rows times ``q`` as ``[k * C_in, C_out]``. The streaming
+    stack runs it over each layer's carry and new frames."""
+    k, cin, cout = q.shape
+    cols = _windows(xq, k, stride, dilation)
+    B, t_out, _ = cols.shape
+    return int_mm(cols.reshape(B * t_out, k * cin),
+                  q.reshape(k * cin, cout)).view(B, t_out, cout)
 
 
 def conv_q8(xq: torch.Tensor, q: torch.Tensor, stride: int, dilation: int,
@@ -214,11 +234,9 @@ def conv_q8(xq: torch.Tensor, q: torch.Tensor, stride: int, dilation: int,
     """int32 accumulators ``[B, T_out, C_out]`` of a SAME 1-D convolution
     of int8 ``xq [B, T, C_in]`` with int8 ``q [k, C_in, C_out]``: the
     ``im2col`` rows times ``q`` as ``[k * C_in, C_out]``."""
-    k, cin, cout = q.shape
-    cols = im2col(xq, k, stride, dilation, padding_mode)
-    B, t_out, _ = cols.shape
-    return int_mm(cols.reshape(B * t_out, k * cin),
-                  q.reshape(k * cin, cout)).view(B, t_out, cout)
+    left, right = same_pad_amount(xq.shape[1], q.shape[0], stride, dilation)
+    return conv_q8_valid(_pad_time(xq, left, right, padding_mode), q, stride,
+                         dilation)
 
 
 def offline_forward_q8(layers, folded_q, feats: torch.Tensor,

@@ -1,0 +1,226 @@
+"""Stream multiplexer: batch many live audio streams into one session.
+
+The counterpart of the JAX package's ``serving/server.py``, on one device.
+``StreamMultiplexer`` owns one batched streaming state with a fixed number
+of SLOTS; streams attach to a free slot, feed audio, and detach with a
+final transcript, and every slot's row advances in one batched step a
+tick (K1 once and the conv stack once for all slots).
+
+Attach and detach stay cheap because every state tensor carries the batch
+as its leading axis and rows never interact: a newly attached stream runs
+the one-row prime and its state rows are copied into the batched state
+(``index_copy_``); a detaching stream's rows are sliced out and flushed
+through the one-row finish. Idle slots keep stepping over silence; their
+output is discarded and the next attach overwrites their rows.
+
+Contract: this is the transport layer for real-time streams -- by each
+``tick()`` every attached and primed stream must have one chunk of audio
+buffered. ``tick_ready()`` steps only the streams that do and keeps the
+other rows as they were (``torch.where``). Greedy incremental
+transcription is built in; for beam or custom decoding drive a dedicated
+``StreamingSession`` instead.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .streaming import StreamState, greedy_collapse
+
+MESH_TODO = ('a multiplexer over a device mesh is not ported: one device '
+             'for now (multi-GPU is ROADMAP A.9)')
+
+
+def _map_state(fn, *states: StreamState) -> StreamState:
+    """``fn`` over the matching tensors of ``states`` (the conv carries
+    one by one)."""
+    out = []
+    for field in zip(*states):
+        if isinstance(field[0], tuple):
+            out.append(tuple(fn(*ts) for ts in zip(*field)))
+        else:
+            out.append(fn(*field))
+    return StreamState(*out)
+
+
+class StreamMultiplexer:
+    """Multiplex up to ``slots`` live streams through one batched session.
+
+    ``model``: a ``StreamingWav2Letter``; the batched state lives on its
+    device. ``mesh`` raises: sharding the slots over several devices is
+    ROADMAP A.9.
+    """
+
+    def __init__(self, model, slots: int = 16, labels=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(MESH_TODO)
+        if labels is None:
+            raise ValueError('labels are required (greedy transcription is '
+                             'the multiplexer output; for custom decoding '
+                             'use StreamingSession directly)')
+        self.m = model
+        self.slots = slots
+        self.labels = list(labels)
+        self._weights = model._weights_dev
+        # Bootstrap a valid batched state: tile a one-row silence prime.
+        silence = model.audio_tensor(np.zeros((1, model.prime_samples)))
+        row, _ = model._prime_fn(self._weights, silence)
+        self._state = _map_state(
+            lambda s: s.repeat_interleave(slots, dim=0), row)
+        self._buf = [np.zeros(0, np.float32)] * slots
+        self._active = [False] * slots
+        self._primed = [False] * slots
+        self._consumed = [0] * slots
+        self._last = [0] * slots
+        self._text = [''] * slots
+
+    # ------------------------------------------------------------------
+
+    def attach(self) -> int:
+        """Claim a free slot for a new stream. Raises when full."""
+        for s in range(self.slots):
+            if not self._active[s]:
+                self._active[s] = True
+                self._primed[s] = False
+                self._buf[s] = np.zeros(0, np.float32)
+                self._consumed[s] = 0
+                self._last[s] = 0
+                self._text[s] = ''
+                return s
+        raise RuntimeError(f'all {self.slots} slots busy')
+
+    def feed(self, slot: int, audio) -> None:
+        """Buffer audio for ``slot``; primes the slot once enough has
+        arrived (copying its fresh state rows into the batch)."""
+        if not self._active[slot]:
+            raise ValueError(f'slot {slot} is not attached')
+        self._buf[slot] = np.concatenate(
+            [self._buf[slot], np.asarray(audio, np.float32).ravel()])
+        if (not self._primed[slot]
+                and len(self._buf[slot]) >= self.m.prime_samples):
+            chunk = self._buf[slot][:self.m.prime_samples][None]
+            self._buf[slot] = self._buf[slot][self.m.prime_samples:]
+            row_state, logp = self.m._prime_fn(self._weights,
+                                               self.m.audio_tensor(chunk))
+            index = torch.tensor([slot], device=self.m.device)
+            _map_state(lambda s, r: s.index_copy_(0, index, r.to(s.dtype)),
+                       self._state, row_state)
+            self._consumed[slot] = self.m.prime_samples
+            self._primed[slot] = True
+            self._decode(slot, logp[0].cpu().numpy())
+
+    def tick(self):
+        """Advance every primed stream by one chunk in a single batched
+        step. Returns {slot: new_text} for primed streams."""
+        cs = self.m.chunk_samples
+        stepped = [s for s in range(self.slots)
+                   if self._active[s] and self._primed[s]]
+        if not stepped:
+            return {}
+        for s in stepped:
+            if len(self._buf[s]) < cs:
+                raise RuntimeError(
+                    f'slot {s} starved: {len(self._buf[s])} < {cs} '
+                    'samples buffered at tick (real-time contract)')
+        return self._step(stepped)
+
+    def tick_ready(self):
+        """Advance only the primed streams holding a full buffered chunk.
+
+        The jitter-tolerant variant of :meth:`tick` for network transports
+        (``net.py``): a lagging client does not advance this round instead
+        of poisoning the whole batch. Rows of skipped slots keep their old
+        values (one ``torch.where`` a state tensor); rows never interact,
+        so skipped slots are bit-identical to not having stepped at all.
+        """
+        cs = self.m.chunk_samples
+        stepped = [s for s in range(self.slots)
+                   if self._active[s] and self._primed[s]
+                   and len(self._buf[s]) >= cs]
+        if not stepped:
+            return {}
+        return self._step(stepped)
+
+    def _step(self, stepped):
+        cs = self.m.chunk_samples
+        chunks = np.zeros((self.slots, cs), np.float32)
+        for s in stepped:
+            chunks[s] = self._buf[s][:cs]
+            self._buf[s] = self._buf[s][cs:]
+            self._consumed[s] += cs
+        new_state, logp = self.m._step_fn(self._weights, self._state,
+                                          self.m.audio_tensor(chunks))
+        if len(stepped) < self.slots:
+            mask = np.zeros(self.slots, bool)
+            mask[stepped] = True
+            mask = torch.from_numpy(mask).to(self.m.device)
+            self._state = _map_state(
+                lambda n, o: torch.where(
+                    mask.view((-1,) + (1,) * (n.dim() - 1)), n, o),
+                new_state, self._state)
+        else:
+            self._state = new_state
+        logp = logp.cpu().numpy()
+        return {s: self._decode(s, logp[s]) for s in stepped}
+
+    def detach(self, slot: int, total_samples: int | None = None) -> str:
+        """Flush ``slot`` through the one-row finish and free it; returns
+        the final transcript."""
+        if not self._active[slot]:
+            raise ValueError(f'slot {slot} is not attached')
+        if not self._primed[slot]:
+            raise ValueError('detach before prime: stream shorter than the '
+                             'prime window; use the offline path')
+        tail = self._buf[slot]
+        if len(tail) > self.m.chunk_samples:
+            raise ValueError(f'slot {slot} has {len(tail)} samples pending '
+                             '(> one chunk); tick() until pending() < '
+                             'chunk_samples before detaching')
+        if total_samples is None:
+            total_samples = self._consumed[slot] + len(tail)
+        tail_len = total_samples - self._consumed[slot]
+        if not 0 <= tail_len <= self.m.chunk_samples:
+            raise ValueError('stream end must fall within the final '
+                             'partial chunk')
+        padded = np.zeros((1, self.m.chunk_samples), np.float32)
+        padded[0, :len(tail)] = tail
+        row_state = _map_state(lambda s: s[slot:slot + 1], self._state)
+        logp, valid = self.m._finish_fn(
+            self._weights, row_state, self.m.audio_tensor(padded),
+            torch.tensor([tail_len], dtype=torch.int64,
+                         device=self.m.device))
+        self._decode(slot, logp[0, :int(valid[0])].cpu().numpy())
+        text = self._text[slot]
+        self._active[slot] = False
+        return text
+
+    def abort(self, slot: int) -> None:
+        """Free ``slot`` without flushing (client vanished / stream too
+        short to prime). Safe in every slot state: the next attach resets
+        all host bookkeeping and prime overwrites the state rows."""
+        self._active[slot] = False
+
+    def text(self, slot: int) -> str:
+        return self._text[slot]
+
+    def pending(self, slot: int) -> int:
+        """Samples buffered but not yet dispatched for ``slot`` (detach
+        requires this to be below one chunk)."""
+        return len(self._buf[slot])
+
+    def primed(self, slot: int) -> bool:
+        """Whether ``slot``'s stream has filled its prime window."""
+        return self._primed[slot]
+
+    # ------------------------------------------------------------------
+
+    def _decode(self, slot: int, logp) -> str:
+        """Incremental greedy collapse (repeat state carried per slot)."""
+        if logp.shape[0] == 0:
+            return ''
+        ids = np.argmax(logp, axis=-1)
+        out, _, self._last[slot] = greedy_collapse(ids, self._last[slot])
+        fresh = ''.join(self.labels[i] for i in out)
+        self._text[slot] += fresh
+        return fresh

@@ -128,7 +128,7 @@ def main(argv=None) -> int:
     meta, folded, norm_stats = load_serving(args.artifact)
     if meta.get('family', 'wav2letter') != 'wav2letter':
         raise SystemExit('long-form supports the wav2letter family; Jasper '
-                         'streams (ROADMAP A.8)')
+                         'streams (ROADMAP A.8, second part)')
     if args.norm == 'cmvn' and norm_stats is None:
         raise SystemExit('--norm cmvn: artifact has no CMVN stats')
     try:
