@@ -118,12 +118,30 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    prime, step and finish at B=1, ``StreamMultiplexer.tick`` at 16, 64
    and 256 slots per weights mode with the real-time factor, launches,
    busy share, K1's share and peak memory.
-18. One ``{"kernels": [...]}`` line: per kernel its launches on the
+18. Exact QuartzNet-15x5 streaming (``StreamingJasper``: K1 once a
+   prime, step and finish, K4 on each of the 77 depthwise convs a phase),
+   on phase 13's run and its f32 artifact with CMVN, over 4 clips of 6
+   corpus utterances (~48.2 s each, past the 40.30 s prime window): K4
+   against its plain version at every shape the streamer gives it (a
+   prime, step and finish at B=1, a step at B=16) and K1 at the phases'
+   buffers; the streamed probabilities against the eval forward (K4 +
+   K6) on the clips zero-padded past the lookahead, within 1e-4 of max
+   |log p|, greedy strings equal but at near-ties; the streamer on the
+   card against the CPU (f32, int8 weights, int8_full; B=2); ``evaluate
+   --streaming --streaming-norm cmvn`` on the run and ``evaluate
+   --artifact`` on the artifact, no offline fallback, the dumps the
+   exactness check's strings, K1 and K4 counted and gated around each;
+   ``StreamMultiplexer`` over 16 streams against dedicated sessions; the
+   times: prime, step and finish at B=1, a tick at 16 and 64 slots (f32
+   and int8_full) with launches, busy share and peak memory, and the
+   host's time by function.
+19. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving and streaming
-   paths', K4-K7 QuartzNet's, K4/K6 also its lookahead stream's), max error
-   against the plain version, time, plain time, roofline bound and the time
-   of the nearest PyTorch library call (timed here only). K2 and K3 are
-   also timed at the long shape, and each prints its ns a dependent step.
+   paths', K4-K7 QuartzNet's, K4 also its lookahead and exact streams',
+   K6 its lookahead stream's), max error against the plain version,
+   time, plain time, roofline bound and the time of the nearest PyTorch
+   library call (timed here only). K2 and K3 are also timed at the long
+   shape, and each prints its ns a dependent step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 before printing any result.
@@ -154,7 +172,7 @@ from wav2letter_pytorch_tpu_torch import serve_tcp as port_serve
 from wav2letter_pytorch_tpu_torch import train as port_train
 from wav2letter_pytorch_tpu_torch import transcribe_long as port_long
 from wav2letter_pytorch_tpu_torch.config import load_config
-from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
+from wav2letter_pytorch_tpu_torch.data.audio_io import read_wav, write_wav
 from wav2letter_pytorch_tpu_torch.data.dataset import ManifestDataset
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
@@ -190,12 +208,15 @@ from wav2letter_pytorch_tpu_torch.ops.sep_conv import \
     out_length as sep_out_length
 from wav2letter_pytorch_tpu_torch.optim import constant_lr
 from wav2letter_pytorch_tpu_torch.serving import (
-    BoundedLookaheadStreamer, MeshInference, StreamClient, StreamMultiplexer,
-    StreamingTranscriber, StreamingWav2Letter, artifact_frontend,
-    bounded_stream_logprobs, load_serving, offline_forward,
-    offline_forward_q8, quantized_bytes, stream_logprobs,
+    BoundedLookaheadStreamer, MeshInference, StreamClient, StreamingJasper,
+    StreamMultiplexer, StreamingTranscriber, StreamingWav2Letter,
+    artifact_frontend, bounded_stream_logprobs, load_serving,
+    offline_forward, offline_forward_q8, quantized_bytes, stream_logprobs,
     streaming_from_artifact)
 from wav2letter_pytorch_tpu_torch.serving import infer as serving_infer
+from wav2letter_pytorch_tpu_torch.serving import streaming_jasper
+from wav2letter_pytorch_tpu_torch.serving.server import \
+    _map_state as map_state
 from wav2letter_pytorch_tpu_torch.serving.lookahead import (
     _conv_specs_jasper, _conv_specs_w2l, one_sided_context)
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
@@ -3288,6 +3309,467 @@ def phase_streaming(manifest: str, w2l_run: str, qn_run: str, arts: dict,
     return {'k1': k1, 'qn': qn, 'k1_err': k1_err}
 
 
+# ------------------------------------------------------- streaming Jasper
+
+# Clips longer than QuartzNet-15x5's 40.29 s prime window: QN_CLIP_UTTS
+# corpus utterances (~8.07 s each) concatenated, ~48.4 s: the prime and
+# at least 12 steps of 640 ms.
+QN_CLIP_UTTS = 6
+QN_CLIPS = 4
+QN_DW_OPS = 77               # depthwise convs a phase: C1, 15 x 5, C2
+# The stream vs the eval forward (K4 + K6) on the clips zero-padded past
+# the lookahead, on log(max(p, 1e-30)): max |d| / max |log p|. The same
+# float32 math in other orders (K6 fuses what the stream does as K4 and a
+# product); card vs CPU streams (f32, int8 weights) likewise.
+QN_STREAM_RTOL = 1e-4
+QN_CPU_CLIPS = 2
+QN_MUX_STREAMS = 16
+QN_TICK_SLOTS = (16, 64)
+
+
+def log_probs(p: np.ndarray) -> np.ndarray:
+    return np.log(np.maximum(p, 1e-30))
+
+
+def write_clips(manifest: str, root: str) -> str:
+    """QN_CLIPS WAVs of QN_CLIP_UTTS corpus utterances each, with their
+    transcripts joined; returns their manifest."""
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    out = []
+    for c in range(QN_CLIPS):
+        part = range(c * QN_CLIP_UTTS, (c + 1) * QN_CLIP_UTTS)
+        path = os.path.join(root, f'clip{c}.wav')
+        write_wav(path, np.concatenate([
+            read_wav(rows[i]['audio_filepath'])[0] for i in part]), 16000)
+        out.append({'audio_filepath': path,
+                    'text': ' '.join(rows[i]['text'] for i in part)})
+    clips = os.path.join(root, 'qn_clips.jsonl')
+    with open(clips, 'w') as f:
+        f.write('\n'.join(json.dumps(r) for r in out) + '\n')
+    return clips
+
+
+def stream_phases(sw, n: int) -> int:
+    """Phases of one stream of ``n`` samples: a prime, a step a full
+    chunk after it, a finish."""
+    return 2 + (n - sw.prime_samples) // sw.chunk_samples
+
+
+def phase_qn_stream_kernels(sw, audio) -> tuple:
+    """(a) K4 against its plain version at every (B, T, C, K, s, d) the
+    streamer gives it in a prime, a step and a finish at B=1 and a step
+    at B=16 (the multiplexer's shapes), p = 0; K1 at the phases' buffers
+    (phase 3's gates). Returns K4's largest |d| and K1's largest
+    error."""
+    seen, bufs = {}, []
+    orig_dw, orig_k1 = streaming_jasper.depthwise_fwd, sw._frames_to_mel
+
+    def dw(x, w, s, d, p):
+        seen.setdefault((*x.shape, w.shape[0], s, d, p), None)
+        return orig_dw(x, w, s, d, p)
+
+    def k1(buf, n):
+        bufs.append((buf.contiguous(), n))
+        return orig_k1(buf, n)
+    streaming_jasper.depthwise_fwd, sw._frames_to_mel = dw, k1
+    try:
+        w = sw._weights_dev
+        a = torch.from_numpy(audio[None, :sw.prime_samples
+                                   + sw.chunk_samples]).to(DEVICE)
+        state, _ = sw._prime_fn(w, a[:, :sw.prime_samples])
+        step = a[:, sw.prime_samples:]
+        new, _ = sw._step_fn(w, state, step)
+        sw._finish_fn(w, new, step, torch.full(
+            (1,), sw.chunk_samples // 3, device=DEVICE))
+        # a tick of 16 slots: the multiplexer primes and finishes at B=1
+        sw._step_fn(w, map_state(lambda t: t.repeat_interleave(16, dim=0),
+                                 state), step.repeat(16, 1))
+    finally:
+        streaming_jasper.depthwise_fwd = orig_dw
+        del sw._frames_to_mel
+    rng = np.random.default_rng(61)
+    worst, err_abs, kinds = 0.0, 0.0, set()
+    for B, T, C, K, s, d, p in seen:
+        x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(
+            np.float32)).to(DEVICE)
+        wk = torch.from_numpy((0.1 * rng.standard_normal((K, C))).astype(
+            np.float32)).to(DEVICE)
+        got = depthwise_fwd(x, wk, s, d, p)
+        ref = depthwise_fwd_reference(x, wk, s, d, p)
+        worst = max(worst, rel_err(got, ref))
+        err_abs = max(err_abs, (got - ref).abs().max().item())
+        kinds.add((C, K, s, d))
+    check(worst < SEP_DW_RTOL and not any(p for *_, p in seen),
+          f'K4 at the QuartzNet streamer\'s {len(seen)} shapes ({len(kinds)} '
+          f'(C, K, s, d); prime, step and finish at B=1, step at 16; p = 0) '
+          f'vs '
+          f'its plain version: max |d| / max |plain| {worst:.2e} (gate '
+          f'{SEP_DW_RTOL})')
+    errs = []
+    for (buf, n), what in zip(bufs, ['prime', 'step', 'finish', 'step']):
+        lens = torch.full((buf.shape[0],), (n - 1) * sw.hop,
+                          dtype=torch.int32, device=DEVICE)
+        errs.append(k1_compare(f'QuartzNet streaming {what} '
+                               f'B={buf.shape[0]}', sw.frontend, buf, lens,
+                               n))
+    return err_abs, max(errs)
+
+
+def qn_offline(qn_run: str, stats, utts, sw) -> dict:
+    """The run's eval Jasper (K4 + K6) on the card behind a frontend with
+    the artifact's CMVN, on the clips zero-padded past the lookahead as
+    the JAX parity test pads: {path: probabilities [T', L]}."""
+    cfg, model, _, _ = load_run(qn_run)
+    model.to(DEVICE).eval()
+    fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE,
+                        norm_stats=stats)
+    pad = max(len(a) for _, a in utts) + (sw.lookahead_frames + 16) * sw.hop
+    audio = np.zeros((len(utts), pad), np.float32)
+    for j, (_, a) in enumerate(utts):
+        audio[j, :len(a)] = a
+    with torch.no_grad():
+        feats, flens = fe(torch.from_numpy(audio).to(DEVICE),
+                          torch.tensor([len(a) for _, a in utts],
+                                       device=DEVICE))
+        probs, lens = model(feats, flens)
+    probs, lens = probs.cpu().numpy(), lens.cpu().numpy()
+    return {p: probs[j, :lens[j]] for j, (p, _) in enumerate(utts)}
+
+
+def greedy_equal(greedy, ref: dict, got: dict, what: str) -> dict:
+    """Greedy strings of ``got`` (probabilities), each equal to ``ref``'s
+    but where they differ only at near-ties (a top-2 gap of ``ref``'s log
+    probabilities below NEAR_TIE at every frame whose argmax differs)."""
+    strings, ties = {}, 0
+    for p, r in ref.items():
+        a, b = greedy.decode(r[None])[0], greedy.decode(got[p][None])[0]
+        strings[p] = b
+        if a != b:
+            top2 = np.sort(log_probs(r), axis=-1)[:, -2:]
+            flips = np.nonzero(r.argmax(-1) != got[p].argmax(-1))[0]
+            gaps = (top2[flips, 1] - top2[flips, 0]).tolist()
+            name = os.path.basename(p) if isinstance(p, str) else p
+            check(max(gaps) < NEAR_TIE, f'{what}, {name}: the strings '
+                  f'differ only at near-ties (gaps {gaps})')
+            ties += 1
+    print(f'{what}: {len(ref) - ties} of {len(ref)} greedy strings equal, '
+          f'{ties} at near-ties')
+    return strings
+
+
+def phase_qn_stream_exact(art: str, qn_run: str, utts, card: str,
+                          counts: dict):
+    """(b) The f32 stream of the artifact (its CMVN), one session a clip,
+    against the eval forward: returns (streamer, streamed strings)."""
+    sw, labels, meta = streaming_from_artifact(art, chunk_frames=STREAM_CHUNK,
+                                               device=DEVICE)
+    stats = load_serving(art)[2]
+    phases = sum(stream_phases(sw, len(a)) for _, a in utts)
+    stft_mel_log.launches = depthwise_fwd.launches = 0
+    t0 = time.perf_counter()
+    got = stream_all(sw, utts)
+    secs = time.perf_counter() - t0
+    counts['stream_logprobs'] = (stft_mel_log.launches,
+                                 depthwise_fwd.launches)
+    check(counts['stream_logprobs'] == (phases, QN_DW_OPS * phases),
+          f'QuartzNet streams: K1 {stft_mel_log.launches}, K4 '
+          f'{depthwise_fwd.launches} launches over {phases} phases (one and '
+          f'{QN_DW_OPS} a phase)')
+    ref = qn_offline(qn_run, stats, utts, sw)
+    scale = max(float(np.abs(log_probs(r)).max()) for r in ref.values())
+    err = 0.0
+    for p, r in ref.items():
+        check(got[p].shape == r.shape, f'{os.path.basename(p)}: streamed '
+              f'{got[p].shape[0]} frames, offline {r.shape[0]}')
+        err = max(err, float(np.abs(log_probs(got[p]) - log_probs(r)).max()))
+    audio_s = sum(len(a) for _, a in utts) / 16000
+    check(err <= QN_STREAM_RTOL * scale,
+          f'QuartzNet-15x5 streaming (B=1, chunk {STREAM_CHUNK}, prime '
+          f'{sw.prime_samples / 16000:.2f} s, lookahead '
+          f'{sw.lookahead_frames} frames) vs its eval forward (K4 + K6), '
+          f'{len(utts)} clips of {audio_s / len(utts):.1f} s, same CMVN: max '
+          f'|d log p| {err:.3e}, {err / scale:.2e} of max |log p| '
+          f'{scale:.2f} (gate {QN_STREAM_RTOL}); {secs:.2f} s, '
+          f'{audio_s / secs:.1f} s of audio a second [{card}]')
+    strings = greedy_equal(port_eval.GreedyDecoder(labels), ref, got,
+                           'QuartzNet stream vs offline')
+    return sw, strings
+
+
+def phase_qn_stream_card_vs_cpu(art: str, utts):
+    """(c) StreamingJasper on the card against the same class on the CPU
+    on two clips cut to one length (one B=2 session each): f32 and int8
+    weights within QN_STREAM_RTOL of max |log p|; in every mode the greedy
+    strings equal but at near-ties (int8_full: an activation at an int8
+    rounding edge may quantize apart, as K1 and the plain DFT differ in
+    the last bits, so its log-probabilities are printed, not gated)."""
+    meta, folded, stats = load_serving(art)
+    greedy = port_eval.GreedyDecoder(meta['labels'])
+    n = min(len(a) for _, a in utts[:QN_CPU_CLIPS])
+    audio = np.stack([a[:n] for _, a in utts[:QN_CPU_CLIPS]])
+    for weights in ('f32', 'int8', 'int8_full'):
+        outs = []
+        t0 = time.perf_counter()
+        for dev in (DEVICE, torch.device('cpu')):
+            sw = StreamingJasper(meta['jasper_blocks'], meta['num_labels'],
+                                 None, artifact_frontend(meta, device=dev),
+                                 folded=folded, weights=weights,
+                                 chunk_frames=STREAM_CHUNK,
+                                 norm='precomputed', norm_stats=stats,
+                                 device=dev)
+            with torch.no_grad():
+                sess = sw.start(QN_CPU_CLIPS)
+                emitted = [sess.feed(audio)]
+                fin, valid = sess.finish()
+            out = np.concatenate(emitted + [fin], axis=1)
+            v = sess.head_frames_emitted + valid
+            outs.append([out[b, :v[b]] for b in range(QN_CPU_CLIPS)])
+        card, cpu = outs
+        err = max(float(np.abs(log_probs(a) - log_probs(b)).max())
+                  for a, b in zip(card, cpu))
+        scale = max(float(np.abs(log_probs(b)).max()) for b in cpu)
+        agree = np.mean(np.concatenate([a.argmax(-1) == b.argmax(-1)
+                                        for a, b in zip(card, cpu)]))
+        greedy_equal(greedy, dict(enumerate(cpu)), dict(enumerate(card)),
+                     f'QuartzNet streaming {weights}, card vs CPU')
+        check(weights == 'int8_full' or err <= QN_STREAM_RTOL * scale,
+              f'QuartzNet streaming {weights}, card vs CPU, '
+              f'{QN_CPU_CLIPS} clips of {n / 16000:.1f} s (B=2): max |d log '
+              f'p| {err:.3e} ({err / scale:.1e} of max |log p|'
+              + ('' if weights == 'int8_full' else
+                 f', gate {QN_STREAM_RTOL}') + f'), argmax agreement '
+              f'{agree:.4f}; {time.perf_counter() - t0:.1f} s')
+
+
+def phase_qn_stream_cli(clips: str, art: str, qn_run: str, utts, sw,
+                        strings: dict, root: str, card: str, counts: dict):
+    """(d) evaluate --streaming --streaming-norm cmvn on the run and
+    evaluate --artifact on its artifact, over the clips: no offline
+    fallback, the dumps (b)'s strings; K1 once and K4 QN_DW_OPS times a
+    phase (the CMVN pass: K1 once a clip)."""
+    phases = sum(stream_phases(sw, len(a)) for _, a in utts)
+    for name, argv, k1_extra in (
+            ('--streaming --streaming-norm cmvn',
+             ['--model-path', qn_run, '--streaming', '--streaming-norm',
+              'cmvn', '--streaming-cmvn-manifest', clips], len(utts)),
+            ('--artifact', ['--artifact', art], 0)):
+        dump = os.path.join(root, f'qn_stream_{len(counts)}.jsonl')
+        lines, err, secs, launches = run_counted(
+            port_eval.main, [*argv, '--test-manifest', clips, '--device',
+                             str(DEVICE), '--dump-jsonl', dump],
+            (stft_mel_log, depthwise_fwd),
+            f'evaluate {name} (QuartzNet-15x5)',
+            {'stft_mel_log': phases + k1_extra,
+             'depthwise_fwd': QN_DW_OPS * phases})
+        counts[f'evaluate {name}'] = (launches['stft_mel_log'],
+                                      launches['depthwise_fwd'])
+        result = json.loads(lines[-1])
+        hyps = {p: r['hyp'] for p, r in read_dump(dump).items()}
+        print(f'evaluate.main {name} (QuartzNet-15x5): {json.dumps(result)}; '
+              f'{err.strip().splitlines()[-1] if err.strip() else ""}; '
+              f'{secs:.2f} s end to end [{card}]')
+        check(result['num_utterances'] == len(utts) and result['streaming']
+              and result.get('offline_fallback', 0) == 0
+              and result.get('skipped_below_prime', 0) == 0
+              and hyps == strings,
+              f'{name}: {len(utts)} clips streamed, no offline fallback, '
+              'the dump has the strings of the exactness check')
+
+
+def qn_mux_streams(utts) -> list:
+    """QN_MUX_STREAMS streams: the clips, each again with its first 0.2 s
+    more cut off per round."""
+    n = len(utts)
+    return [utts[s % n][1][(s // n) * 3200:] for s in range(QN_MUX_STREAMS)]
+
+
+def phase_qn_stream_mux(sw, utts, labels, card: str, counts: dict):
+    """(e) StreamMultiplexer over QN_MUX_STREAMS streams of the clips
+    (attached together, stepped by tick_ready until each has less than a
+    chunk left, detached): each stream's probabilities within
+    QN_STREAM_RTOL of max |log p| of its dedicated session's (B=1, where
+    the products run at another M) and its transcript the dedicated
+    session's but at near-ties; K1 once and K4 QN_DW_OPS times a prime,
+    tick and finish."""
+    streams = qn_mux_streams(utts)
+    with torch.no_grad():
+        ref = {i: stream_logprobs(sw, a[None])[0]
+               for i, a in enumerate(streams)}
+    stft_mel_log.launches = depthwise_fwd.launches = 0
+    t0 = time.perf_counter()
+    mux = StreamMultiplexer(sw, slots=QN_MUX_STREAMS, labels=labels)
+    boot = (stft_mel_log.launches, depthwise_fwd.launches)
+    slots = [mux.attach() for _ in streams]
+    rows = {s: [] for s in slots}
+    decode = mux._decode
+
+    def record(slot, out):
+        rows[slot].append(out)
+        return decode(slot, out)
+    mux._decode = record
+    for s, a in zip(slots, streams):
+        mux.feed(s, a)
+    ticks = 0
+    while any(mux.pending(s) >= sw.chunk_samples for s in slots):
+        ticks += bool(mux.tick_ready())
+    texts = [mux.detach(s) for s in slots]
+    secs = time.perf_counter() - t0
+    phases = 1 + 2 * QN_MUX_STREAMS + ticks     # with the bootstrap prime
+    counts['StreamMultiplexer'] = (stft_mel_log.launches,
+                                   depthwise_fwd.launches)
+    got = {i: np.concatenate(rows[s]) for i, s in enumerate(slots)}
+    greedy = port_eval.GreedyDecoder(labels)
+    strings = greedy_equal(greedy, ref, got,
+                           'StreamMultiplexer vs dedicated sessions')
+    err = max(float(np.abs(log_probs(got[i]) - log_probs(r)).max())
+              if got[i].shape == r.shape else math.inf
+              for i, r in ref.items())
+    scale = max(float(np.abs(log_probs(r)).max()) for r in ref.values())
+    audio_s = sum(len(a) for a in streams) / 16000
+    check(texts == [strings[i] for i in range(len(streams))]
+          and err <= QN_STREAM_RTOL * scale and boot == (1, QN_DW_OPS)
+          and counts['StreamMultiplexer'] == (phases, QN_DW_OPS * phases),
+          f'StreamMultiplexer, QuartzNet-15x5, {QN_MUX_STREAMS} streams '
+          f'({audio_s:.1f} s of audio) vs dedicated sessions: max |d log p| '
+          f'{err:.3e} ({err / scale:.1e} of max |log p|, gate '
+          f'{QN_STREAM_RTOL}); {ticks} ticks; K1 {stft_mel_log.launches}, '
+          f'K4 {depthwise_fwd.launches} launches over {phases} phases (one '
+          f'and {QN_DW_OPS} a phase); {secs:.2f} s [{card}]')
+
+
+def phase_qn_stream_timing(art: str, card: str):
+    """B=1 prime, step and finish ms, and StreamMultiplexer.tick at
+    QN_TICK_SLOTS slots with launches, busy share and peak memory, f32
+    and int8_full (dynamic scales)."""
+    meta, folded, stats = load_serving(art)
+    labels = meta['labels']
+    rng = np.random.default_rng(31)
+    chunk_ms = STREAM_CHUNK * 10.0
+    for weights in ('f32', 'int8_full'):
+        sw = StreamingJasper(meta['jasper_blocks'], meta['num_labels'], None,
+                             artifact_frontend(meta, device=DEVICE),
+                             folded=folded, weights=weights,
+                             chunk_frames=STREAM_CHUNK, norm='precomputed',
+                             norm_stats=stats, device=DEVICE)
+        w = sw._weights_dev
+        a = torch.from_numpy((0.1 * rng.standard_normal(
+            (1, sw.prime_samples + sw.chunk_samples))).astype(np.float32)).to(
+            DEVICE)
+        prime, step = a[:, :sw.prime_samples], a[:, sw.prime_samples:]
+        state, _ = sw._prime_fn(w, prime)
+        tail = torch.tensor([sw.chunk_samples // 2], device=DEVICE)
+        phases = {'prime': lambda: sw._prime_fn(w, prime),
+                  'step': lambda: sw._step_fn(w, state, step),
+                  'finish': lambda: sw._finish_fn(w, state, step, tail)}
+        print(f'QuartzNet-15x5 streaming phases, B=1, {weights}, chunk '
+              f'{STREAM_CHUNK}: ' + '; '.join(
+                  f'{k} {cuda_ms(f, iters=5, warmup=1, queued=False):.3f} ms '
+                  f'({device_ms(f):.3f} ms device)'
+                  for k, f in phases.items()) + f' [{card}]')
+        profile_top(lambda: [phases['step']() for _ in range(3)],
+                    f'three QuartzNet {weights} steps at B=1')
+        if weights == 'f32':
+            host_profile(lambda: [phases['step']() for _ in range(3)],
+                         'three QuartzNet f32 steps at B=1')
+        for slots in QN_TICK_SLOTS:
+            ms, peak, prof = time_ticks(sw, slots, labels, rng)
+            prof_text = 'profiler: no device time (not measured)' \
+                if prof is None else (
+                    f'{prof[0]:.0f} launches a tick, device busy '
+                    f'{prof[1]:.1%}, K1 {prof[2]:.2%} of the busy time')
+            rtf = ms / chunk_ms
+            print(f'StreamMultiplexer.tick, QuartzNet-15x5, {weights}, '
+                  f'{slots} slots: {ms:.3f} ms a tick, real-time factor '
+                  f'{rtf:.4f}, {int(slots / rtf)} streams at real time at '
+                  f'this batch; peak memory {peak:.3f} GiB; {prof_text} '
+                  f'[{card}]')
+
+
+def device_ms(fn, n: int = 3) -> float:
+    """Device time of one call of ``fn``: the profiler's kernel time over
+    ``n`` calls, divided by ``n`` (NaN where it recorded none). Unlike
+    ``cuda_ms`` it holds for a call of more launches than the device's
+    queue takes (~1 000), whose host side no spin can hide."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in kernel_rows(prof))
+    return busy / n / 1e3 if busy > 0 else math.nan
+
+
+def host_profile(fn, what: str, top: int = 10):
+    """The host's time by function (cProfile, own time) over ``fn``."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    total = stats.total_tt
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f'host profile, {what}: {total * 1e3:.1f} ms in Python')
+    for (path, line, name), (_, calls, own, cum, _) in rows:
+        print(f'  {100 * own / total:5.1f}%  {own * 1e3:8.2f} ms own '
+              f'{cum * 1e3:8.2f} ms cum  x{calls:<6d} '
+              f'{os.path.basename(path)}:{line}({name})')
+
+
+def phase_streaming_jasper(manifest: str, qn_run: str, root: str,
+                           card: str) -> dict:
+    """Exact QuartzNet-15x5 streaming (StreamingJasper: K1 a phase, K4 on
+    each of 77 depthwise convs a phase) on the QuartzNet run and its
+    artifact, over clips longer than the prime window. Returns K1's and
+    K4's launches by entry point and their largest errors at the
+    streamer's shapes."""
+    t0 = time.time()
+    secs = {}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        secs[name] = round(time.time() - t, 1)
+        return out
+    clips = write_clips(manifest, root)
+    art = os.path.join(root, 'artifact_qn')
+    k1_export = {}
+    timed('export', run_quiet, port_export.main, [
+        '--model-path', qn_run, '--out', art, '--cmvn-manifest', clips,
+        '--device', str(DEVICE)], k1_export, 'export_serving (QuartzNet)',
+          QN_CLIPS)
+    meta = load_serving(art)[0]
+    labels = meta['labels']
+    utts = corpus_audio(clips, labels)
+    counts = {}
+    sw, strings = timed('exact', phase_qn_stream_exact, art, qn_run, utts,
+                        card, counts)
+    check(meta['family'] == 'jasper'
+          and sw.prime_samples < min(len(a) for _, a in utts)
+          - 12 * sw.chunk_samples,
+          f'QuartzNet artifact streams: prime {sw.prime_frames} frames '
+          f'({sw.prime_samples / 16000:.2f} s), clips '
+          f'{min(len(a) for _, a in utts) / 16000:.2f} s and longer')
+    k4_err, k1_err = timed('K4', phase_qn_stream_kernels, sw, utts[0][1])
+    timed('card vs CPU', phase_qn_stream_card_vs_cpu, art, utts)
+    timed('evaluate', phase_qn_stream_cli, clips, art, qn_run, utts, sw,
+          strings, root, card, counts)
+    timed('multiplexer', phase_qn_stream_mux, sw, utts, labels, card, counts)
+    timed('times', phase_qn_stream_timing, art, card)
+    k1 = {k: v[0] for k, v in counts.items()}
+    k4 = {k: v[1] for k, v in counts.items()}
+    print(f'QuartzNet streaming path: K1 {json.dumps(k1)}, K4 '
+          f'{json.dumps(k4)}; phase {time.time() - t0:.1f} s, by part '
+          f'{json.dumps(secs)}')
+    return {'k1': k1, 'k4': k4, 'k1_err': k1_err, 'k4_err': k4_err}
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -3377,6 +3859,9 @@ def main() -> int:
         # Streaming: the Wav2Letter-20 run and its artifacts, QuartzNet's
         stream = phase_streaming(manifest, w2l_run, qn_run, arts, root, card)
         torch.cuda.empty_cache()
+        # Streaming QuartzNet-15x5: its run and an artifact of it
+        qn_stream = phase_streaming_jasper(manifest, qn_run, root, card)
+        torch.cuda.empty_cache()
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -3405,12 +3890,17 @@ def main() -> int:
                      k7_err, k7_numbers),
     ]
     # K1's launches on the serving and streaming paths, apart from the
-    # training path's; K4's and K6's on the QuartzNet lookahead stream
+    # training path's; K4's on the QuartzNet lookahead and exact streams,
+    # K6's on the lookahead
     kernels[0]['serving_launches'] = sum(serve_k1.values())
-    kernels[0]['streaming_launches'] = sum(stream['k1'].values())
+    kernels[0]['streaming_launches'] = sum(stream['k1'].values()) + sum(
+        qn_stream['k1'].values())
     kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
-                                    stream['k1_err'])
-    kernels[3]['streaming_launches'] = stream['qn']['depthwise_fwd']
+                                    stream['k1_err'], qn_stream['k1_err'])
+    kernels[3]['streaming_launches'] = stream['qn']['depthwise_fwd'] + sum(
+        qn_stream['k4'].values())
+    kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
+                                    qn_stream['k4_err'])
     kernels[5]['streaming_launches'] = stream['qn']['sep_fwd']
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):

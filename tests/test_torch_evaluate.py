@@ -537,7 +537,7 @@ def test_artifact_of_a_port_run_scores_as_its_run(port_run, tmp_path,
 
 
 @pytest.mark.parametrize('argv, match', [
-    (['--artifact', '{jasper_art}'], 'A.8, second part'),
+    (['--artifact', '{jasper_art}', '--offline'], 'supports wav2letter'),
     (['--offline'], 'artifact-eval mode'),
     (['--int8-full'], 'applies to --artifact --offline'),
     (['--artifact', '{art}', '--offline', '--word-timings'],
@@ -551,9 +551,9 @@ def test_artifact_of_a_port_run_scores_as_its_run(port_run, tmp_path,
     (['--artifact', '{art}', '--offline', '--beam-backend', 'device'],
      'beam-backend device')])
 def test_artifact_flags_refused(port_run, tmp_path, argv, match):
-    """Flags an artifact evaluation refuses, as test.py's; streaming a
-    Jasper artifact (here a Wav2Letter artifact relabelled as one) is
-    ROADMAP A.8's second part."""
+    """Flags an artifact evaluation refuses, as test.py's; a Jasper
+    artifact (here a Wav2Letter artifact relabelled as one) streams but
+    is refused --offline, as test.py refuses it."""
     from wav2letter_pytorch_tpu_torch import export_serving as export_cli
     run, manifest, _ = port_run
     art = str(tmp_path / 'art')
@@ -625,9 +625,9 @@ def test_artifact_streaming_prints_what_test_py_prints(tmp_path, jax_run,
     """test.py --artifact (streaming) on a JAX export with CMVN and the
     port's evaluate --artifact on the CPU: the same pairs, dump and JSON
     line; utterances no longer than the prime window skipped as JAX
-    skips them. The port's own artifact of its run streams too, and a
-    Jasper model without --lookahead-frames is refused (A.8, second
-    part)."""
+    skips them. The port's own artifact of its run streams too, and so
+    does a QuartzNet model without --lookahead-frames (StreamingJasper;
+    held to test.py in tests/test_torch_jasper_serving.py)."""
     import test as test_cli
     run, manifest, _, _ = jax_run
     art = _jax_export(run, str(tmp_path / 'art'), '--cmvn-manifest',
@@ -658,8 +658,9 @@ def test_artifact_streaming_prints_what_test_py_prints(tmp_path, jax_run,
                           'cpu'], capsys)
     assert got['num_utterances'] + got['skipped_below_prime'] == 6
     assert got['weights'] == 'f32' and 'decode' not in got
-    with pytest.raises(SystemExit, match='A.8, second part'):
-        port_eval.main(['--test-manifest', pmanifest, '--device', 'cpu',
-                        '--streaming', 'model=quartznet',
-                        'model.mid_layers=1',
-                        'model.jasper_blocks.0.layer_size=16'])
+    got, _, _ = _run_cli(['--test-manifest', pmanifest, '--device', 'cpu',
+                          '--streaming', '--streaming-chunk-frames', '16',
+                          'model=quartznet', 'model.mid_layers=1',
+                          'model.jasper_blocks.0.layer_size=16'], capsys)
+    assert got['streaming'] and got['weights'] == 'f32'
+    assert got['num_utterances'] == 6 and got['offline_fallback'] == 0

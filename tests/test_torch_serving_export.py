@@ -213,7 +213,7 @@ def test_export_cli_refusals(port_run, tmp_path):
     cfg = load_config(['data.train_manifest=-', 'data.val_manifest=-',
                        'model=quartznet'])
     (jasper / 'config.json').write_text(json.dumps(cfg))
-    with pytest.raises(SystemExit, match='A.8'):
+    with pytest.raises(SystemExit, match='stored f32'):
         export_cli.main(['--model-path', str(jasper), '--out',
-                         str(tmp_path / 'b'), '--device', 'cpu'])
+                         str(tmp_path / 'b'), '--int8', '--device', 'cpu'])
     assert not (tmp_path / 'b').exists()

@@ -47,14 +47,14 @@ streaming path (``serving.streaming_from_artifact``), one session an
 utterance, greedily, skipping utterances no longer than the prime window.
 
 Streaming, as ``test.py --streaming``: ``--model-path`` (or a model from
-the config) runs through ``serving.StreamingWav2Letter`` (kernel K1 on
-every prime, step and finish, f32 or ``--int8`` weights, cumulative or
-corpus-CMVN normalisation by ``--streaming-norm``), utterances shorter
-than the prime window through the eval forward; with
+the config) runs through ``serving.StreamingWav2Letter`` or, for Jasper
+and QuartzNet, ``serving.StreamingJasper`` (kernel K1 on every prime, step
+and finish, K4 on every depthwise conv of Jasper's; f32 or ``--int8``
+weights, cumulative or corpus-CMVN normalisation by ``--streaming-norm``),
+utterances shorter than the prime window through the eval forward; with
 ``--lookahead-frames`` through ``serving.BoundedLookaheadStreamer`` (the
-model over a window a chunk; Wav2Letter, Jasper and QuartzNet). Streaming
-a Jasper model without ``--lookahead-frames`` is ROADMAP A.8's second
-part.
+model over a window a chunk). ``--artifact`` without ``--offline``
+streams either family's artifact.
 """
 
 from __future__ import annotations
@@ -77,11 +77,11 @@ from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
 from .runtime import resolve_device
 from .serving import (MeshInference, artifact_frontend, compute_cmvn,
                       load_serving, quantize_folded, streaming_from_artifact)
-from .serving.export import JASPER_STREAMING_TODO
 from .serving.lookahead import (BoundedLookaheadStreamer,
                                 _conv_specs_jasper, _conv_specs_w2l,
                                 bounded_stream_logprobs)
 from .serving.streaming import StreamingWav2Letter, stream_logprobs
+from .serving.streaming_jasper import StreamingJasper
 from .training.build import (build_frontend, build_labels, build_model,
                              load_run)
 from .training.metrics import RatioAccumulator
@@ -511,7 +511,7 @@ def run_artifact_streaming_eval(args, meta: dict, dev) -> int:
         sw, labels, _ = streaming_from_artifact(
             args.artifact, chunk_frames=args.streaming_chunk_frames,
             device=dev)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(str(e))
     decoder = GreedyDecoder(labels)
     ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels)
@@ -566,7 +566,8 @@ def streaming_norm_kwargs(args, cfg, labels, dev) -> dict:
 
 def _eval_forward_padded(model, frontend, audio: np.ndarray, dev):
     """The eval forward of one utterance zero-padded to the 0.5 s grid:
-    log-probs ``[1, T', L]`` over its valid frames (numpy)."""
+    its output ``[1, T', L]`` over the valid frames (numpy; Wav2Letter's
+    log-probs, Jasper's probabilities)."""
     L = audio.shape[1]
     grid = max(frontend.conf.sample_rate // 2, 1)
     buf = np.zeros((1, -(-L // grid) * grid), np.float32)
@@ -582,21 +583,25 @@ def _eval_forward_padded(model, frontend, audio: np.ndarray, dev):
 def run_streaming_eval(args, cfg, model, frontend, decoder, labels,
                        dev) -> int:
     """``test.py --streaming``: each utterance through a fresh
-    ``StreamingWav2Letter`` session (or, no longer than the prime window,
-    the eval forward at the 0.5 s-grid length), decoded by ``decoder``;
-    prints the JSON line."""
+    ``StreamingWav2Letter`` or ``StreamingJasper`` session (or, no longer
+    than the prime window, the eval forward at the 0.5 s-grid length),
+    decoded by ``decoder`` (Jasper's probabilities, Wav2Letter's
+    log-probabilities); prints the JSON line."""
     mcfg = cfg['model']
-    if mcfg['name'] == 'jasper':
-        raise SystemExit(f'--streaming without --lookahead-frames: '
-                         f'{JASPER_STREAMING_TODO}')
-    layers = [dict(l) for l in mcfg['layers']][:int(mcfg['mid_layers'])]
-    sw = StreamingWav2Letter(
-        layers, len(labels), model,
-        build_frontend(mcfg, dither=0.0, device=dev),
-        chunk_frames=args.streaming_chunk_frames,
-        weights='int8' if args.int8 else 'f32',
-        padding_mode=mcfg.get('padding_mode', 'reflect'), device=dev,
-        **streaming_norm_kwargs(args, cfg, labels, dev))
+    emits_probs = mcfg['name'] == 'jasper'
+    mid = int(mcfg['mid_layers'])
+    kw = dict(chunk_frames=args.streaming_chunk_frames,
+              weights='int8' if args.int8 else 'f32', device=dev,
+              **streaming_norm_kwargs(args, cfg, labels, dev))
+    frontend_s = build_frontend(mcfg, dither=0.0, device=dev)
+    if emits_probs:
+        sw = StreamingJasper([dict(b) for b in mcfg['jasper_blocks']][:mid],
+                             len(labels), model, frontend_s, **kw)
+    else:
+        sw = StreamingWav2Letter(
+            [dict(l) for l in mcfg['layers']][:mid], len(labels), model,
+            frontend_s, padding_mode=mcfg.get('padding_mode', 'reflect'),
+            **kw)
     sr = sw.sample_rate
     hop_ms = float(mcfg['audio_conf']['window_stride']) * 1e3
     print(f'streaming: prime {sw.prime_samples / sr:.2f}s, chunk '
@@ -618,13 +623,14 @@ def run_streaming_eval(args, cfg, model, frontend, decoder, labels,
             else:
                 logp = stream_logprobs(sw, audio)
             timed = args.word_timings
+            probs = logp if emits_probs else np.exp(logp)
             if isinstance(decoder, DeviceBeamDecoder):
-                out = decoder.decode(np.exp(logp), np.array([logp.shape[1]]),
+                out = decoder.decode(probs, np.array([logp.shape[1]]),
                                      return_offsets=timed)
                 decoded, offsets0 = (out[0][0], out[1][0]) if timed \
                     else (out[0], None)
             elif isinstance(decoder, PrefixBeamSearchLMDecoder):
-                out = decoder.decode(np.exp(logp)[0], return_offsets=timed)
+                out = decoder.decode(probs[0], return_offsets=timed)
                 decoded, offsets0 = out if timed else (out, None)
             else:
                 decoded, offsets = decoder.decode(logp, return_offsets=True)

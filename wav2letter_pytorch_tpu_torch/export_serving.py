@@ -14,8 +14,10 @@ labels and audio config; with ``--cmvn-manifest`` corpus CMVN statistics;
 with ``--calibrate`` static int8 activation scales for int8_full
 inference; with ``--lm-path`` the ARPA LM and its decode settings.
 CMVN and calibration run the frontend (kernel K1) and the folded stack on
-``--device``. Jasper artifacts wait for the Jasper streamer (ROADMAP
-A.8, second part).
+``--device``. A Jasper / QuartzNet run is exported as the JAX script
+exports one (``serving.export_serving_jasper``: the ``fold_jasper``
+descriptors, stored f32 and quantized at load, so ``--int8`` and
+``--calibrate`` are refused).
 """
 
 from __future__ import annotations
@@ -64,17 +66,20 @@ def main(argv=None) -> int:
     from .decoding.decoder import parse_beam_params
     from .runtime import resolve_device
     from .serving import (calibrate_activation_scales, compute_cmvn,
-                          export_serving, fold_batchnorm)
+                          export_serving, export_serving_jasper,
+                          fold_batchnorm)
     from .training.build import build_frontend, load_run, run_config
 
+    dev = resolve_device(args.device)
+    family = run_config(args.model_path)['model']['name']
+    if family not in ('wav2letter', 'jasper'):
+        raise SystemExit(f'unknown model family {family!r}')
+    if family == 'jasper' and (args.int8 or args.calibrate):
+        raise SystemExit('jasper artifacts are stored f32 — quantize '
+                         'at load (StreamingJasper weights="int8"); '
+                         '--int8/--calibrate apply to wav2letter only')
     if args.calibrate and not (args.int8 and args.cmvn_manifest):
         raise SystemExit('--calibrate needs --int8 and --cmvn-manifest')
-    dev = resolve_device(args.device)
-    name = run_config(args.model_path)['model']['name']
-    if name != 'wav2letter':
-        raise SystemExit(f'model {name!r}: the port exports wav2letter '
-                         'artifacts only; Jasper artifacts come with the '
-                         'Jasper streamer (ROADMAP A.8, second part)')
     cfg, model, labels, step = load_run(args.model_path,
                                         average_last=args.average_last)
     mcfg = cfg['model']
@@ -90,6 +95,20 @@ def main(argv=None) -> int:
         print(f'CMVN over {args.cmvn_manifest}: mean[0]='
               f'{norm_stats[0][0]:.3f} std[0]={norm_stats[1][0]:.3f}',
               file=sys.stderr)
+
+    if family == 'jasper':
+        blocks = [dict(b) for b in
+                  mcfg['jasper_blocks']][:int(mcfg['mid_layers'])]
+        export_serving_jasper(args.out, blocks, len(labels), model,
+                              labels=labels,
+                              audio_conf=dict(mcfg['audio_conf']),
+                              norm_stats=norm_stats,
+                              feature_type=mcfg.get('feature_type',
+                                                    'logmel'),
+                              n_mels=int(mcfg['input_size']))
+        print(f'wrote {args.out}/serving.npz + serving.json',
+              file=sys.stderr)
+        return 0
 
     layers = [dict(l) for l in mcfg['layers']][:int(mcfg['mid_layers'])]
     folded = fold_batchnorm(model, len(layers))

@@ -1,5 +1,5 @@
-"""Offline serving of a trained Wav2Letter (PyTorch): the offline half of
-the JAX package's ``serving/``.
+"""Serving of a trained Wav2Letter, Jasper or QuartzNet (PyTorch), offline
+and streaming: the JAX package's ``serving/`` but ``qat``.
 
 * ``fold`` — BatchNorm folded into the convs (``fold_batchnorm``);
 * ``quantize`` — per-channel int8 weights and static activation scales;
@@ -15,6 +15,9 @@ the JAX package's ``serving/``.
 * ``streaming`` — chunked stateful Wav2Letter inference, exact against
   the offline forward (``StreamingWav2Letter``, ``StreamingSession``),
   with greedy and beam transcribers; ``streaming_from_artifact``;
+* ``streaming_jasper`` — the same for Jasper and QuartzNet
+  (``fold_jasper``, ``StreamingJasper``: K1 a phase, K4 a depthwise
+  conv), and its artifacts (``export_serving_jasper``);
 * ``lookahead`` — bounded-lookahead streaming over the eval-mode models
   (``BoundedLookaheadStreamer``, Wav2Letter and Jasper);
 * ``endpoint`` — live endpointing into segments
@@ -23,13 +26,14 @@ the JAX package's ``serving/``.
   (``StreamMultiplexer``) and its TCP server and client
   (``StreamingServer``, ``StreamClient``), on one device.
 
-The Jasper streamer (``streaming_jasper``) is ROADMAP A.8's second part;
-quantization-aware finetuning (``qat``) is left for a later slice of A.7.
+Quantization-aware finetuning (``qat``) is left for a later slice of
+A.7.
 """
 
 from .endpoint import Segment, SegmentingTranscriber
 from .export import (artifact_frontend, compute_cmvn, export_serving,
-                     load_serving, streaming_from_artifact)
+                     export_serving_jasper, load_serving,
+                     streaming_from_artifact)
 from .fold import fold_batchnorm
 from .infer import offline_forward, offline_forward_q8
 from .longform import LongFormTranscriber, longform_logprobs
@@ -42,6 +46,8 @@ from .server import StreamMultiplexer
 from .streaming import (StreamingBeamTranscriber, StreamingSession,
                         StreamingTranscriber, StreamingWav2Letter,
                         stream_logprobs)
+from .streaming_jasper import (JasperStreamState, StreamingJasper,
+                               fold_jasper)
 
 __all__ = ['fold_batchnorm', 'offline_forward', 'offline_forward_q8',
            'quantize_folded', 'quantized_bytes',
@@ -52,4 +58,6 @@ __all__ = ['fold_batchnorm', 'offline_forward', 'offline_forward_q8',
            'StreamingBeamTranscriber', 'stream_logprobs',
            'streaming_from_artifact', 'BoundedLookaheadStreamer',
            'bounded_stream_logprobs', 'Segment', 'SegmentingTranscriber',
-           'StreamMultiplexer', 'StreamingServer', 'StreamClient']
+           'StreamMultiplexer', 'StreamingServer', 'StreamClient',
+           'export_serving_jasper', 'fold_jasper', 'StreamingJasper',
+           'JasperStreamState']

@@ -11,10 +11,12 @@ format, so an artifact written by either package loads in the other:
   scales and, with ``lm_path``, the bundled ``lm.arpa`` with its decode
   settings.
 
-``load_serving`` reads Jasper artifacts too (numpy only);
-``streaming_from_artifact`` builds the streaming model of a Wav2Letter
-artifact. Exporting a Jasper artifact (``export_serving_jasper``) and
-streaming one wait for the Jasper streamer (ROADMAP A.8, second part).
+A Jasper / QuartzNet artifact (``export_serving_jasper``) holds the
+``fold_jasper`` descriptors instead: ``b{i}_r{r}_o{j}_w``/``_b`` a conv,
+``b{i}_res{j}_w``/``_b`` a residual branch, ``_g``/``_beta`` a runtime
+norm, ``head_w``/``head_b``, with the geometry in ``serving.json``'s
+``blocks_meta``; it is stored f32 and quantized at load.
+``streaming_from_artifact`` builds the streaming model of either family.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 
 from .fold import fold_batchnorm
 from .quantize import quantize_folded
+from .streaming import StreamingWav2Letter
+from .streaming_jasper import StreamingJasper, fold_jasper
 
 
 def compute_cmvn(manifest_path: str, frontend_factory, labels, audio_conf,
@@ -131,13 +135,94 @@ def export_serving(out_dir: str, layers, num_labels: int, model,
     return out_dir
 
 
+def export_serving_jasper(out_dir: str, jasper_blocks, num_labels: int,
+                          model, labels=None, audio_conf=None,
+                          norm_stats=None, feature_type: str = 'logmel',
+                          n_mels: int | None = None) -> str:
+    """Write the serving artifact of a Jasper / QuartzNet (the folded f32
+    weights and their geometry); returns its directory.
+
+    ``model``: the port's ``Jasper`` or its state dict, folded with
+    ``streaming_jasper.fold_jasper``. Stored f32: int8 is applied at load
+    time (``StreamingJasper(weights='int8')`` quantizes the loaded fold),
+    so one artifact serves both formats, as in the JAX package.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = [dict(b) for b in jasper_blocks]
+    blocks, head = fold_jasper(model, cfg)
+    arrays, blocks_meta = {}, []
+
+    def put(key, w, b):
+        arrays[key + '_w'] = np.asarray(w, np.float32)
+        if b is not None:
+            arrays[key + '_b'] = np.asarray(b, np.float32)
+
+    def put_norm(key, norm):
+        """A runtime (non-batch) norm's scale, bias and group count; its
+        JSON descriptor (None for folded batch norm)."""
+        if norm is None:
+            return None
+        arrays[key + '_g'] = np.asarray(norm['gamma'], np.float32)
+        arrays[key + '_beta'] = np.asarray(norm['beta'], np.float32)
+        return {'ng': int(norm['ng'])}
+
+    for i, blk in enumerate(blocks):
+        bm = {k: blk[k] for k in ('residual_mode', 'activation', 'dense',
+                                  'mask', 'groups')}
+        bm['reps'] = []
+        for r, rep in enumerate(blk['reps']):
+            row = []
+            for j, op in enumerate(rep['ops']):
+                put(f'b{i}_r{r}_o{j}', op['w'], op['b'])
+                row.append({f: op[f] for f in ('k', 's', 'd', 'pad',
+                                               'depthwise', 'mask', 'fgc')})
+            bm['reps'].append({
+                'ops': row,
+                'norm': put_norm(f'b{i}_r{r}_norm', rep['norm'])})
+        bm['n_res'] = -1
+        if blk['res'] is not None:
+            bm['n_res'] = len(blk['res'])
+            bm['res'] = []
+            for j, entry in enumerate(blk['res']):
+                put(f'b{i}_res{j}', entry['w'], entry['b'])
+                bm['res'].append({
+                    'fgc': entry['fgc'],
+                    'norm': put_norm(f'b{i}_res{j}_norm', entry['norm'])})
+        blocks_meta.append(bm)
+    put('head', head[0], head[1])
+    if norm_stats is not None:
+        arrays['cmvn_mean'] = np.asarray(norm_stats[0], np.float32)
+        arrays['cmvn_std'] = np.asarray(norm_stats[1], np.float32)
+    np.savez(os.path.join(out_dir, 'serving.npz'), **arrays)
+    first = blocks[0]['reps'][0]['ops'][0]
+    meta = {
+        'format': 'f32',
+        'family': 'jasper',
+        'jasper_blocks': cfg,
+        'blocks_meta': blocks_meta,
+        'num_labels': num_labels,
+        'labels': list(labels) if labels is not None else None,
+        'audio_conf': dict(audio_conf) if audio_conf is not None else None,
+        'has_cmvn': norm_stats is not None,
+        'feature_type': feature_type,
+        # Else the first conv's input channels (a depthwise kernel [k, 1,
+        # C] keeps C; a plain one [k, C_in/g, C_out] has C_in/g).
+        'n_mels': (n_mels if n_mels is not None else int(
+            first['w'].shape[2] if first['depthwise']
+            else first['w'].shape[1] * blocks[0].get('groups', 1))),
+    }
+    with open(os.path.join(out_dir, 'serving.json'), 'w') as f:
+        json.dump(meta, f, indent=2)
+    return out_dir
+
+
 def load_serving(artifact_dir: str):
     """Load an artifact -> ``(meta dict, folded weights, norm_stats |
     None)``, all numpy.
 
     For the wav2letter family ``folded`` is the list ``offline_forward`` /
     ``offline_forward_q8`` take; for jasper it is the ``(blocks, head)``
-    pair the JAX package's ``StreamingJasper`` takes.
+    pair ``StreamingJasper(folded=...)`` takes.
     """
     with open(os.path.join(artifact_dir, 'serving.json')) as f:
         meta = json.load(f)
@@ -227,33 +312,31 @@ def artifact_frontend(meta: dict, norm_stats=None, device='cuda'):
                                device=device, norm_stats=norm_stats)
 
 
-JASPER_STREAMING_TODO = ('streaming a Jasper/QuartzNet model is not ported '
-                         '(StreamingJasper: ROADMAP A.8, second part)')
-
-
 def streaming_from_artifact(artifact_dir: str, chunk_frames: int = 64,
                             device='cuda'):
     """Build a ready-to-stream model from a serving artifact.
 
     Returns ``(model, labels, meta)``: ``model`` is a
-    ``StreamingWav2Letter`` on ``device`` in the artifact's weight format
-    (f32, or int8 weights with float32 math) with its CMVN statistics as
-    fixed normalisation when it has them (else cumulative), as
-    ``evaluate --artifact`` streams and ``serve_tcp`` serves. A Jasper
-    artifact raises ``NotImplementedError``.
+    ``StreamingWav2Letter`` (f32, or int8 weights with float32 math) or a
+    ``StreamingJasper`` (f32) on ``device`` in the artifact's weight
+    format, with its CMVN statistics as fixed normalisation when it has
+    them (else cumulative), as ``evaluate --artifact`` streams and
+    ``serve_tcp`` serves.
     """
-    from .streaming import StreamingWav2Letter
-
     meta, folded, norm_stats = load_serving(artifact_dir)
-    if meta.get('family', 'wav2letter') == 'jasper':
-        raise NotImplementedError(JASPER_STREAMING_TODO)
     frontend = artifact_frontend(meta, device=device)
     kw = {}
     if norm_stats is not None:
         kw = dict(norm='precomputed', norm_stats=norm_stats)
-    model = StreamingWav2Letter(
-        meta['layers'], meta['num_labels'], None, frontend, folded=folded,
-        chunk_frames=chunk_frames,
-        padding_mode=meta.get('padding_mode', 'reflect'), device=device,
-        **kw)
+    if meta.get('family', 'wav2letter') == 'jasper':
+        model = StreamingJasper(meta['jasper_blocks'], meta['num_labels'],
+                                None, frontend, folded=folded,
+                                chunk_frames=chunk_frames, device=device,
+                                **kw)
+    else:
+        model = StreamingWav2Letter(
+            meta['layers'], meta['num_labels'], None, frontend,
+            folded=folded, chunk_frames=chunk_frames,
+            padding_mode=meta.get('padding_mode', 'reflect'), device=device,
+            **kw)
     return model, meta['labels'], meta

@@ -100,7 +100,8 @@ class _Conn:
 class StreamingServer:
     """Serve a streaming model over TCP on ``host:port``.
 
-    ``model``: ``StreamingWav2Letter`` (on the device it serves from).
+    ``model``: a ``StreamingWav2Letter`` or ``StreamingJasper`` (on the
+    device it serves from).
     ``labels``: decode alphabet (blank at 0, as everywhere else).
     ``slots``: concurrent-stream capacity (= batch rows of the one
     batched streaming step).

@@ -26,29 +26,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .streaming import StreamState, greedy_collapse
+from .streaming import greedy_collapse
 
 MESH_TODO = ('a multiplexer over a device mesh is not ported: one device '
              'for now (multi-GPU is ROADMAP A.9)')
 
 
-def _map_state(fn, *states: StreamState) -> StreamState:
-    """``fn`` over the matching tensors of ``states`` (the conv carries
-    one by one)."""
-    out = []
-    for field in zip(*states):
-        if isinstance(field[0], tuple):
-            out.append(tuple(fn(*ts) for ts in zip(*field)))
-        else:
-            out.append(fn(*field))
-    return StreamState(*out)
+def _map_state(fn, *states):
+    """``fn`` over the matching tensors of ``states``, a streamer's state
+    (``StreamState``, ``JasperStreamState``): tuples, named or not, are
+    rebuilt as their own type around their mapped items, at any depth
+    (the Jasper state's norm statistics are a tuple of triples)."""
+    first = states[0]
+    if not isinstance(first, tuple):
+        return fn(*states)
+    out = [_map_state(fn, *parts) for parts in zip(*states)]
+    return type(first)(*out) if hasattr(first, '_fields') else tuple(out)
 
 
 class StreamMultiplexer:
     """Multiplex up to ``slots`` live streams through one batched session.
 
-    ``model``: a ``StreamingWav2Letter``; the batched state lives on its
-    device. ``mesh`` raises: sharding the slots over several devices is
+    ``model``: a ``StreamingWav2Letter`` or a ``StreamingJasper``; the
+    batched state lives on its device. ``mesh`` raises: sharding the slots over several devices is
     ROADMAP A.9.
     """
 

@@ -140,6 +140,11 @@ class _FrontendStreaming:
         self._fe_lag = -(-(self.n_fft // 2) // self.hop)
         self._fin_frames = chunk_frames + self._fe_lag
 
+    def audio_tensor(self, audio) -> torch.Tensor:
+        """numpy audio -> a float32 tensor on the streamer's device."""
+        return torch.as_tensor(np.asarray(audio, np.float32),
+                               device=self.device)
+
     def _set_fin_zeros(self, fe_carry_len: int):
         need = self.n_fft + self.hop * (self._fin_frames - 1)
         self._fin_zeros = max(self.n_fft // 2,
@@ -450,11 +455,6 @@ class StreamingWav2Letter(_FrontendStreaming):
             // self.scale - self.prime_out
         return logp, fin_valid
 
-    def audio_tensor(self, audio) -> torch.Tensor:
-        """numpy audio -> a float32 tensor on the streamer's device."""
-        return torch.as_tensor(np.asarray(audio, np.float32),
-                               device=self.device)
-
     # ------------------------------------------------------------------
     # session API
     # ------------------------------------------------------------------
@@ -467,7 +467,7 @@ class StreamingSession:
     """Accumulates audio on the host, runs the phases on the device and
     keeps the emitted/valid frame bookkeeping on the host."""
 
-    def __init__(self, model: StreamingWav2Letter, batch_size: int):
+    def __init__(self, model, batch_size: int):
         self.m = model
         self.B = batch_size
         self._buf = np.zeros((batch_size, 0), np.float32)

@@ -127,8 +127,9 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     meta, folded, norm_stats = load_serving(args.artifact)
     if meta.get('family', 'wav2letter') != 'wav2letter':
-        raise SystemExit('long-form supports the wav2letter family; Jasper '
-                         'streams (ROADMAP A.8, second part)')
+        raise SystemExit('long-form supports the wav2letter family; use '
+                         'streaming for Jasper (evaluate --artifact, '
+                         'serve_tcp, stream_demo)')
     if args.norm == 'cmvn' and norm_stats is None:
         raise SystemExit('--norm cmvn: artifact has no CMVN stats')
     try:
