@@ -135,12 +135,35 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    times: prime, step and finish at B=1, a tick at 16 and 64 slots (f32
    and int8_full) with launches, busy share and peak memory, and the
    host's time by function.
-19. One ``{"kernels": [...]}`` line: per kernel its launches on the
-   training path (K1-K3 Wav2Letter's, K1 also the serving and streaming
-   paths', K4-K7 QuartzNet's, K4 also its lookahead and exact streams',
-   K6 its lookahead stream's), max error against the plain version,
-   time, plain time, roofline bound and the time of the nearest PyTorch
-   library call (timed here only). K2 and K3 are also timed at the long
+19. The data layer: ``make_offline_corpus`` writes a FLAC corpus (64 /
+   16 / 16 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
+   prime window) and 4 utterances each at 8 and 22.05 kHz; (a) every
+   file decodes through the C++ decoder to round(audio * 32767) of its
+   rendered utterance, the Python decoder gives the same samples on 4
+   files, the two STREAMINFO parsers agree; (b) an int16 loader batch /
+   32768 equals the f32 batch bit for bit and so do K1's features on the
+   card, without and with dither (one launch a forward, 4 in all); (c)
+   two epochs with ``cache_audio``: the second reads no file, the batches
+   are equal; (d) the 8 and 22.05 kHz manifests resampled in the loader:
+   lengths ceil(n * up / down), raw features card vs CPU within 1e-5 of
+   max |ref|, K1 once a batch; (e) a W2L-20 MFCC eval
+   step card vs CPU, and an MFCC artifact streamed against its offline
+   forward (1e-4 of max |logp|, K1 once a phase); (f)
+   ``full_depth_run.main`` at full width for 2 epochs with the recipe's
+   cache_audio, int16 and augment-map overrides: the loss falls, every
+   evaluate mode of the chain runs (WER printed, not gated), K1/K2/K3
+   pinned in each stage (training, each evaluate call, the export); (g)
+   host decode rates (C++ and Python); the loader alone in each epoch,
+   the recipe's train step alone over an epoch's batches at B=16, and
+   the two together as in training (epoch 1 decoding, epoch 2 from the
+   cache), in utt/s and s of audio a second; bytes a batch on the int16
+   and f32 wires.
+20. One ``{"kernels": [...]}`` line: per kernel its launches on the
+   training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
+   and data paths', K4-K7 QuartzNet's, K4 also its lookahead and exact
+   streams', K6 its lookahead stream's), max error against the plain
+   version, time, plain time, roofline bound and the time of the nearest
+   PyTorch library call (timed here only). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -168,16 +191,24 @@ import torch.nn.functional as F
 from wav2letter_pytorch_tpu_torch import _build
 from wav2letter_pytorch_tpu_torch import evaluate as port_eval
 from wav2letter_pytorch_tpu_torch import export_serving as port_export
+from wav2letter_pytorch_tpu_torch import full_depth_run as port_fdr
+from wav2letter_pytorch_tpu_torch import make_offline_corpus as port_corpus
 from wav2letter_pytorch_tpu_torch import serve_tcp as port_serve
 from wav2letter_pytorch_tpu_torch import train as port_train
 from wav2letter_pytorch_tpu_torch import transcribe_long as port_long
 from wav2letter_pytorch_tpu_torch.config import load_config
-from wav2letter_pytorch_tpu_torch.data.audio_io import read_wav, write_wav
-from wav2letter_pytorch_tpu_torch.data.dataset import ManifestDataset
+from wav2letter_pytorch_tpu_torch.data import dataset as port_dataset
+from wav2letter_pytorch_tpu_torch.data import flac as port_flac
+from wav2letter_pytorch_tpu_torch.data import flac_native
+from wav2letter_pytorch_tpu_torch.data.audio_io import (audio_info, read_wav,
+                                                        write_wav)
+from wav2letter_pytorch_tpu_torch.data.dataset import (BucketBatchLoader,
+                                                       ManifestDataset)
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
 from wav2letter_pytorch_tpu_torch.data.label_sets import resolve_labels
-from wav2letter_pytorch_tpu_torch.data.resample import resample
+from wav2letter_pytorch_tpu_torch.data.resample import (resample,
+                                                        resample_ratio)
 from wav2letter_pytorch_tpu_torch.decoding.arpa_lm import ArpaLM
 from wav2letter_pytorch_tpu_torch.decoding.beam_device import (
     DeviceBeamDecoder, beam_search_device, beam_search_device_lm)
@@ -2703,28 +2734,12 @@ def stream_all(sw, utts) -> dict:
         return {p: stream_logprobs(sw, a[None])[0] for p, a in utts}
 
 
-def phase_streaming_exact(manifest: str, arts: dict, card: str,
-                          k1: dict) -> dict:
-    """Every utterance streamed (B=1) through ``streaming_from_artifact``
-    on the f32 + CMVN artifact against MeshInference('f32') under the
-    same CMVN on the audio zero-padded past the lookahead (an even frame
-    count): the valid frames within STREAM_RTOL of max |logp|, greedy
-    strings equal but at near-ties. Returns the streamed strings."""
-    meta, folded, stats = load_serving(arts['f32'])
-    labels = meta['labels']
-    utts = corpus_audio(manifest, labels)
-    stft_mel_log.launches = 0
-    t0 = time.perf_counter()
-    sw, _, _ = streaming_from_artifact(arts['f32'],
-                                       chunk_frames=STREAM_CHUNK,
-                                       device=DEVICE)
-    got = stream_all(sw, utts)
-    secs = time.perf_counter() - t0
-    k1['streaming_from_artifact + stream_logprobs'] = stft_mel_log.launches
-    want_k1 = sum(stream_steps(sw, len(a)) for _, a in utts)
-    check(stft_mel_log.launches == want_k1,
-          f'K1 launched {stft_mel_log.launches} times over {len(utts)} '
-          f'streams: one a prime, step and finish ({want_k1})')
+def stream_vs_offline(art: str, sw, utts, got: dict, what: str) -> dict:
+    """Streamed log-probs ``got`` against MeshInference('f32') on the
+    artifact under its CMVN, on the audio zero-padded past the lookahead
+    (an even frame count): the valid frames within STREAM_RTOL of max
+    |logp|. Returns the offline log-probs by path."""
+    meta, folded, stats = load_serving(art)
     mi = MeshInference(meta['layers'], folded,
                        artifact_frontend(meta, stats, device=DEVICE),
                        device=DEVICE)
@@ -2749,9 +2764,35 @@ def phase_streaming_exact(manifest: str, arts: dict, card: str,
               f'{got[p].shape[0]} frames, offline {r.shape[0]}')
         err = max(err, float(np.abs(got[p] - r).max()))
     check(err <= STREAM_RTOL * scale,
-          f'streaming (B=1, chunk {STREAM_CHUNK}) vs MeshInference f32, '
-          f'{len(utts)} utterances, same CMVN: max |d logp| {err:.3e}, '
-          f'{err / scale:.2e} of max |logp| {scale:.2f} (gate {STREAM_RTOL})')
+          f'streaming {what} (B=1, chunk {STREAM_CHUNK}) vs MeshInference '
+          f'f32, {len(utts)} utterances, same CMVN: max |d logp| '
+          f'{err:.3e}, {err / scale:.2e} of max |logp| {scale:.2f} (gate '
+          f'{STREAM_RTOL})')
+    return ref
+
+
+def phase_streaming_exact(manifest: str, arts: dict, card: str,
+                          k1: dict) -> dict:
+    """Every utterance streamed (B=1) through ``streaming_from_artifact``
+    on the f32 + CMVN artifact against MeshInference('f32') under the
+    same CMVN on the audio zero-padded past the lookahead (an even frame
+    count): the valid frames within STREAM_RTOL of max |logp|, greedy
+    strings equal but at near-ties. Returns the streamed strings."""
+    labels = load_serving(arts['f32'])[0]['labels']
+    utts = corpus_audio(manifest, labels)
+    stft_mel_log.launches = 0
+    t0 = time.perf_counter()
+    sw, _, _ = streaming_from_artifact(arts['f32'],
+                                       chunk_frames=STREAM_CHUNK,
+                                       device=DEVICE)
+    got = stream_all(sw, utts)
+    secs = time.perf_counter() - t0
+    k1['streaming_from_artifact + stream_logprobs'] = stft_mel_log.launches
+    want_k1 = sum(stream_steps(sw, len(a)) for _, a in utts)
+    check(stft_mel_log.launches == want_k1,
+          f'K1 launched {stft_mel_log.launches} times over {len(utts)} '
+          f'streams: one a prime, step and finish ({want_k1})')
+    ref = stream_vs_offline(arts['f32'], sw, utts, got, 'f32')
     greedy = port_eval.GreedyDecoder(labels)
     strings, ties = {}, 0
     for p, r in ref.items():
@@ -3770,6 +3811,483 @@ def phase_streaming_jasper(manifest: str, qn_run: str, root: str,
     return {'k1': k1, 'k4': k4, 'k1_err': k1_err, 'k4_err': k4_err}
 
 
+# ------------------------------------------------------------ data layer
+
+# The FLAC corpus of make_offline_corpus (seeds 0 / 1 / 2): train and val
+# as the JAX recipe writes them, the test split at least DATA_TEST_MIN_S
+# long so that streaming evaluation streams past W2L-20's 4.22 s prime.
+DATA_SPLITS = (64, 16, 16)
+DATA_TEST_MIN_S = 4.5
+DATA_BATCH = 16              # the recipe's batch size
+DATA_EPOCHS = 2
+DATA_PY_FILES = 4            # files the Python decoder decodes too
+DATA_RATES = (8000, 22050)   # resampled in the loader to 16 kHz
+DATA_RATE_UTTS = 4
+DATA_FEAT_RTOL = 1e-5        # card vs CPU raw features, of max |ref|
+DATA_STREAM_UTTS = 4         # MFCC streams held to the offline forward
+
+
+def data_loader(manifest: str, shuffle=False, prefetch=0, **kw):
+    """The recipe's train loader: B=16, 3 length buckets."""
+    return BucketBatchLoader(
+        ManifestDataset(manifest, 16000, resolve_labels('english_lowercase'),
+                        **kw), DATA_BATCH, 160, num_buckets=3,
+        prefetch=prefetch, shuffle=shuffle)
+
+
+def write_flac_corpus(root: str, card: str) -> tuple:
+    """make_offline_corpus.main: the corpus under ``root`` and 4
+    utterances at each of DATA_RATES. Returns (manifests by split,
+    {path: the rendered utterance as round(audio * 32767)})."""
+    rendered = {}
+    write_utt = port_corpus.write_utt
+
+    def record(path, audio, sr, use_wav):
+        rendered[path] = np.round(audio * 32767).astype(np.int32)
+        write_utt(path, audio, sr, use_wav)
+    port_corpus.write_utt = record
+    n_train, n_val, n_test = DATA_SPLITS
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            port_corpus.main(['--root', root, '--n-train', str(n_train),
+                              '--n-val', str(n_val), '--splits',
+                              'train,val'])
+            port_corpus.main(['--root', root, '--n-test', str(n_test),
+                              '--splits', 'test', '--min-duration',
+                              str(DATA_TEST_MIN_S)])
+            for sr in DATA_RATES:
+                port_corpus.main(['--root', os.path.join(root, f'sr{sr}'),
+                                  '--n-test', str(DATA_RATE_UTTS),
+                                  '--splits', 'test', '--sample-rate',
+                                  str(sr)])
+    finally:
+        port_corpus.write_utt = write_utt
+    secs = time.perf_counter() - t0
+    manifests = {s: os.path.join(root, f'{s}_manifest.csv')
+                 for s in ('train', 'val', 'test')}
+    lens = {s: [audio_info(r['audio_filepath'])[0] / 16000
+                for r in port_dataset.read_manifest(m)]
+            for s, m in manifests.items()}
+    print(f'make_offline_corpus: {len(rendered)} FLAC files in {secs:.1f} s '
+          'on the host; ' + ', '.join(
+              f'{s} {len(v)} x {min(v):.2f}-{max(v):.2f} s'
+              for s, v in lens.items()) + f' [{card}]')
+    return manifests, rendered
+
+
+def phase_data_flac(rendered: dict, card: str):
+    """(a) Every file through the C++ decoder equals round(audio * 32767)
+    of its rendered utterance; the Python decoder gives the same samples
+    on DATA_PY_FILES files; the two STREAMINFO parsers agree. (g) Decode
+    rates on the host."""
+    paths = sorted(rendered)
+    data = {}
+    for p in paths:
+        with open(p, 'rb') as f:
+            data[p] = f.read()
+    t0 = time.perf_counter()
+    dec = {p: flac_native.decode_native(data[p]) for p in paths}
+    t_cpp = time.perf_counter() - t0
+    bad = [p for p in paths if dec[p][2] != 16 or dec[p][0].shape[1] != 1
+           or not np.array_equal(dec[p][0][:, 0], rendered[p])]
+    check(not bad, f'{len(paths)} FLAC files of make_offline_corpus: the '
+          'C++ decoder gives round(audio * 32767) of each rendered '
+          f'utterance exactly ({len(bad)} differ)')
+    sub = paths[::max(1, len(paths) // DATA_PY_FILES)][:DATA_PY_FILES]
+    t0 = time.perf_counter()
+    py = {p: port_flac.decode_flac(data[p], verify_md5=True)[0]
+          for p in sub}
+    t_py = time.perf_counter() - t0
+    check(all(np.array_equal(py[p], dec[p][0]) for p in sub),
+          f'the Python decoder (CRC and MD5 checked) gives the C++ '
+          f'decoder\'s samples on {len(sub)} files')
+    keys = ('sample_rate', 'channels', 'bits_per_sample', 'total_samples',
+            'min_blocksize', 'max_blocksize')
+    disagree = [p for p in paths if flac_native.parse_info_native(data[p])
+                != {k: getattr(port_flac.read_flac_info(data[p]), k)
+                    for k in keys}]
+    check(not disagree, f'read_flac_info and parse_info_native agree on '
+          f'{len(paths)} files')
+    secs = sum(d[0].shape[0] / d[1] for d in dec.values())
+    py_secs = sum(dec[p][0].shape[0] / dec[p][1] for p in sub)
+    print(f'FLAC decode on the host: C++ {len(paths) / t_cpp:.1f} utt/s, '
+          f'{secs / t_cpp:.1f} s of audio a second ({len(paths)} files, '
+          f'{secs:.1f} s); Python {len(sub) / t_py:.2f} utt/s, '
+          f'{py_secs / t_py:.2f} s of audio a second ({len(sub)} files, '
+          f'{py_secs:.1f} s) [{card}]')
+
+
+def phase_data_wire(manifests: dict, card: str) -> int:
+    """(b) A loader batch on the int16 wire divided by 32768 equals the
+    f32 batch bit for bit, and K1's features on the card on each are
+    equal, with and without dither; K1 launches once a forward. Returns
+    K1's launches."""
+    b16 = data_loader(manifests['train'], audio_dtype='int16').peek_batch()
+    b32 = data_loader(manifests['train']).peek_batch()
+    f = (b16['audio'].astype(np.float32) / 32768.0).view(np.uint32)
+    check(b16['audio'].dtype == np.int16 and np.array_equal(
+        f, b32['audio'].view(np.uint32)),
+          f'int16 batch {b16["audio"].shape} / 32768 equals the f32 batch '
+          'bit for bit')
+    fe = build_frontend(train_config()['model'], device=DEVICE)
+    lens = torch.from_numpy(b32['audio_lengths']).to(DEVICE)
+    stft_mel_log.launches = 0
+    feats = {}
+    with torch.no_grad():
+        for name, b in (('int16', b16), ('f32', b32)):
+            x = torch.from_numpy(b['audio']).to(DEVICE)
+            feats[name] = fe(x, lens)[0]
+            g = torch.Generator(device=DEVICE).manual_seed(7)
+            feats[name + ' dither'] = fe(x, lens, g)[0]
+    torch.cuda.synchronize()
+    launches = stft_mel_log.launches
+    check(torch.equal(feats['int16'], feats['f32'])
+          and torch.equal(feats['int16 dither'], feats['f32 dither'])
+          and launches == 4,
+          f'K1 features on the card: int16 batch equals f32 bit for bit '
+          f'{tuple(feats["f32"].shape)}, without and with dither; K1 '
+          f'launched {launches} times for 4 forwards')
+    n16 = sum(v.nbytes for v in b16.values() if isinstance(v, np.ndarray))
+    n32 = sum(v.nbytes for v in b32.values() if isinstance(v, np.ndarray))
+    print(f'host-to-device bytes a batch (B={DATA_BATCH}, '
+          f'{b32["audio"].shape[1] / 16000:.2f} s bucket): int16 {n16} '
+          f'(audio {b16["audio"].nbytes}), f32 {n32} (audio '
+          f'{b32["audio"].nbytes}) [{card}]')
+    return launches
+
+
+def audio_seconds(batches) -> float:
+    """Seconds of real audio (padding and masked rows left out)."""
+    return sum(float(b['audio_lengths'][b['batch_mask'] > 0].sum())
+               for b in batches) / 16000
+
+
+def phase_data_cache(manifests: dict, root: str, card: str):
+    """(c) Two epochs with cache_audio: the second reads no file and its
+    batches equal the first's. (g) The loader alone in each epoch, the
+    recipe's W2L-20 train step alone over every batch of an epoch, and
+    the two together as in training (a fresh shuffled loader, epoch 1
+    decoding and epoch 2 from the cache), in utt/s and s of audio a
+    second."""
+    reads = []
+    read_audio = port_dataset.read_audio
+
+    def counting(path, *args):
+        reads.append(path)
+        return read_audio(path, *args)
+    port_dataset.read_audio = counting
+    try:
+        loader = data_loader(manifests['train'], prefetch=2,
+                             cache_audio=True, audio_dtype='int16')
+        n = len(loader.dataset)
+        t0 = time.perf_counter()
+        first = list(loader)
+        t1 = time.perf_counter()
+        n1 = len(reads)
+        second = list(loader)
+        t2 = time.perf_counter()
+    finally:
+        port_dataset.read_audio = read_audio
+    same = len(first) == len(second) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(first, second)
+        for k in a if isinstance(a[k], np.ndarray))
+    check(n1 == n and len(reads) == n and same,
+          f'cache_audio: epoch 1 read {n1} files, epoch 2 '
+          f'{len(reads) - n1}; the {len(second)} batches equal across '
+          'epochs')
+    audio_s = audio_seconds(first)
+
+    def rate(secs):
+        return (f'{n / secs:.1f} utt/s, {audio_s / secs:.1f} s of audio a '
+                'second')
+    print(f'loader alone (int16, cache_audio, B={DATA_BATCH}, prefetch 2, '
+          f'{len(first)} batches, {n} utterances, {audio_s:.2f} s of '
+          f'audio): epoch 1 (decode) {rate(t1 - t0)}; epoch 2 (cache) '
+          f'{rate(t2 - t1)} [{card}]')
+    args = port_fdr.parse_args(['--corpus-root', root, '--run-dir',
+                                os.path.join(root, 'data_timing')])
+    cfg = load_config(port_fdr.recipe_overrides(args, manifests))
+    trainer = make_trainer(cfg, args.run_dir, DEVICE)
+    for b in first:              # every bucket's shape once
+        trainer.train_step(port_eval.to_device(b, DEVICE))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for b in first:
+        trainer.train_step(port_eval.to_device(b, DEVICE))
+    torch.cuda.synchronize()
+    alone = time.perf_counter() - t
+    fed = data_loader(manifests['train'], shuffle=True, prefetch=2,
+                      cache_audio=True, audio_dtype='int16')
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        for b in fed:
+            trainer.train_step(port_eval.to_device(b, DEVICE))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    del trainer
+    torch.cuda.empty_cache()
+    print(f'the recipe\'s W2L-20 train step (NovoGrad, SpecAugment) over '
+          f'the epoch\'s {len(first)} batches, B={DATA_BATCH}: alone '
+          f'{alone:.3f} s, {rate(alone)}; fed by a fresh loader as in '
+          f'training: epoch 1 (decode) {walls[0]:.3f} s, {rate(walls[0])} '
+          f'({walls[0] / alone:.3f}x alone); epoch 2 (cache) '
+          f'{walls[1]:.3f} s, {rate(walls[1])} ({walls[1] / alone:.3f}x '
+          f'alone) [{card}]')
+
+
+def phase_data_resample(root: str) -> int:
+    """(d) 8 kHz and 22.05 kHz FLAC manifests resampled in the loader:
+    lengths ceil(n * up / down); the card's raw features against the
+    CPU path's within DATA_FEAT_RTOL of max |ref|. Returns K1's
+    launches."""
+    mcfg = train_config()['model']
+    fe_card = build_frontend(mcfg, dither=0.0, device=DEVICE,
+                             normalize=False)
+    fe_cpu = build_frontend(mcfg, dither=0.0, device='cpu', normalize=False)
+    labels = resolve_labels('english_lowercase')
+    stft_mel_log.launches = 0
+    for sr in DATA_RATES:
+        manifest = os.path.join(root, f'sr{sr}', 'test_manifest.csv')
+        ds = ManifestDataset(manifest, 16000, labels, resample=True)
+        want = []
+        for r in ds.rows:
+            n, rate = audio_info(r['audio_filepath'])
+            up, down = resample_ratio(rate, 16000)
+            want.append(-(-n * up // down))
+        got = [len(ds[i][0]) for i in range(len(ds))]
+        meta = [ds.sample_meta(i)[0] for i in range(len(ds))]
+        check(got == meta == want, f'{sr} Hz -> 16 kHz in the loader: '
+              f'lengths {got} = ceil(n * up / down)')
+        b = BucketBatchLoader(ds, len(ds), 160, num_buckets=1,
+                              prefetch=0).peek_batch()
+        with torch.no_grad():
+            card = fe_card(torch.from_numpy(b['audio']).to(DEVICE),
+                           torch.from_numpy(b['audio_lengths']).to(DEVICE)
+                           )[0].cpu()
+            cpu = fe_cpu(torch.from_numpy(b['audio']),
+                         torch.from_numpy(b['audio_lengths']))[0]
+        err = (card - cpu).abs().max().item()
+        scale = cpu.abs().max().item()
+        check(err <= DATA_FEAT_RTOL * scale,
+              f'{sr} Hz resampled batch {tuple(b["audio"].shape)}: raw '
+              f'log-mel card (K1) vs CPU (plain DFT) max err {err:.3e}, '
+              f'{err / scale:.2e} of max |ref| {scale:.2f} (gate '
+              f'{DATA_FEAT_RTOL})')
+    launches = stft_mel_log.launches
+    check(launches == len(DATA_RATES), f'K1 launched {launches} times for '
+          f'{len(DATA_RATES)} resampled batches')
+    return launches
+
+
+def phase_data_mfcc(manifests: dict, root: str) -> int:
+    """(e) A W2L-20 eval step with MFCC features, card vs CPU; an MFCC
+    run exported with CMVN streamed (the DCT after K1 in every phase)
+    against the offline forward of the same artifact, at phase 17's
+    gate. Returns K1's launches on the streams."""
+    mfcc = ['model.feature_type=mfcc']
+    phase_cpu_reference(overrides=mfcc, what='Wav2Letter-20 MFCC')
+    run = os.path.join(root, 'mfcc_run')
+    os.makedirs(run)
+    with open(os.path.join(run, 'config.json'), 'w') as f:
+        json.dump(train_config(*mfcc), f)
+    art = os.path.join(root, 'artifact_mfcc')
+    run_quiet(port_export.main, ['--model-path', run, '--out', art,
+                                 '--cmvn-manifest', manifests['train'],
+                                 '--cmvn-limit', '16', '--device',
+                                 str(DEVICE)], what='export_serving (MFCC)')
+    sw, labels, meta = streaming_from_artifact(
+        art, chunk_frames=STREAM_CHUNK, device=DEVICE)
+    utts = corpus_audio(manifests['test'], labels)[:DATA_STREAM_UTTS]
+    check(meta['feature_type'] == 'mfcc' and sw.frontend.feature_type
+          == 'mfcc' and sw.feat_dim == 64
+          and min(len(a) for _, a in utts) > sw.prime_samples,
+          'the MFCC artifact carries feature_type mfcc into its streamer '
+          f'(64 coefficients); {len(utts)} test utterances of '
+          f'{min(len(a) for _, a in utts) / 16000:.2f} s and longer, past '
+          f'the {sw.prime_samples / 16000:.2f} s prime')
+    stft_mel_log.launches = 0
+    got = stream_all(sw, utts)
+    launches = stft_mel_log.launches
+    want = sum(stream_steps(sw, len(a)) for _, a in utts)
+    check(launches == want, f'K1 launched {launches} times over the MFCC '
+          f'streams: one a prime, step and finish ({want})')
+    stream_vs_offline(art, sw, utts, got, 'MFCC')
+    return launches
+
+
+def pipeline_want(stage: str, argv: list, run: str, cfg: dict,
+                  manifests: dict, val_batches: list, steps: int) -> dict:
+    """K1/K2/K3 launches of one stage of full_depth_run: training (K1 and
+    K2 on every train and val batch, K3 on every train step), the export
+    (K1 on each CMVN utterance and the calibration batch) or an evaluate
+    call (K1 and K2 on each batch offline; K1 a stream phase, or a
+    lookahead chunk and a finish, plus one each CMVN utterance when
+    streaming; K1 a batch on the artifact)."""
+    if stage == 'train':
+        k1 = steps + sum(val_batches)
+        return {'stft_mel_log': k1, 'ctc_alpha': k1, 'ctc_beta': steps}
+    n_train = len(port_dataset.read_manifest(manifests['train']))
+    if stage == 'export':
+        return {'stft_mel_log': n_train + 1, 'ctc_alpha': 0, 'ctc_beta': 0}
+    manifest = argv[argv.index('--test-manifest') + 1]
+    labels = resolve_labels(cfg['model']['labels'])
+    fe = build_frontend(cfg['model'], device='cpu')
+    data = cfg['data']
+    if '--artifact' in argv:
+        ds = ManifestDataset(manifest, 16000, labels)
+        n = len(BucketBatchLoader(ds, 8, fe.hop, num_buckets=4))
+        return {'stft_mel_log': n, 'ctc_alpha': 0, 'ctc_beta': 0}
+    if '--streaming' in argv:
+        sw, _, _ = streaming_from_artifact(
+            os.path.join(run, 'artifact'),
+            chunk_frames=int(argv[argv.index('--streaming-chunk-frames')
+                                  + 1]), device='cpu')
+        lens = [len(a) for _, a in corpus_audio(manifest, labels)]
+        k1 = sum(lookahead_k1(sw.chunk_samples, n)
+                 if '--lookahead-frames' in argv else stream_steps(sw, n)
+                 for n in lens)
+        if '--streaming-norm' in argv:
+            k1 += n_train
+        return {'stft_mel_log': k1, 'ctc_alpha': 0, 'ctc_beta': 0}
+    n = len(port_eval.make_loader(
+        manifest, int(data['batch_size']), fe, labels,
+        num_buckets=int(data['num_length_buckets']),
+        max_duration=data['max_duration']))
+    return {'stft_mel_log': n, 'ctc_alpha': n, 'ctc_beta': 0}
+
+
+def phase_data_pipeline(root: str, card: str) -> tuple:
+    """(f) full_depth_run.main on the corpus at full width (W2L-20) for
+    DATA_EPOCHS epochs, with the recipe's cache_audio, int16 and augment
+    map overrides, and every evaluate call of the chain; each stage's
+    K1/K2/K3 launches pinned (``pipeline_want``). Returns (K1's launches,
+    the result record)."""
+    run = os.path.join(root, 'full_depth_run')
+    argv = ['--corpus-root', root, '--run-dir', run, '--epochs',
+            str(DATA_EPOCHS),
+            '--override', 'trainer.log_every_n_steps=1',
+            '--override', 'trainer.val_every_n_epochs=1',
+            '--override', 'trainer.checkpoint.every_n_epochs=1']
+    counters = (stft_mel_log, ctc_alpha, ctc_beta)
+    stages, val_batches = [], []
+
+    def counted(stage, fn):
+        def wrapper(args_list):
+            before = {c.__name__: c.launches for c in counters}
+            t = time.perf_counter()
+            out = fn(args_list)
+            torch.cuda.synchronize()
+            stages.append((stage, list(args_list), {
+                c.__name__: c.launches - before[c.__name__]
+                for c in counters}, round(time.perf_counter() - t, 1)))
+            return out
+        return wrapper
+    validate = Trainer.validate
+
+    def counted_validate(self, loader):
+        val_batches.append(len(loader))
+        return validate(self, loader)
+    patches = [(port_fdr, 'run_evaluate',
+                counted('evaluate', port_fdr.run_evaluate)),
+               (port_train, 'main', counted('train', port_train.main)),
+               (port_export, 'main', counted('export', port_export.main)),
+               (Trainer, 'validate', counted_validate)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        lines, _, secs, launches = run_counted(
+            port_fdr.main, argv, counters, 'full_depth_run.main')
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    result = json.loads(lines[-1])
+    with open(os.path.join(run, 'full_depth_run.json')) as f:
+        saved = json.load(f)
+    with open(os.path.join(run, 'config.json')) as f:
+        cfg = json.load(f)
+    check(cfg['data']['cache_audio'] is True
+          and cfg['data']['audio_dtype'] == 'int16'
+          and cfg['data']['augment'] == {'spec_augment': {
+              'freq_masks': 2, 'time_masks': 2, 'freq_width': 10,
+              'time_width': 20}}
+          and cfg['model']['mid_layers'] == MID_LAYERS and saved == result,
+          'the run used the recipe\'s cache_audio, int16 wire and augment '
+          'map at full width (mid_layers 20); the result JSON is written')
+    losses = read_losses(run)
+    steps = sorted(losses)
+    check(steps == list(range(1, len(steps) + 1))
+          and all(math.isfinite(v) for v in losses.values())
+          and losses[steps[-1]] < losses[steps[0]],
+          f'{len(steps)} train steps over {DATA_EPOCHS} epochs: loss finite '
+          f'and falling, {losses[steps[0]]:.3f} at step {steps[0]} -> '
+          f'{losses[steps[-1]]:.3f} at step {steps[-1]}')
+    modes = ('val_greedy', 'test_greedy', 'test_beam', 'test_beam_lm',
+             'test_streaming', 'test_streaming_cmvn', 'test_streaming_la96',
+             'test_streaming_la96_cmvn', 'test_artifact_offline_int8full')
+    check(all(k in result and math.isfinite(result[k]['wer'])
+              for k in modes)
+          and result['test_streaming']['offline_fallback'] == 0
+          and result['test_streaming_cmvn']['offline_fallback'] == 0,
+          f'evaluate ran in all {len(modes)} modes of the chain; the '
+          'streaming modes streamed every test utterance')
+    check(len(val_batches) == DATA_EPOCHS and [s[0] for s in stages]
+          == ['train'] + ['evaluate'] * 8 + ['export', 'evaluate'],
+          f'stages {[s[0] for s in stages]}; {len(val_batches)} '
+          'validations')
+    manifests = {s: os.path.join(root, f'{s}_manifest.csv')
+                 for s in ('train', 'val', 'test')}
+    total = dict.fromkeys(launches, 0)
+    for stage, args_list, got, stage_s in stages:
+        want = pipeline_want(stage, args_list, run, cfg, manifests,
+                             val_batches, len(steps))
+        flags = ' '.join(a for a in args_list if a.startswith('--')
+                         and a not in ('--device', '--model-path',
+                                       '--test-manifest'))
+        check(got == want, f'full_depth_run {stage} {flags}: launches '
+              f'{got} (want {want}); {stage_s} s')
+        for k in total:
+            total[k] += got[k]
+    check(total == launches, f'the stages account for every launch of the '
+          f'pipeline: {launches}')
+    print('full_depth_run WER (printed, not gated: '
+          f'{DATA_EPOCHS} epochs of {DATA_SPLITS[0]} utterances): '
+          + ', '.join(f'{k} {result[k]["wer"]:.4f}' for k in modes
+                      if k in result)
+          + f'; train {result["train_wall_seconds"]} s, pipeline '
+          f'{secs:.1f} s [{card}]')
+    return launches['stft_mel_log'], result
+
+
+def phase_data(root: str, card: str) -> dict:
+    """Phase 19: the data layer and the full-depth pipeline on the card.
+    Returns K1's launches by part."""
+    t0 = time.time()
+    secs, k1 = {}, {}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        secs[name] = round(time.time() - t, 1)
+        return out
+    data_root = os.path.join(root, 'flac_corpus')
+    manifests, rendered = timed('corpus', write_flac_corpus, data_root,
+                                card)
+    timed('FLAC', phase_data_flac, rendered, card)
+    k1['int16 wire'] = timed('wire', phase_data_wire, manifests, card)
+    timed('cache', phase_data_cache, manifests, root, card)
+    k1['resampled loader'] = timed('resample', phase_data_resample,
+                                   data_root)
+    k1['MFCC streams'] = timed('MFCC', phase_data_mfcc, manifests, root)
+    k1['full_depth_run'], _ = timed('pipeline', phase_data_pipeline,
+                                    data_root, card)
+    print(f'data phase: K1 {json.dumps(k1)}; phase {time.time() - t0:.1f} '
+          f's, by part {json.dumps(secs)}')
+    return k1
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -3862,6 +4380,9 @@ def main() -> int:
         # Streaming QuartzNet-15x5: its run and an artifact of it
         qn_stream = phase_streaming_jasper(manifest, qn_run, root, card)
         torch.cuda.empty_cache()
+        # The data layer: a FLAC corpus, the full-depth pipeline
+        data_k1 = phase_data(root, card)
+        torch.cuda.empty_cache()
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -3895,6 +4416,7 @@ def main() -> int:
     kernels[0]['serving_launches'] = sum(serve_k1.values())
     kernels[0]['streaming_launches'] = sum(stream['k1'].values()) + sum(
         qn_stream['k1'].values())
+    kernels[0]['data_launches'] = sum(data_k1.values())
     kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
                                     stream['k1_err'], qn_stream['k1_err'])
     kernels[3]['streaming_launches'] = stream['qn']['depthwise_fwd'] + sum(

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+yaml or pandas, which the card's machine lacks), and
 importing it builds or loads no CUDA library and no host library; the host
 library it loads is its own (csrc/host/), never native/libw2l_native.so."""
 
@@ -18,7 +19,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(wav2letter_pytorch_tpu_torch.__file__)
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
-             'wav2letter_pytorch_tpu')
+             'wav2letter_pytorch_tpu', 'yaml', 'pandas')
 
 
 def _port_modules():
@@ -109,4 +110,5 @@ def test_kernel_sources_and_build_hash():
     assert host.startswith(_build.HOST_BUILD_DIR)
     assert os.path.basename(host).startswith('libw2l_host-')
     assert sorted(os.path.basename(p) for p in _build._host_sources()) == [
-        'arpa_lm.cpp', 'beam_search.cpp', 'greedy.cpp', 'levenshtein.cpp']
+        'arpa_lm.cpp', 'beam_search.cpp', 'flac.cpp', 'greedy.cpp',
+        'levenshtein.cpp']

@@ -3,6 +3,8 @@
 one-shot forward, and against the JAX package's long-form functions."""
 
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ import jax
 from tests.test_streaming import (FLAGSHIP_STRUCTURE, N_MELS, SMALL_LAYERS,
                                   _build)
 from wav2letter_pytorch_tpu import serving as jserve
+from wav2letter_pytorch_tpu.data.audio_io import read_audio as jax_read_audio
+from wav2letter_pytorch_tpu.data.flac import write_flac_file
 from wav2letter_pytorch_tpu.data.features import AudioConfig as JaxAudio
 from wav2letter_pytorch_tpu.data.features import \
     SpectrogramFrontend as JaxFrontend
@@ -32,6 +36,7 @@ from wav2letter_pytorch_tpu_torch.serving import longform
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = list('_abcde ')
 AUDIO_CONF = {'sample_rate': 16000, 'window_size': 0.02,
               'window_stride': 0.01, 'window': 'hamming'}
@@ -274,8 +279,19 @@ def test_transcribe_long_cli(artifact, capsys, extra):
         prev = start
 
 
+@pytest.fixture(scope='module')
+def jax_long_script():
+    sys.path.insert(0, os.path.join(REPO, 'scripts'))
+    try:
+        import transcribe_long as script
+    finally:
+        sys.path.pop(0)
+    return script
+
+
 def test_transcribe_long_cli_concat_hotwords_and_refusals(artifact, capsys,
-                                                         tmp_path):
+                                                         tmp_path,
+                                                         jax_long_script):
     art, wav, _ = artifact
     manifest = tmp_path / 'm.jsonl'
     manifest.write_text('\n'.join(json.dumps(
@@ -286,13 +302,31 @@ def test_transcribe_long_cli_concat_hotwords_and_refusals(artifact, capsys,
     assert result['decode'] == 'beam_lm' and not text
     assert result['audio_seconds'] == 7.5
     assert 0 <= result['cer'] and 0 <= result['wer']
-    flac = tmp_path / 'x.flac'
-    flac.write_bytes(b'fLaC' + bytes(60))
+    # A FLAC file and an 8 kHz WAV transcribe as the JAX script
+    # transcribes them (FLAC decoded, 8 kHz resampled to the artifact's
+    # 16 kHz); a stub FLAC raises the JAX decoder's error.
+    flac = str(tmp_path / 'x.flac')
+    write_flac_file(flac, _audio(30000, seed=5), 16000)
     wav8k = str(tmp_path / 'x8k.wav')
-    write_wav(wav8k, _audio(8000), 8000)
+    write_wav(wav8k, _audio(16000, seed=6), 8000)
+    for audio in (flac, wav8k):
+        result, text = _run(['--artifact', art, '--audio', audio,
+                             '--chunk-frames', '40'], capsys)
+        assert jax_long_script.main(['--artifact', art, '--audio', audio,
+                                     '--chunk-frames', '40']) == 0
+        out = capsys.readouterr().out.splitlines()
+        want = json.loads(next(l for l in out if l.startswith('{')))
+        assert result['audio_seconds'] == want['audio_seconds']
+        assert text == out[-1:] and result['transcript_chars'] == \
+            want['transcript_chars']
+    stub = tmp_path / 'stub.flac'
+    stub.write_bytes(b'fLaC' + bytes(60))
+    with pytest.raises(ValueError) as want:
+        jax_read_audio(str(stub))
+    with pytest.raises(ValueError, match=f'^{want.value}$'):
+        long_cli.main(['--artifact', art, '--device', 'cpu', '--audio',
+                       str(stub)])
     for argv, match in ((['--audio', wav, '--mesh'], 'A.9'),
-                        (['--audio', str(flac)], 'A.5'),
-                        (['--audio', wav8k], 'A.5'),
                         ([], 'need --audio')):
         with pytest.raises(SystemExit, match=match):
             long_cli.main(['--artifact', art, '--device', 'cpu', *argv])

@@ -62,17 +62,19 @@ def small():
     return variables, model.eval()
 
 
-def _frontends(stats=None, conf=None):
+def _frontends(stats=None, conf=None, feature_type='logmel'):
     conf = conf or {}
     return (JaxFrontend(JaxAudio(**conf), n_mels=N_MELS, dither=0.0,
-                        norm_stats=stats),
+                        norm_stats=stats, feature_type=feature_type),
             SpectrogramFrontend(AudioConfig(**conf), n_mels=N_MELS,
-                                dither=0.0, norm_stats=stats))
+                                dither=0.0, norm_stats=stats,
+                                feature_type=feature_type))
 
 
-def _streamers(layers, variables, model, stats=STATS, **kw):
+def _streamers(layers, variables, model, stats=STATS,
+               feature_type='logmel', **kw):
     """The JAX streamer and the port's on the same weights."""
-    jfe, fe = _frontends(stats)
+    jfe, fe = _frontends(stats, feature_type=feature_type)
     norm = dict(norm='precomputed', norm_stats=stats) if stats is not None \
         else dict(norm='cumulative')
     kw = {**norm, **kw}
@@ -209,6 +211,54 @@ def test_stream_matches_jax(small, padding, norm, chunk, tails, n_chunks,
         for b, v in enumerate(valid):
             np.testing.assert_allclose(got[b, :v], off[b, :v],
                                        atol=OFFLINE_TOL, rtol=1e-4)
+
+
+@pytest.mark.parametrize('norm', ['precomputed', 'cumulative'])
+def test_mfcc_stream_matches_jax(small, norm):
+    """MFCC features (the DCT after K1 in every phase): the stream within
+    STREAM_TOL of JAX's MFCC stream and, with fixed statistics, within
+    OFFLINE_TOL of the port's offline MFCC forward."""
+    variables, model = small
+    stats = STATS if norm == 'precomputed' else None
+    jsw, sw = _streamers(SMALL_LAYERS, variables, model, stats,
+                         feature_type='mfcc', chunk_frames=10)
+    np.testing.assert_array_equal(sw.frontend.dct.numpy(),
+                                  jsw._dct)
+    lengths = [sw.prime_samples + 3 * sw.chunk_samples + t
+               for t in (1000, 0)]
+    audio = _audio(lengths, seed=43)
+    got, valid = _run(sw, audio, lengths, 2345)
+    want, want_valid = _run(jsw, audio, lengths, 2345)
+    np.testing.assert_array_equal(valid, want_valid)
+    for b, v in enumerate(valid):
+        np.testing.assert_allclose(got[b, :v], want[b, :v], rtol=0,
+                                   atol=STREAM_TOL)
+    if stats is not None:
+        off, off_lens = _port_offline(sw, SMALL_LAYERS, audio, lengths)
+        np.testing.assert_array_equal(off_lens, valid)
+        for b, v in enumerate(valid):
+            np.testing.assert_allclose(got[b, :v], off[b, :v],
+                                       atol=OFFLINE_TOL, rtol=1e-4)
+
+
+def test_mfcc_bounded_lookahead_matches_jax(small):
+    from wav2letter_pytorch_tpu.models import Wav2Letter as JaxW2L
+    variables, model = small
+    jmodel = JaxW2L(layers=SMALL_LAYERS, num_labels=len(LABELS),
+                    mid_layers=len(SMALL_LAYERS))
+    specs = lookahead._conv_specs_w2l(SMALL_LAYERS)
+    jfe, fe = _frontends(feature_type='mfcc')
+    norm = dict(norm='precomputed', norm_stats=STATS)
+    kw = dict(chunk_frames=32, lookahead_frames=16)
+    jsw = jlook.BoundedLookaheadStreamer(jmodel, variables, jfe, specs,
+                                         **norm, **kw)
+    sw = lookahead.BoundedLookaheadStreamer(model, fe, specs, device=CPU,
+                                            **norm, **kw)
+    audio = _audio([199 * HOP], seed=1)
+    np.testing.assert_allclose(
+        lookahead.bounded_stream_logprobs(sw, audio, 3111),
+        jlook.bounded_stream_logprobs(jsw, audio, 3111), rtol=0,
+        atol=LOOKAHEAD_TOL)
 
 
 def test_flagship_structure_matches_jax():
@@ -527,10 +577,17 @@ def test_streaming_errors_and_refusals(small, tmp_path):
                                       chunk_frames=16, weights='int8_full',
                                       folded=serving.fold_batchnorm(model),
                                       device=CPU)
-    fe.feature_type = 'mfcc'
-    with pytest.raises(ValueError, match='A.10'):
-        streaming.StreamingWav2Letter(SMALL_LAYERS, 7, model, fe,
-                                      chunk_frames=16, device=CPU)
+    # An MFCC frontend streams (its DCT after K1) as JAX's streamer does.
+    jsw, sw = _streamers(SMALL_LAYERS, variables, model, None,
+                         feature_type='mfcc', chunk_frames=16)
+    assert sw.feat_dim == jsw.feat_dim == N_MELS
+    lengths = [sw.prime_samples + 2 * sw.chunk_samples + 77]
+    audio = _audio(lengths, seed=9)
+    got, valid = _run(sw, audio, lengths)
+    want, want_valid = _run(jsw, audio, lengths)
+    np.testing.assert_array_equal(valid, want_valid)
+    np.testing.assert_allclose(got[0, :valid[0]], want[0, :valid[0]],
+                               rtol=0, atol=STREAM_TOL)
     sw = streaming.StreamingWav2Letter(SMALL_LAYERS, 7, model,
                                        _frontends()[1], chunk_frames=16,
                                        device=CPU)

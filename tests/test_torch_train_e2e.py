@@ -250,7 +250,7 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
     ('model.compute_dtype=bf16', 'compute_dtype'),
     ('model.padding_mode=zeros', 'padding_mode'),
     ('model=conformer', 'No config'),
-    ('model.layers=[{output_size: 8}]', 'list and map'),
+    ('data.audio_dtype=float16', 'audio_dtype'),
     ('trainer.no_such_key=1', 'does not exist'),
 ])
 def test_config_refuses_what_the_port_does_not_do(override, match):
@@ -261,10 +261,13 @@ def test_config_refuses_what_the_port_does_not_do(override, match):
 
 def test_config_overrides():
     cfg = load_config(['data.train_manifest=x', 'data.val_manifest=y',
+                       'model.layers=[{output_size: 8, kernel_size: 3}]',
                        'model.layers.0.output_size=24', 'optimizer=one_cycle',
                        '+trainer.checkpoint.monitor=val_loss',
-                       'trainer.max_steps=7', 'trainer.preempt_signal=null'])
-    assert cfg['model']['layers'][0]['output_size'] == 24
+                       'trainer.max_steps=7', 'trainer.preempt_signal=null',
+                       'data.augment={spec_augment: {freq_masks: 2}}'])
+    assert cfg['model']['layers'] == [{'output_size': 24, 'kernel_size': 3}]
+    assert cfg['data']['augment'] == {'spec_augment': {'freq_masks': 2}}
     assert cfg['model']['scheduler']['max_lr'] == 1e-3
     assert cfg['trainer']['checkpoint'] == {'every_n_epochs': 1,
                                             'keep_last': 3,

@@ -13,9 +13,10 @@ rebuilds. Several sources are built in parallel. A failed build raises
 with nvcc's output. Nothing here runs when a module is imported: the CPU
 path never builds or loads a CUDA library.
 
-The host library (edit distance, greedy collapse, the ARPA scorer and the
-prefix beam search: ``csrc/host/*.cpp``) is one shared library built by
-``g++ -O3 -fPIC -std=c++17 -shared`` at first use into ``build/host/``,
+The host library (edit distance, greedy collapse, the ARPA scorer, the
+prefix beam search and the FLAC codec: ``csrc/host/*.cpp``) is one shared
+library built by ``g++ -O3 -fPIC -std=c++17 -shared`` at first use into
+``build/host/``,
 keyed the same way; a failed build raises with g++'s output.
 """
 
@@ -198,7 +199,13 @@ def _declare_host(lib: ctypes.CDLL) -> None:
              [f32p, c.c_int64, c.c_int64, u32p, c.c_int64, c.c_void_p,
               c.c_int64, c.c_double, c.c_double, c.c_double, c.c_uint32,
               u32p, i64p, c.c_int64, c.c_double, u32p, c.c_int64,
-              c.POINTER(c.c_double)])):
+              c.POINTER(c.c_double)]),
+            ('w2l_flac_parse_info', c.c_int, [c.c_char_p, c.c_int64, i64p]),
+            ('w2l_flac_decode_all', c.c_int64,
+             [c.c_char_p, c.c_int64, i32p, c.c_int64, c.c_int]),
+            ('w2l_flac_encode_fixed', c.c_int64,
+             [i32p, c.c_int64, c.c_int, c.c_int64, c.c_int, c.c_int64,
+              c.c_char_p, c.POINTER(c.c_uint8), c.c_int64])):
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes

@@ -8,17 +8,18 @@ The defaults are the JAX package's ``configs/``: ``config.yaml``'s
 on that package's command line:
 
 * ``a.b=value`` sets an existing key to a scalar (``null``, ``true``,
-  ``false``, an int, a float or a string); list items are addressed by
-  index (``model.layers.0.output_size=24``);
+  ``false``, an int, a float or a string), or to a YAML flow-style list
+  or map (``[1, 2]``, ``{spec_augment: {freq_masks: 2}}``, nested, its
+  scalars read the same way); list items are addressed by index
+  (``model.layers.0.output_size=24``);
 * ``+a.b=value`` adds a key (creating the maps on its path);
 * ``optimizer=<name>`` / ``audio=<name>`` / ``model=<name>`` swap a group
   (``model=wav2letter|jasper|quartznet``).
 
-List and map values (``[...]``, ``{...}``) are not parsed. ``${a.b}``
-values are resolved after the overrides. Keys of the JAX package that
-steer TPU-only mechanisms, or features the port does not have, raise when
-set to anything but their default (``check_supported``): they are never
-quietly ignored.
+``${a.b}`` values are resolved after the overrides. Keys of the JAX
+package that steer TPU-only mechanisms, or features the port does not
+have, raise when set to anything but their default
+(``check_supported``): they are never quietly ignored.
 """
 
 from __future__ import annotations
@@ -168,11 +169,12 @@ UNSUPPORTED = {
     'model.stft_method': 'auto',
     'model.padding_mode': 'reflect',
     'model.compute_dtype': 'f32',
-    'model.feature_type': 'logmel',
-    'model.n_mfcc': None,
-    'model.audio_conf.resample': False,
-    'data.cache_audio': False,
-    'data.audio_dtype': 'float32',
+}
+# Keys the port acts on whose values are checked as the JAX package checks
+# them (there, where the dataset and the frontend are built).
+CHOICES = {
+    'data.audio_dtype': ('float32', 'int16'),
+    'model.feature_type': ('logmel', 'mfcc'),
 }
 SUPPORTED_DECODERS = ('wav2letter_pytorch_tpu.decoding.GreedyDecoder',
                       'decoder.GreedyDecoder')
@@ -180,17 +182,13 @@ SUPPORTED_DECODERS = ('wav2letter_pytorch_tpu.decoding.GreedyDecoder',
 _INTERP = re.compile(r'^\$\{([^}]+)\}$')
 
 
-def parse_value(text: str):
-    """A scalar override value: null/true/false, int, float or string."""
+def _scalar(text: str):
+    """A scalar: null/true/false, int, float, a quoted or a plain string."""
     low = text.strip().lower()
     if low in ('null', 'none', '~', ''):
         return None
     if low in ('true', 'false'):
         return low == 'true'
-    if text.strip()[:1] in ('[', '{'):
-        raise ValueError(f'list and map override values are not supported: '
-                         f'{text!r} (set items by path, e.g. '
-                         'model.layers.0.output_size=24)')
     for cast in (int, float):
         try:
             return cast(text)
@@ -199,6 +197,130 @@ def parse_value(text: str):
     if len(text) >= 2 and text[0] == text[-1] and text[0] in '\'"':
         return text[1:-1]
     return text
+
+
+class _Flow:
+    """Recursive-descent reader of a YAML flow collection: ``[a, b]`` and
+    ``{k: v}``, nested, with plain, single- and double-quoted scalars."""
+
+    def __init__(self, text: str):
+        self.text = text
+        self.pos = 0
+
+    def fail(self, what: str):
+        raise ValueError(f'Malformed list/map override value '
+                         f'{self.text!r} at {self.pos}: {what}')
+
+    def skip(self):
+        while self.pos < len(self.text) and self.text[self.pos] in ' \t':
+            self.pos += 1
+
+    def peek(self) -> str:
+        self.skip()
+        return self.text[self.pos:self.pos + 1]
+
+    def expect(self, ch: str):
+        if self.peek() != ch:
+            self.fail(f'expected {ch!r}')
+        self.pos += 1
+
+    def value(self, in_map: bool):
+        ch = self.peek()
+        if ch == '[':
+            return self.sequence()
+        if ch == '{':
+            return self.mapping()
+        if ch in ('"', "'"):
+            return self.quoted()
+        return _scalar(self.plain(in_map))
+
+    def plain(self, in_map: bool) -> str:
+        """A plain scalar: up to a flow indicator, or in a map up to a
+        ``:`` that a space or an indicator follows."""
+        start = self.pos
+        t = self.text
+        while self.pos < len(t):
+            c = t[self.pos]
+            if c in ',[]{}':
+                break
+            if c == ':' and in_map and (self.pos + 1 == len(t)
+                                        or t[self.pos + 1] in ' ,[]{}'):
+                break
+            self.pos += 1
+        return t[start:self.pos].strip()
+
+    def quoted(self) -> str:
+        q = self.text[self.pos]
+        self.pos += 1
+        out = []
+        t = self.text
+        while self.pos < len(t):
+            c = t[self.pos]
+            if c == q:
+                if q == "'" and t[self.pos + 1:self.pos + 2] == "'":
+                    out.append("'")
+                    self.pos += 2
+                    continue
+                self.pos += 1
+                return ''.join(out)
+            if c == '\\' and q == '"':
+                esc = t[self.pos + 1:self.pos + 2]
+                out.append({'n': '\n', 't': '\t', '"': '"',
+                            '\\': '\\', '/': '/'}.get(esc, '\\' + esc))
+                self.pos += 2
+                continue
+            out.append(c)
+            self.pos += 1
+        self.fail('unterminated quoted scalar')
+
+    def sequence(self) -> list:
+        self.expect('[')
+        out = []
+        while self.peek() != ']':
+            if not self.peek():
+                self.fail("expected ']'")
+            out.append(self.value(in_map=False))
+            if self.peek() == ',':
+                self.pos += 1
+            elif self.peek() != ']':
+                self.fail("expected ',' or ']'")
+        self.pos += 1
+        return out
+
+    def mapping(self) -> dict:
+        self.expect('{')
+        out = {}
+        while self.peek() != '}':
+            if not self.peek():
+                self.fail("expected '}'")
+            key = self.value(in_map=True)
+            if isinstance(key, (dict, list)):
+                self.fail('a key must be a scalar')
+            val = None
+            if self.peek() == ':':
+                self.pos += 1
+                if self.peek() not in (',', '}'):
+                    val = self.value(in_map=True)
+            out[key] = val
+            if self.peek() == ',':
+                self.pos += 1
+            elif self.peek() != '}':
+                self.fail("expected ',' or '}'")
+        self.pos += 1
+        return out
+
+
+def parse_value(text: str):
+    """An override value: a scalar (null/true/false, int, float or
+    string), or a YAML flow-style list or map of them (``[1, 2]``,
+    ``{a: {b: 2}}``), read without a YAML library."""
+    if text.strip()[:1] in ('[', '{'):
+        flow = _Flow(text)
+        value = flow.value(in_map=False)
+        if flow.peek():
+            flow.fail('text after the closing bracket')
+        return value
+    return _scalar(text)
 
 
 def _child(node, part: str, dotted: str):
@@ -309,6 +431,20 @@ def check_supported(cfg: dict) -> None:
         if value != default:
             raise ValueError(f'{key}={value!r} is not supported by the '
                              f'PyTorch port (only {default!r})')
+    for key, choices in CHOICES.items():
+        try:
+            value = get_path(cfg, key)
+        except KeyError:
+            continue
+        if value not in choices:
+            raise ValueError(f'{key} must be one of {choices}, got '
+                             f'{value!r}')
+    n_mfcc = cfg.get('model', {}).get('n_mfcc')
+    if n_mfcc is not None and (isinstance(n_mfcc, bool)
+                               or not isinstance(n_mfcc, int)
+                               or n_mfcc < 1):
+        raise ValueError(f'model.n_mfcc must be a positive int or null, '
+                         f'got {n_mfcc!r}')
     target = cfg['model']['decoder'].get('_target_')
     if target not in SUPPORTED_DECODERS:
         raise ValueError(f'model.decoder._target_={target!r} is not ported: '

@@ -1,10 +1,12 @@
-"""WAV file I/O with offset/duration seeking (stdlib ``wave`` + numpy).
-
-FLAC and other containers are not ported yet.
+"""Audio file I/O with offset/duration seeking: WAV through the stdlib
+``wave`` module, FLAC through the host library's C++ decoder
+(``flac_native``); other containers through soundfile where it is
+installed (imported only then).
 """
 
 from __future__ import annotations
 
+import os
 import wave
 
 import numpy as np
@@ -36,6 +38,81 @@ def read_wav(path: str, duration: float = -1, offset: float = 0):
     if channels > 1:
         data = data.reshape(-1, channels).mean(axis=1)
     return data, rate
+
+
+def read_flac(path: str, duration: float = -1, offset: float = 0):
+    """Read a FLAC file -> (float32 samples in [-1, 1], sample_rate).
+
+    Decodes through the C++ decoder (a failed build of the host library
+    raises). FLAC frames are not seekable without a seektable, so
+    ``offset``/``duration`` slice the decoded signal: the samples a
+    container-level seek would give. Samples are scaled by
+    ``1 / 2**(bps - 1)``; several channels are averaged to mono.
+    """
+    from . import flac_native
+    with open(path, 'rb') as f:
+        data = f.read()
+    samples, rate, bps = flac_native.decode_native(data)
+    out = samples.astype(np.float32) / float(1 << (bps - 1))
+    out = out.mean(axis=1) if out.shape[1] > 1 else out[:, 0]
+    start = min(int(offset * rate), len(out)) if offset > 0 else 0
+    end = start + int(duration * rate) if duration > 0 else len(out)
+    return out[start:end], rate
+
+
+def read_audio(path: str, duration: float = -1, offset: float = 0):
+    """(float32 samples, sample_rate) of a WAV, FLAC or (with soundfile)
+    other audio file, by its extension."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == '.wav':
+        return read_wav(path, duration, offset)
+    if ext == '.flac':
+        return read_flac(path, duration, offset)
+    sf = _soundfile(ext)
+    with sf.SoundFile(path, 'r') as f:
+        rate = f.samplerate
+        if offset > 0:
+            f.seek(int(offset * rate))
+        if duration > 0:
+            samples = f.read(int(duration * rate), dtype='float32')
+        else:
+            samples = f.read(dtype='float32')
+    samples = np.asarray(samples, np.float32)
+    if samples.ndim > 1:
+        samples = samples.mean(axis=1)
+    return samples, rate
+
+
+def _soundfile(ext: str):
+    try:
+        import soundfile
+    except ImportError as e:
+        raise ImportError(
+            f'Reading {ext!r} files requires the optional soundfile package '
+            '(WAV and FLAC work out of the box).') from e
+    return soundfile
+
+
+def audio_info(path: str):
+    """(num_samples, sample_rate) from the header without decoding audio."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == '.wav':
+        return wav_info(path)
+    if ext == '.flac':
+        from .flac_native import parse_info_native
+        with open(path, 'rb') as f:
+            head = f.read(65536)
+            try:
+                info = parse_info_native(head)
+            except ValueError:
+                if len(head) < 65536:
+                    raise
+                # Metadata blocks (cover art, padding) run past the head.
+                f.seek(0)
+                info = parse_info_native(f.read())
+        return info['total_samples'], info['sample_rate']
+    info = _soundfile(ext).info(path)
+    return info.frames, info.samplerate
 
 
 def wav_info(path: str):

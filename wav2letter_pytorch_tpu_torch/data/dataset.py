@@ -10,8 +10,9 @@ reference's, so the two can be compared batch for batch.
 Manifests: CSV with a leading index column (what pandas writes with
 ``to_csv``, read there with ``index_col=0``) or JSON lines, each with
 ``audio_filepath`` and ``text`` and optional ``offset``/``duration``
-seconds. Only WAV audio is read; a file whose rate differs from the
-configured one raises (resampling is not ported).
+seconds. Audio is WAV or FLAC (``audio_io.read_audio``). A first file
+whose rate differs from the configured one raises, unless ``resample``
+converts every file to that rate on read (``resample.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import threading
 import numpy as np
 
 from . import label_sets
-from .audio_io import read_wav, wav_info
+from .audio_io import audio_info, read_audio
+from .resample import resample, resample_ratio
+
+AUDIO_DTYPES = ('float32', 'int16')
 
 
 def read_manifest(path: str) -> list[dict]:
@@ -48,16 +52,43 @@ def read_manifest(path: str) -> list[dict]:
     return out
 
 
-class ManifestDataset:
-    """Audio + transcript samples described by a manifest."""
+def resample_flag(audio_conf) -> bool:
+    """``audio_conf.resample`` of a config or an artifact (off if unset)."""
+    return bool((audio_conf or {}).get('resample', False))
 
-    def __init__(self, manifest_filepath: str, sample_rate: int, labels):
+
+class ManifestDataset:
+    """Audio + transcript samples described by a manifest.
+
+    ``resample``: files at another rate are resampled to ``sample_rate``
+    on read (the JAX package's ``audio_conf.resample``); without it the
+    first file's rate is checked against ``sample_rate``.
+
+    ``cache_audio``: each decoded (and resampled) waveform is kept in host
+    memory after its first read, so later epochs decode nothing.
+
+    ``audio_dtype='int16'``: samples are kept, and batched, as 16-bit PCM,
+    ``clip(rint(x * 32768))``: exact for 16-bit sources, whose samples are
+    multiples of 1/32768; finer or resampled audio is rounded to 16 bits.
+    The frontend turns them back into ``x / 32768`` before dither.
+    """
+
+    def __init__(self, manifest_filepath: str, sample_rate: int, labels,
+                 resample: bool = False, cache_audio: bool = False,
+                 audio_dtype: str = 'float32'):
         self.rows = read_manifest(manifest_filepath)
         self.sample_rate = int(sample_rate)
+        self.resample = bool(resample)
         self.labels = label_sets.resolve_labels(labels)
         self.labels_map = {c: i for i, c in enumerate(self.labels)}
-        if self.rows:
-            _, sr = wav_info(self.rows[0]['audio_filepath'])
+        if audio_dtype not in AUDIO_DTYPES:
+            raise ValueError(f'audio_dtype must be float32 or int16, '
+                             f'got {audio_dtype!r}')
+        self.audio_dtype = np.dtype(audio_dtype)
+        self._audio_cache: dict[int, np.ndarray] | None = (
+            {} if cache_audio else None)
+        if self.rows and not self.resample:
+            _, sr = audio_info(self.rows[0]['audio_filepath'])
             if sr != self.sample_rate:
                 raise ValueError(f'Expected sample rate {self.sample_rate} '
                                  f'but found {sr} in first file')
@@ -71,19 +102,35 @@ class ManifestDataset:
         return len(self.rows)
 
     def sample_meta(self, index: int):
-        """(num_samples, text) without decoding audio, for bucketing."""
+        """(num_samples, text) without decoding audio, for bucketing; with
+        ``resample``, the exact length after resampling,
+        ``ceil(n * up / down)``."""
         row = self.rows[index]
         if row['duration'] > 0:
             n = int(row['duration'] * self.sample_rate)
+        elif self.resample:
+            frames, sr = audio_info(row['audio_filepath'])
+            up, down = resample_ratio(sr, self.sample_rate)
+            n = -(-(frames - int(row['offset'] * sr)) * up // down)
         else:
-            frames, _ = wav_info(row['audio_filepath'])
+            frames, _ = audio_info(row['audio_filepath'])
             n = frames - int(row['offset'] * self.sample_rate)
         return n, row['text']
 
     def __getitem__(self, index: int):
         row = self.rows[index]
-        audio, _ = read_wav(row['audio_filepath'], row['duration'],
-                            row['offset'])
+        cache = self._audio_cache
+        audio = cache.get(index) if cache is not None else None
+        if audio is None:
+            audio, sr = read_audio(row['audio_filepath'], row['duration'],
+                                   row['offset'])
+            if self.resample and sr != self.sample_rate:
+                audio = resample(audio, sr, self.sample_rate)
+            if self.audio_dtype == np.int16:
+                audio = np.clip(np.rint(audio * 32768.0),
+                                -32768, 32767).astype(np.int16)
+            if cache is not None:
+                cache[index] = audio
         return (audio, self.encode_text(row['text']), row['audio_filepath'],
                 row['text'])
 
@@ -98,7 +145,8 @@ def _round_up(x: int, m: int) -> int:
 class BucketBatchLoader:
     """Batches with length-bucketed shapes and a prefetch thread.
 
-    Yields dicts of numpy arrays: ``audio`` [B, T_bucket] f32,
+    Yields dicts of numpy arrays: ``audio`` [B, T_bucket] in the
+    dataset's ``audio_dtype`` (f32, or int16 PCM),
     ``audio_lengths`` [B] i32, ``targets`` [B, S] i32 (zero-padded),
     ``target_lengths`` [B] i32, ``batch_mask`` [B] f32, plus the host-side
     lists ``texts`` and ``paths``.
@@ -173,7 +221,7 @@ class BucketBatchLoader:
         pad_to = self.bucket_edges[bucket]
         n = len(indices)
         B = self.batch_size
-        audio = np.zeros((B, pad_to), np.float32)
+        audio = np.zeros((B, pad_to), self.dataset.audio_dtype)
         audio_lengths = np.ones((B,), np.int32)
         s_max = _round_up(max(self.max_target_len, 1), TARGET_MULTIPLE)
         targets = np.zeros((B, s_max), np.int32)

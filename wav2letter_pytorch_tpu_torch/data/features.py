@@ -1,11 +1,13 @@
-"""Batched, masked log-mel spectrogram frontend (PyTorch).
+"""Batched, masked log-mel (or MFCC) spectrogram frontend (PyTorch).
 
-Same numerics as ``wav2letter_pytorch_tpu.data.features``: optional
-dither, pre-emphasis 0.97, reflect centre padding by n_fft // 2 at each
-sample's own length, a windowed real DFT (symmetric window centred in an
-n_fft = 2^ceil(log2(window)) frame), power, a Slaney mel filterbank,
-``log1p(mel + 2^-24)``, then per-feature normalisation over each sample's
-valid frames (unbiased std) with padding frames zeroed. Serving can instead
+Same numerics as ``wav2letter_pytorch_tpu.data.features``: int16 PCM in
+as ``x / 32768`` (exact), optional dither, pre-emphasis 0.97, reflect
+centre padding by n_fft // 2 at each sample's own length, a windowed real
+DFT (symmetric window centred in an n_fft = 2^ceil(log2(window)) frame),
+power, a Slaney mel filterbank, ``log1p(mel + 2^-24)``, with
+``feature_type='mfcc'`` an orthonormal DCT-II over the log-mel bands,
+then per-feature normalisation over each sample's valid frames (unbiased
+std) with padding frames zeroed. Serving can instead
 normalise with fixed corpus statistics (``norm_stats``, CMVN) or not at all
 (``normalize=False``, the raw masked features CMVN is measured on).
 
@@ -125,9 +127,22 @@ def num_frames(num_samples: int, hop: int) -> int:
     return 1 + num_samples // hop
 
 
+def dct_basis(n_mels: int, n_mfcc: int) -> np.ndarray:
+    """Orthonormal DCT-II basis ``[n_mels, n_mfcc]`` (float32)."""
+    k = np.arange(n_mels)[:, None]
+    j = np.arange(n_mfcc)[None, :]
+    dct = np.cos(np.pi * (2 * k + 1) * j / (2 * n_mels))
+    dct *= np.sqrt(2.0 / n_mels)
+    dct[:, 0] *= np.sqrt(0.5)
+    return dct.astype(np.float32)
+
+
 class SpectrogramFrontend(nn.Module):
     """Log-mel extractor: ``forward(audio [B, T], sample_lengths [B])``
-    returns ``(features [B, n_frames, n_mels], frame_lengths [B])``.
+    returns ``(features [B, n_frames, C], frame_lengths [B])``, C the
+    ``n_mels`` log-mel bands or, with ``feature_type='mfcc'``, the first
+    ``n_mfcc`` (default ``n_mels``) coefficients of their DCT. ``audio``
+    is float32, or int16 PCM (the int16 wire), taken as ``x / 32768``.
 
     The DFT bases and the filterbank are buffers, so ``.to(device)`` moves
     them with the module; so are kernel K1's tables (twiddles, mel band
@@ -143,10 +158,18 @@ class SpectrogramFrontend(nn.Module):
     def __init__(self, audio_conf: AudioConfig = AudioConfig(),
                  n_mels: int = 64, dither: float = DITHER,
                  device: str | torch.device = 'cpu',
-                 norm_stats=None, normalize: bool = True):
+                 norm_stats=None, normalize: bool = True,
+                 feature_type: str = 'logmel', n_mfcc: int | None = None):
         super().__init__()
         self.conf = audio_conf
         self.n_mels = n_mels
+        if feature_type not in ('logmel', 'mfcc'):
+            raise ValueError(f'unknown feature_type: {feature_type!r}')
+        self.feature_type = feature_type
+        self.n_mfcc = n_mfcc or n_mels
+        if feature_type == 'mfcc':
+            self.register_buffer('dct', torch.from_numpy(
+                dct_basis(n_mels, self.n_mfcc)).to(device))
         self.dither = dither
         self.normalize_features = normalize
         self.has_norm_stats = norm_stats is not None
@@ -215,12 +238,24 @@ class SpectrogramFrontend(nn.Module):
         right = torch.gather(audio, 1, ref_idx)
         return base.scatter(1, pad + p, right)
 
+    @property
+    def feat_dim(self) -> int:
+        """Channels of a feature frame: n_mfcc under MFCC, else n_mels."""
+        return self.n_mfcc if self.feature_type == 'mfcc' else self.n_mels
+
     def forward(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
                 generator: torch.Generator | None = None):
         """``generator`` enables dithering (training); evaluation passes
         none."""
-        return self.normalize(self.log_mel(audio, sample_lengths, generator),
-                              sample_lengths)
+        feats = self.log_mel(audio, sample_lengths, generator)
+        return self.normalize(self.cepstra(feats), sample_lengths)
+
+    def cepstra(self, feats: torch.Tensor) -> torch.Tensor:
+        """Under MFCC, the DCT of log-mel ``feats`` [B, F, n_mels] ->
+        [B, F, n_mfcc]; the log-mel features themselves otherwise."""
+        if self.feature_type != 'mfcc':
+            return feats
+        return torch.matmul(feats, self.dct)
 
     def log_mel(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -233,9 +268,15 @@ class SpectrogramFrontend(nn.Module):
 
     def prepare(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Dither (with a generator), pre-emphasis and centre padding:
-        ``[B, T]`` -> the ``[B, T + n_fft]`` input of kernel K1."""
-        audio = audio.to(torch.float32)
+        """int16 to float (``x / 32768``), dither (with a generator),
+        pre-emphasis and centre padding: ``[B, T]`` -> the
+        ``[B, T + n_fft]`` input of kernel K1."""
+        if not audio.is_floating_point():  # int16 PCM
+            # 1/32768 is a power of two: the floats equal the host's
+            # int16 / 32768 bit for bit.
+            audio = audio.to(torch.float32) * (1.0 / 32768.0)
+        else:
+            audio = audio.to(torch.float32)
         B, T = audio.shape
         sample_lengths = sample_lengths.to(device=audio.device,
                                            dtype=torch.int32)
@@ -252,7 +293,8 @@ class SpectrogramFrontend(nn.Module):
         return self.center_pad(audio, sample_lengths)
 
     def normalize(self, feats: torch.Tensor, sample_lengths: torch.Tensor):
-        """Per-feature normalisation of raw log-mel ``feats`` over each
+        """Per-feature normalisation of raw features ``feats`` (log-mel,
+        or MFCC after ``cepstra``) over each
         sample's valid frames (unbiased std), then padding frames zeroed.
         Returns ``(features, frame_lengths)``. With ``norm_stats`` the
         corpus statistics replace the per-utterance ones; with

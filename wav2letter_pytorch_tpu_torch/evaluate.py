@@ -9,7 +9,9 @@ package's ``test.py``.
         [--dump-jsonl f.jsonl] [--seed N] [--batch-size B] [--device cuda] \
         [--mid-layers N] [model=quartznet] [key=value ...]
 
-Reads a CSV or JSON-lines manifest of WAV files, runs the log-mel frontend
+Reads a CSV or JSON-lines manifest of WAV or FLAC files (resampled to the
+model's rate where ``model.audio_conf.resample`` is set, as ``test.py``
+reads them), runs the log-mel (or MFCC) frontend
 (kernel K1), the model, the masked CTC mean (kernel K2) on the device, and
 decodes: greedily from argmax ids taken on the device; or, with
 ``--lm-path``, ``--beam-search-params`` or ``--hotwords``, by prefix beam
@@ -68,7 +70,7 @@ import numpy as np
 import torch
 
 from .config import BASE, load_config
-from .data.dataset import BucketBatchLoader, ManifestDataset
+from .data.dataset import BucketBatchLoader, ManifestDataset, resample_flag
 from .data.features import SpectrogramFrontend
 from .decoding.beam_device import DeviceBeamDecoder
 from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
@@ -96,11 +98,13 @@ LABELS = 'english_lowercase'
 def make_loader(manifest: str, batch_size: int, frontend: SpectrogramFrontend,
                 labels=LABELS, prefetch: int = 2,
                 num_buckets: int = BASE['data']['num_length_buckets'],
-                max_duration: float | None = BASE['data']['max_duration']
-                ) -> BucketBatchLoader:
+                max_duration: float | None = BASE['data']['max_duration'],
+                resample: bool = False) -> BucketBatchLoader:
     """Length-bucketed batches in manifest order; the defaults are the
-    config's ``data`` block (4 buckets, 16.7 s)."""
-    ds = ManifestDataset(manifest, frontend.conf.sample_rate, labels)
+    config's ``data`` block (4 buckets, 16.7 s). ``resample`` converts
+    files at another rate to the frontend's."""
+    ds = ManifestDataset(manifest, frontend.conf.sample_rate, labels,
+                         resample=resample)
     return BucketBatchLoader(ds, batch_size, frontend.hop,
                              num_buckets=num_buckets,
                              max_duration=max_duration, prefetch=prefetch)
@@ -469,7 +473,8 @@ def run_artifact_eval(args) -> int:
                        act_scales=meta.get('act_scales'), device=dev)
     n_dev = 1   # one device; data parallelism over several is ROADMAP A.9
     ds = ManifestDataset(args.test_manifest, frontend.conf.sample_rate,
-                         meta['labels'])
+                         meta['labels'],
+                         resample=resample_flag(meta['audio_conf']))
     loader = BucketBatchLoader(ds, args.batch_size or max(8, n_dev),
                                frontend.hop, num_buckets=4)
     acc = RatioAccumulator()
@@ -514,7 +519,8 @@ def run_artifact_streaming_eval(args, meta: dict, dev) -> int:
     except ValueError as e:
         raise SystemExit(str(e))
     decoder = GreedyDecoder(labels)
-    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels)
+    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels,
+                         resample=resample_flag(meta['audio_conf']))
     acc = RatioAccumulator()
     dump = UttDump(args.dump_jsonl)
     n_skipped = 0
@@ -609,7 +615,8 @@ def run_streaming_eval(args, cfg, model, frontend, decoder, labels,
           f'{sw.lookahead_frames * hop_ms / 1e3:.2f}s', file=sys.stderr)
     frame_seconds = (float(mcfg['audio_conf']['window_stride'])
                      * model.scaling_factor)
-    ds = ManifestDataset(args.test_manifest, sr, labels)
+    ds = ManifestDataset(args.test_manifest, sr, labels,
+                         resample=resample_flag(mcfg['audio_conf']))
     acc = RatioAccumulator()
     dump = UttDump(args.dump_jsonl)
     n_fallback = 0
@@ -685,7 +692,8 @@ def run_bounded_streaming_eval(args, cfg, model, decoder, labels,
           f'{sw.window_frames} frames '
           f'({sw.window_frames / args.streaming_chunk_frames:.1f}x offline '
           'compute)', file=sys.stderr)
-    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels)
+    ds = ManifestDataset(args.test_manifest, sw.sample_rate, labels,
+                         resample=resample_flag(mcfg['audio_conf']))
     acc = RatioAccumulator()
     dump = UttDump(args.dump_jsonl)
     try:
@@ -758,7 +766,8 @@ def main(argv=None) -> int:
     loader = make_loader(args.test_manifest,
                          args.batch_size or int(data['batch_size']), frontend,
                          labels, num_buckets=int(data['num_length_buckets']),
-                         max_duration=data['max_duration'])
+                         max_duration=data['max_duration'],
+                         resample=resample_flag(cfg['model']['audio_conf']))
     frame_seconds = (float(cfg['model']['audio_conf']['window_stride'])
                      * model.scaling_factor)
     result = evaluate(model, frontend, loader, decoder, dev,

@@ -62,7 +62,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from .data.dataset import ManifestDataset
+    from .data.dataset import ManifestDataset, resample_flag
     from .decoding.decoder import parse_beam_params
     from .runtime import resolve_device
     from .serving import (calibrate_activation_scales, compute_cmvn,
@@ -114,8 +114,9 @@ def main(argv=None) -> int:
     folded = fold_batchnorm(model, len(layers))
     act_scales = None
     if args.calibrate:
-        ds = ManifestDataset(args.cmvn_manifest,
-                             int(mcfg['audio_conf']['sample_rate']), labels)
+        ds = ManifestDataset(
+            args.cmvn_manifest, int(mcfg['audio_conf']['sample_rate']),
+            labels, resample=resample_flag(mcfg['audio_conf']))
         n = min(args.calibrate_clips, len(ds))
         clips = [np.asarray(ds[i][0], np.float32) for i in range(n)]
         audio = np.zeros((n, max(len(c) for c in clips)), np.float32)

@@ -46,9 +46,10 @@ def compute_cmvn(manifest_path: str, frontend_factory, labels, audio_conf,
     there. Returns ``(mean [M], std [M])``, the ``norm_stats`` of a
     fixed-statistics frontend.
     """
-    from ..data.dataset import ManifestDataset
+    from ..data.dataset import ManifestDataset, resample_flag
     ds = ManifestDataset(manifest_path, int(audio_conf['sample_rate']),
-                         labels)
+                         labels,
+                         resample=resample_flag(audio_conf))
     frontend = frontend_factory(normalize=False)
     dev = frontend.fb_t.device
     n = len(ds) if limit is None else min(limit, len(ds))
@@ -288,19 +289,15 @@ def load_serving(artifact_dir: str):
 
 
 def artifact_frontend(meta: dict, norm_stats=None, device='cuda'):
-    """The log-mel frontend an artifact's weights were trained on (no
-    dither), on ``device``; ``norm_stats`` gives it fixed CMVN statistics
-    in place of per-utterance normalisation. Raises ``ValueError`` for an
-    artifact without its audio metadata or with MFCC features (the MFCC
-    frontend is not ported: ROADMAP A.10)."""
+    """The frontend an artifact's weights were trained on (log-mel or
+    MFCC, by its ``feature_type``; no dither), on ``device``;
+    ``norm_stats`` gives it fixed CMVN statistics in place of
+    per-utterance normalisation. Raises ``ValueError`` for an artifact
+    without its audio metadata."""
     from ..data.features import AudioConfig, SpectrogramFrontend
     ac = meta.get('audio_conf')
     if meta.get('labels') is None or ac is None:
         raise ValueError('artifact lacks labels/audio_conf metadata')
-    if meta.get('feature_type', 'logmel') != 'logmel':
-        raise ValueError(f"feature_type={meta['feature_type']!r}: the port "
-                         'has only the log-mel frontend (MFCC is ROADMAP '
-                         'A.10)')
     n_mels = meta.get('n_mels')
     if n_mels is None:
         raise ValueError('artifact lacks n_mels metadata')
@@ -309,7 +306,9 @@ def artifact_frontend(meta: dict, norm_stats=None, device='cuda'):
                        window_stride=float(ac['window_stride']),
                        window=ac.get('window', 'hamming'))
     return SpectrogramFrontend(conf, n_mels=int(n_mels), dither=0.0,
-                               device=device, norm_stats=norm_stats)
+                               device=device, norm_stats=norm_stats,
+                               feature_type=meta.get('feature_type',
+                                                     'logmel'))
 
 
 def streaming_from_artifact(artifact_dir: str, chunk_frames: int = 64,

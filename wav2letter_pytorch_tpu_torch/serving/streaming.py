@@ -22,7 +22,8 @@ at each row's true end and flushes the conv lookahead over zero features.
 
 Every phase launches kernel K1 (``ops/stft_mel.py``) once, for the
 framing, window, DFT, power, mel and log of its new frames: a contiguous
-float32 buffer of carried plus new samples. The conv stack keeps its
+float32 buffer of carried plus new samples. An MFCC frontend's DCT
+follows K1 (a plain product, as in the offline frontend). The conv stack keeps its
 activations and carries in ``[B, C, T]``, the layout ``F.conv1d`` takes,
 so a step transposes nothing a layer; ``weights='int8_full'`` works in
 ``[B, T, C]`` as ``serving/infer.py`` does, with a VALID im2col times
@@ -108,15 +109,14 @@ class _FrontendStreaming:
 
     def _init_frontend(self, frontend, norm, norm_stats, chunk_frames,
                        device):
-        if getattr(frontend, 'feature_type', 'logmel') != 'logmel':
-            raise ValueError('streaming takes the log-mel frontend only: '
-                             'the MFCC frontend is not ported (ROADMAP '
-                             'A.10)')
         self.device = resolve_device(device)
         self.frontend = frontend.to(self.device)
         self.hop = frontend.hop
         self.n_fft = frontend.n_fft
-        self.n_mels = self.feat_dim = frontend.n_mels
+        self.n_mels = frontend.n_mels
+        # Under MFCC the frontend's DCT follows K1 in every phase, so a
+        # stream sees the feature space its model was trained on.
+        self.feat_dim = frontend.feat_dim
         self.sample_rate = frontend.conf.sample_rate
         self.norm = norm
         if norm == 'precomputed':
@@ -156,10 +156,12 @@ class _FrontendStreaming:
         return x - PREEMPH * torch.cat([prev, x[:, :-1]], dim=1)
 
     def _frames_to_mel(self, buf, n_frames: int):
-        """K1 over ``n_frames`` frames of ``buf`` [B, P]: [B, n, M]."""
+        """K1 over ``n_frames`` frames of ``buf`` [B, P], then the DCT
+        under MFCC: [B, n, feat_dim]."""
         fe = self.frontend
-        return stft_mel_log(buf.contiguous(), n_frames, self.hop, fe.dft_re,
-                            fe.dft_im, fe.fb_t, self._k1_tables)
+        return fe.cepstra(stft_mel_log(buf.contiguous(), n_frames, self.hop,
+                                       fe.dft_re, fe.dft_im, fe.fb_t,
+                                       self._k1_tables))
 
     def _normalize(self, feats, mask, count, nsum, nsumsq):
         """Masked normalisation; cumulative mode updates running stats

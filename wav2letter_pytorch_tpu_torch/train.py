@@ -6,8 +6,9 @@
         [--device cuda]
 
 The counterpart of the JAX package's ``train.py``: dotted ``key=value``
-overrides and group swaps (``config.py``), WAV manifests (CSV or JSON
-lines), and ``Trainer.fit`` with validation, checkpoints under
+overrides and group swaps (``config.py``), WAV or FLAC manifests (CSV or
+JSON lines; ``data.cache_audio``, ``data.audio_dtype`` and
+``model.audio_conf.resample`` as there), and ``Trainer.fit`` with validation, checkpoints under
 ``<trainer.default_root_dir>/checkpoints`` and ``metrics.csv`` beside
 them. ``--resume`` continues from the latest checkpoint; ``--cfg`` prints
 the composed config as JSON and exits. The device defaults to ``cuda``
@@ -20,7 +21,7 @@ import json
 import sys
 
 from .config import load_config
-from .data.dataset import BucketBatchLoader, ManifestDataset
+from .data.dataset import BucketBatchLoader, ManifestDataset, resample_flag
 from .runtime import resolve_device
 from .decoding.decoder import GreedyDecoder
 from .training.build import (build_frontend, build_labels, build_model,
@@ -39,12 +40,16 @@ def get_data_loaders(labels, data_cfg, seed: int = 0):
                   max_duration=data_cfg.get('max_duration'),
                   prefetch=int(data_cfg.get('prefetch', 2)))
     batch_size = int(data_cfg['batch_size'])
+    ds_kwargs = dict(resample=resample_flag(ac),
+                     cache_audio=bool(data_cfg.get('cache_audio', False)),
+                     audio_dtype=str(data_cfg.get('audio_dtype', 'float32')))
     train = BucketBatchLoader(
-        ManifestDataset(data_cfg['train_manifest'], sr, labels), batch_size,
-        shuffle=bool(data_cfg.get('shuffle', True)), seed=seed, **kwargs)
+        ManifestDataset(data_cfg['train_manifest'], sr, labels, **ds_kwargs),
+        batch_size, shuffle=bool(data_cfg.get('shuffle', True)), seed=seed,
+        **kwargs)
     val = BucketBatchLoader(
-        ManifestDataset(data_cfg['val_manifest'], sr, labels), batch_size,
-        shuffle=False, **kwargs)
+        ManifestDataset(data_cfg['val_manifest'], sr, labels, **ds_kwargs),
+        batch_size, shuffle=False, **kwargs)
     return train, val
 
 

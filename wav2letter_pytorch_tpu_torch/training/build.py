@@ -129,7 +129,8 @@ def load_run(run_dir: str, overrides=(), average_last: int | None = None,
 def build_frontend(model_cfg, dither: float | None = None,
                    device='cpu', normalize: bool = True,
                    norm_stats=None) -> SpectrogramFrontend:
-    """The config's log-mel frontend on ``device``; ``normalize`` and
+    """The config's frontend (``model.feature_type``: log-mel, or MFCC
+    with ``model.n_mfcc`` coefficients) on ``device``; ``normalize`` and
     ``norm_stats`` as ``SpectrogramFrontend`` takes them (serving)."""
     ac = model_cfg['audio_conf']
     conf = AudioConfig(sample_rate=int(ac['sample_rate']),
@@ -139,7 +140,10 @@ def build_frontend(model_cfg, dither: float | None = None,
     kwargs = {} if dither is None else {'dither': dither}
     return SpectrogramFrontend(conf, n_mels=int(model_cfg['input_size']),
                                device=device, normalize=normalize,
-                               norm_stats=norm_stats, **kwargs)
+                               norm_stats=norm_stats,
+                               feature_type=model_cfg.get('feature_type',
+                                                          'logmel'),
+                               n_mfcc=model_cfg.get('n_mfcc'), **kwargs)
 
 
 def build_optimizer(params, model_cfg, steps_per_epoch: int,

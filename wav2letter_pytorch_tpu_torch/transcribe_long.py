@@ -17,8 +17,9 @@ CER. ``--verify-oneshot`` also runs the one-shot offline stack on the same
 audio and reports its largest log-prob difference from the chunked one.
 Prints one JSON line (and the transcript when no reference is known).
 
-``--audio`` reads WAV at the artifact's sample rate: resampling and FLAC
-are ROADMAP A.5. Windows over several devices (``--mesh``) are A.9.
+``--audio`` reads WAV or FLAC (other containers with soundfile) and
+resamples a file at another rate to the artifact's, as the JAX script
+does. Windows over several devices (``--mesh``) are ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def parse_args(argv=None):
         description='exact long-form transcription from a serving artifact')
     parser.add_argument('--artifact', required=True)
     parser.add_argument('--audio', default='',
-                        help='WAV file to transcribe')
+                        help='audio file to transcribe (WAV, FLAC; '
+                             'resampled to the artifact\'s rate)')
     parser.add_argument('--concat-manifest', default='',
                         help="build the long input by concatenating this "
                              "manifest's utterances (reports WER too)")
@@ -83,11 +85,13 @@ def parse_args(argv=None):
 def read_input(args, meta, sample_rate: int):
     """(audio, reference transcript | None) from ``--audio`` or
     ``--concat-manifest``."""
-    from .data.audio_io import read_wav
-    from .data.dataset import ManifestDataset
+    from .data.audio_io import read_audio
+    from .data.dataset import ManifestDataset, resample_flag
+    from .data.resample import resample
     if args.concat_manifest:
-        ds = ManifestDataset(args.concat_manifest, sample_rate,
-                             meta['labels'])
+        ds = ManifestDataset(
+            args.concat_manifest, sample_rate, meta['labels'],
+            resample=resample_flag(meta['audio_conf']))
         target = int(args.minutes * 60 * sample_rate)
         pieces, texts, total = [], [], 0
         for i in range(len(ds)):
@@ -100,16 +104,11 @@ def read_input(args, meta, sample_rate: int):
         return np.concatenate(pieces), ' '.join(texts)
     if not args.audio:
         raise SystemExit('need --audio or --concat-manifest')
-    with open(args.audio, 'rb') as f:
-        head = f.read(12)
-    if head[:4] != b'RIFF' or head[8:12] != b'WAVE':
-        raise SystemExit(f'{args.audio}: not a WAV file; the port reads WAV '
-                         'only (FLAC and other containers are ROADMAP A.5)')
-    audio, sr = read_wav(args.audio)
+    audio, sr = read_audio(args.audio)
     if sr != sample_rate:
-        raise SystemExit(f'{args.audio}: {sr} Hz, the artifact takes '
-                         f'{sample_rate} Hz; resampling is not ported '
-                         '(ROADMAP A.5)')
+        print(f'resampling {sr} Hz -> artifact rate {sample_rate} Hz',
+              file=sys.stderr)
+        audio = resample(audio, sr, sample_rate)
     return np.asarray(audio, np.float32), None
 
 
