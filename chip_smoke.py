@@ -158,10 +158,34 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    the two together as in training (epoch 1 decoding, epoch 2 from the
    cache), in utt/s and s of audio a second; bytes a batch on the int16
    and f32 wires.
-20. One ``{"kernels": [...]}`` line: per kernel its launches on the
+20. Quantization-aware finetuning (``serving/qat.py``) of phase 7's
+   Wav2Letter-20 fold against phase 16's int8 + CMVN + static-scales
+   artifact, B=16 of the corpus: ``qat_forward`` on the card against
+   ``offline_forward_q8`` on the card (static and dynamic scales, within
+   atol 5e-3 + rtol 1e-3) and, every layer exempted, against
+   ``offline_forward`` on the int8 weights (1e-5); one QAT step
+   (``qat_finetune``) with K1, K2 and K3 counted (one launch each; K3's
+   wrapper makes two) and its loss on the card against the CPU's (1e-3
+   relative, 2 rows); 40 LAMB steps at 3e-3 on one batch lower the int8
+   graph's CTC loss; the step's ms, utt/s, peak memory and busy share;
+   ``qat_finetune.main`` (20 steps, int8_full WER before and after on the
+   corpus, launches pinned), whose artifact loads with int8 weights equal
+   to ``quantize_folded`` of the trained fold bit for bit, and
+   ``evaluate --artifact --offline --int8-full`` on it.
+21. The serving tools on a model that trains: ``validate_serving`` (it
+   trains ``train_synthetic_demo``'s 3-layer model on 400 tone-language
+   utterances for 30 epochs, exports f32 and int8 artifacts, holds the
+   live model, the fold, the f32 artifact and the CMVN stream to each
+   other and the seven WER rows to their same-tag checks) must exit 0;
+   ``qat_finetune`` on the demo model (int8_full WER before and after,
+   printed); ``build_arpa`` on its train split; ``align`` on its val
+   split through the f32 artifact, no failure; ``error_analysis`` of an
+   ``evaluate --dump-jsonl`` of the val split, its WER the eval's.
+22. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
-   and data paths', K4-K7 QuartzNet's, K4 also its lookahead and exact
-   streams', K6 its lookahead stream's), max error against the plain
+   and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
+   QuartzNet's, K4 also its lookahead and exact streams', K6 its
+   lookahead stream's), max error against the plain
    version, time, plain time, roofline bound and the time of the nearest
    PyTorch library call (timed here only). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
@@ -189,13 +213,18 @@ import torch
 import torch.nn.functional as F
 
 from wav2letter_pytorch_tpu_torch import _build
+from wav2letter_pytorch_tpu_torch import align as port_align
+from wav2letter_pytorch_tpu_torch import build_arpa as port_arpa
+from wav2letter_pytorch_tpu_torch import error_analysis as port_errors
 from wav2letter_pytorch_tpu_torch import evaluate as port_eval
 from wav2letter_pytorch_tpu_torch import export_serving as port_export
 from wav2letter_pytorch_tpu_torch import full_depth_run as port_fdr
 from wav2letter_pytorch_tpu_torch import make_offline_corpus as port_corpus
+from wav2letter_pytorch_tpu_torch import qat_finetune as port_qat
 from wav2letter_pytorch_tpu_torch import serve_tcp as port_serve
 from wav2letter_pytorch_tpu_torch import train as port_train
 from wav2letter_pytorch_tpu_torch import transcribe_long as port_long
+from wav2letter_pytorch_tpu_torch import validate_serving as port_validate
 from wav2letter_pytorch_tpu_torch.config import load_config
 from wav2letter_pytorch_tpu_torch.data import dataset as port_dataset
 from wav2letter_pytorch_tpu_torch.data import flac as port_flac
@@ -241,10 +270,11 @@ from wav2letter_pytorch_tpu_torch.optim import constant_lr
 from wav2letter_pytorch_tpu_torch.serving import (
     BoundedLookaheadStreamer, MeshInference, StreamClient, StreamingJasper,
     StreamMultiplexer, StreamingTranscriber, StreamingWav2Letter,
-    artifact_frontend, bounded_stream_logprobs, load_serving,
-    offline_forward, offline_forward_q8, quantized_bytes, stream_logprobs,
-    streaming_from_artifact)
+    artifact_frontend, bounded_stream_logprobs, fold_batchnorm, load_serving,
+    offline_forward, offline_forward_q8, quantize_folded, quantized_bytes,
+    stream_logprobs, streaming_from_artifact)
 from wav2letter_pytorch_tpu_torch.serving import infer as serving_infer
+from wav2letter_pytorch_tpu_torch.serving import qat as serving_qat
 from wav2letter_pytorch_tpu_torch.serving import streaming_jasper
 from wav2letter_pytorch_tpu_torch.serving.server import \
     _map_state as map_state
@@ -258,7 +288,8 @@ from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
                                                          run_config)
 from wav2letter_pytorch_tpu_torch.training.checkpoint import (
     Checkpointer, average_checkpoints)
-from wav2letter_pytorch_tpu_torch.training.trainer import Trainer
+from wav2letter_pytorch_tpu_torch.training.trainer import (Trainer,
+                                                           masked_ctc_mean)
 from wav2letter_pytorch_tpu_torch.ops.stft_mel import (K1Tables,
                                                        stft_mel_log,
                                                        stft_mel_log_reference)
@@ -4288,6 +4319,354 @@ def phase_data(root: str, card: str) -> dict:
     return k1
 
 
+# --------------------------------------------------------------------- QAT
+
+QAT_BATCH = 16               # the qat_finetune CLI's default batch
+# qat_forward vs offline_forward_q8, the JAX test's bars (tests/
+# test_qat.py:62, 76), |d| <= atol + rtol * |want| element by element;
+# QuantConv's exact sums make them the same bits. Both sides run
+# infer.conv_q8_valid, so this gate holds the fake-quant, padding and clip
+# code; the conv itself is phase 16's int8 card-vs-CPU checks.
+QAT_Q8_ATOL, QAT_Q8_RTOL = 5e-3, 1e-3
+# Every layer exempted vs offline_forward on the int8 weights: the same
+# float32 convs on the same dequantized weights, the bias added apart.
+QAT_F32_TOL = 1e-5
+QAT_LOSS_RTOL = 1e-3         # one QAT step's loss, card vs CPU (TF32 off)
+QAT_CPU_ROWS = 2             # rows of the card-vs-CPU step
+QAT_OVERFIT_STEPS, QAT_OVERFIT_LR = 40, 3e-3   # test_qat.py's rule
+QAT_CLI_STEPS = 20
+QAT_COUNTERS = (stft_mel_log, ctc_alpha, ctc_beta)
+QAT_STEP_WANT = {'stft_mel_log': 1, 'ctc_alpha': 1, 'ctc_beta': 1}
+
+
+def allclose_excess(got, want, atol: float, rtol: float) -> float:
+    """max(|got - want| - (atol + rtol * |want|)): <= 0 when
+    ``np.allclose``'s test holds at every element."""
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+def qat_batch(manifest: str, labels, fe, rows: int = QAT_BATCH) -> dict:
+    """The first loader batch of ``rows`` corpus utterances (numpy)."""
+    return next(iter(port_eval.make_loader(manifest, rows, fe, labels)))
+
+
+def phase_qat_forward(layers, folded, meta, b: dict):
+    """qat_forward on the card against the int8 graph on the card
+    (offline_forward_q8, static and dynamic scales) and, with every layer
+    exempted, against offline_forward on the int8 weights."""
+    fe = artifact_frontend(meta, device=DEVICE)
+    params = serving_qat.init_params(folded, DEVICE)
+    q_dev = serving_infer.to_device(quantize_folded(folded), DEVICE)
+    with torch.no_grad():
+        feats, flens = fe(b['audio'], b['audio_lengths'])
+        for what, scales in (('static', meta['act_scales']),
+                             ('dynamic', None)):
+            got, got_lens = serving_qat.qat_forward(
+                layers, params, feats, flens, act_scales=scales)
+            want, want_lens = offline_forward_q8(layers, q_dev, feats, flens,
+                                                 act_scales=scales)
+            excess = allclose_excess(got, want, QAT_Q8_ATOL, QAT_Q8_RTOL)
+            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            check(torch.equal(got_lens, want_lens) and excess <= 0,
+                  f'qat_forward vs offline_forward_q8 on the card ({what} '
+                  f'scales, B={QAT_BATCH}, {tuple(feats.shape)}): max |d '
+                  f'logp| {(got - want).abs().max().item():.3e}, within '
+                  f'atol {QAT_Q8_ATOL} + rtol {QAT_Q8_RTOL} (excess '
+                  f'{excess:.2e}); argmax agreement {agree:.5f}; the same '
+                  f'bits: {torch.equal(got, want)}')
+        exempt = tuple(range(len(layers))) + ('head',)
+        got, _ = serving_qat.qat_forward(layers, params, feats, flens,
+                                         f32_layers=exempt)
+        want, _ = offline_forward(layers, q_dev, feats, flens)
+        excess = allclose_excess(got, want, QAT_F32_TOL, QAT_F32_TOL)
+        check(excess <= 0,
+              f'qat_forward with every layer f32 vs offline_forward on the '
+              f'int8 weights: max |d logp| '
+              f'{(got - want).abs().max().item():.3e} (gate {QAT_F32_TOL} '
+              f'+ {QAT_F32_TOL} |want|)')
+
+
+def phase_qat_step(layers, folded, meta, batch: dict, card: str) -> dict:
+    """One QAT step (``qat_finetune``, one batch, one step) with K1/K2/K3
+    counted around it; the same step on the card and the CPU (loss); the
+    step's time, utt/s, peak memory and busy share at B=QAT_BATCH.
+    Returns the launches."""
+    fe = artifact_frontend(meta, device=DEVICE)
+    scales = meta['act_scales']
+    for fn in QAT_COUNTERS:
+        fn.launches = 0
+    new, hist = serving_qat.qat_finetune(layers, folded, fe, [batch],
+                                         act_scales=scales, steps=1)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in QAT_COUNTERS}
+    check(launches == QAT_STEP_WANT and len(hist) == 1
+          and math.isfinite(hist[0][1]),
+          f'one QAT step (qat_finetune, B={QAT_BATCH}): loss '
+          f'{hist[0][1]:.4f}; launches {launches} (want {QAT_STEP_WANT}: '
+          'K1 in the frontend, K2 the loss, K3 its backward)')
+
+    # The loss of a step is its forward's: the card runs the whole step,
+    # the CPU (plain K1, plain CTC) the forward alone.
+    rows = {k: v[:QAT_CPU_ROWS] if isinstance(v, np.ndarray) else v
+            for k, v in batch.items()}
+    params = serving_qat.init_params(folded, DEVICE)
+    opt = serving_qat.make_optimizer(params, 'lamb', 1e-4)
+    card_loss = serving_qat.qat_step(
+        layers, params, opt, fe, port_eval.to_device(rows, DEVICE),
+        act_scales=scales).item()
+    cpu = torch.device('cpu')
+    r = port_eval.to_device(rows, cpu)
+    with torch.no_grad():
+        feats, flens = artifact_frontend(meta, device=cpu)(
+            r['audio'], r['audio_lengths'])
+        logp, lens = serving_qat.qat_forward(
+            layers, serving_qat.init_params(folded, cpu), feats, flens,
+            act_scales=scales)
+        cpu_loss = masked_ctc_mean(logp, lens, r['targets'],
+                                   r['target_lengths'],
+                                   r['batch_mask']).item()
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(rel <= QAT_LOSS_RTOL,
+          f'one QAT step, {QAT_CPU_ROWS} rows: loss card {card_loss:.6f} vs '
+          f'CPU {cpu_loss:.6f}, rel {rel:.2e} (gate {QAT_LOSS_RTOL})')
+    del params, opt
+
+    b = port_eval.to_device(batch, DEVICE)
+    params = serving_qat.init_params(folded, DEVICE)
+    opt = serving_qat.make_optimizer(params, 'lamb', 1e-4)
+    static = torch.tensor(scales, dtype=torch.float32, device=DEVICE)
+
+    def step():
+        return serving_qat.qat_step(layers, params, opt, fe, b,
+                                    act_scales=static)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss = step()
+    float(loss)
+    per_step = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'QAT step (K1 frontend + fake-quant W2L-20 fwd/bwd + CTC K2/K3 '
+          f'+ LAMB), B={QAT_BATCH}, {tuple(batch["audio"].shape)} audio: '
+          f'{per_step * 1e3:.3f} ms/step, {QAT_BATCH / per_step:.1f} utt/s, '
+          f'peak memory {peak:.3f} GiB [{card}]')
+    profile_top(lambda: [step() for _ in range(2)], 'W2L-20, 2 QAT steps')
+    return launches
+
+
+def phase_qat_overfit(layers, folded, meta, batch: dict):
+    """QAT_OVERFIT_STEPS LAMB steps on one repeated batch lower the CTC
+    loss of the int8 graph (offline_forward_q8 over quantize_folded, static
+    scales), test_qat_finetune_improves_int8_loss's rule."""
+    fe = artifact_frontend(meta, device=DEVICE)
+    scales = meta['act_scales']
+    b = port_eval.to_device(batch, DEVICE)
+
+    def int8_loss(fold):
+        q = serving_infer.to_device(quantize_folded(fold), DEVICE)
+        with torch.no_grad():
+            feats, flens = fe(b['audio'], b['audio_lengths'])
+            logp, lens = offline_forward_q8(layers, q, feats, flens,
+                                            act_scales=scales)
+            return masked_ctc_mean(logp, lens, b['targets'],
+                                   b['target_lengths'],
+                                   b['batch_mask']).item()
+    before = int8_loss(folded)
+    t0 = time.perf_counter()
+    new, hist = serving_qat.qat_finetune(
+        layers, folded, fe, [batch], act_scales=scales,
+        steps=QAT_OVERFIT_STEPS, learning_rate=QAT_OVERFIT_LR, log_every=10)
+    secs = time.perf_counter() - t0
+    after = int8_loss(new)
+    check(after < before and [s for s, _ in hist] == [10, 20, 30, 40],
+          f'{QAT_OVERFIT_STEPS} LAMB steps (lr {QAT_OVERFIT_LR}) on one '
+          f'batch: int8 graph CTC loss {before:.4f} -> {after:.4f}; QAT '
+          f'loss {[round(v, 4) for _, v in hist]}; {secs:.1f} s')
+
+
+def qat_eval_batches(manifest: str, labels, batch_size: int) -> int:
+    """Batches of qat_finetune's int8_full evaluation of ``manifest``."""
+    ds = ManifestDataset(manifest, 16000, labels)
+    return len(BucketBatchLoader(ds, batch_size, 160, num_buckets=4))
+
+
+def run_qat_cli(argv: list, what: str, want: dict | None = None) -> tuple:
+    """``qat_finetune.main(argv)`` counted, with the fold it trained
+    captured; its artifact loads and its int8 weights are, bit for bit,
+    ``quantize_folded`` of that fold. Returns (report, launches, wall
+    seconds)."""
+    captured = []
+    finetune = serving_qat.qat_finetune
+
+    def capture(*args, **kwargs):
+        out = finetune(*args, **kwargs)
+        captured.append(out[0])
+        return out
+    serving_qat.qat_finetune = capture
+    try:
+        lines, _, secs, launches = run_counted(port_qat.main, argv,
+                                               QAT_COUNTERS, what, want)
+    finally:
+        serving_qat.qat_finetune = finetune
+    report = json.loads(lines[-1])
+    src = argv[argv.index('--from-artifact') + 1]
+    meta, folded_q, stats = load_serving(report['artifact'])
+    src_meta, _, src_stats = load_serving(src)
+    want_q = quantize_folded(captured[0])
+    same = len(folded_q) == len(want_q) and all(
+        a.dtype == c.dtype and np.array_equal(a, c)
+        for g, w in zip(folded_q, want_q) for a, c in zip(g, w))
+    check(same and meta['format'] == 'int8'
+          and meta['act_scales'] == src_meta['act_scales']
+          and all(np.array_equal(u, v) for u, v in zip(stats, src_stats))
+          and all(math.isfinite(v) for _, v in report['history']),
+          f'{what}: the artifact loads; its int8 weights are '
+          f'quantize_folded of the trained fold bit for bit ({len(folded_q)} '
+          'layers); CMVN and scales are the source\'s; the loss is finite')
+    return report, launches, secs
+
+
+def phase_qat(manifest: str, run_dir: str, arts: dict, root: str,
+              card: str) -> dict:
+    """Phase 20: QAT of the Wav2Letter-20 run's fold against its int8 +
+    CMVN + static-scales artifact, at B=QAT_BATCH. Returns K1/K2/K3's
+    launches on its counted paths (the one step and the CLI)."""
+    t0 = time.time()
+    meta, _, _ = load_serving(arts['int8'])
+    layers = meta['layers']
+    _, model, labels, _ = load_run(run_dir)
+    folded = fold_batchnorm(model, len(layers))
+    del model
+    fe = artifact_frontend(meta, device=DEVICE)
+    batch = qat_batch(manifest, labels, fe)
+    phase_qat_forward(layers, folded, meta,
+                      port_eval.to_device(batch, DEVICE))
+    torch.cuda.empty_cache()
+    step = phase_qat_step(layers, folded, meta, batch, card)
+    torch.cuda.empty_cache()
+    phase_qat_overfit(layers, folded, meta, batch)
+    torch.cuda.empty_cache()
+    n_eval = qat_eval_batches(manifest, labels, QAT_BATCH)
+    want = {'stft_mel_log': QAT_CLI_STEPS + 2 * n_eval,
+            'ctc_alpha': QAT_CLI_STEPS, 'ctc_beta': QAT_CLI_STEPS}
+    out = os.path.join(root, 'artifact_qat')
+    report, cli, secs = run_qat_cli([
+        '--model-path', run_dir, '--from-artifact', arts['int8'],
+        '--train-manifest', manifest, '--eval-manifest', manifest, '--out',
+        out, '--steps', str(QAT_CLI_STEPS), '--batch-size', str(QAT_BATCH),
+        '--log-every', '5', '--device', str(DEVICE)], 'qat_finetune.main',
+        want)
+    print(f'qat_finetune.main, {QAT_CLI_STEPS} steps at B={QAT_BATCH}: '
+          f'int8_full before {report["before"]}, after {report["after"]}; '
+          f'loss {report["history"]}; {secs:.1f} s end to end (WER of '
+          f'6-step weights: printed, not gated) [{card}]')
+    k1 = {}
+    lines, _, _ = run_quiet(port_eval.main, [
+        '--artifact', out, '--offline', '--int8-full',
+        *serving_common(manifest)], k1, 'evaluate --artifact (QAT)',
+        N_UTTS // BATCH)
+    result = json.loads(lines[-1])
+    check(result['weights'] == 'int8_full'
+          and result['num_utterances'] == N_UTTS
+          and all(math.isfinite(result[k]) for k in ('wer', 'cer')),
+          f'evaluate --artifact --offline --int8-full on the QAT artifact: '
+          f'{json.dumps(result)}')
+    launches = {k: step[k] + cli[k] for k in step}
+    print(f'QAT phase: launches {json.dumps(launches)} (one step '
+          f'{json.dumps(step)}, the CLI {json.dumps(cli)}); phase '
+          f'{time.time() - t0:.1f} s')
+    return launches
+
+
+# ------------------------------------------------------ serving tools
+
+TOOLS_EPOCHS = 30            # the demo's epochs (validate_serving's default)
+TOOLS_N_TRAIN = 400
+TOOLS_QAT_STEPS = 300        # qat_finetune's default
+
+
+def phase_tools(root: str, card: str) -> dict:
+    """Phase 21: the serving tools on a model that trains: validate_serving
+    (train_synthetic_demo, two exports, the parity rows and the WER
+    matrix; exit 0), qat_finetune on the demo model (int8_full WER before
+    and after, printed), build_arpa on the train split, align on the val
+    split through the f32 artifact (no failure), error_analysis of an
+    evaluate --dump-jsonl of the val split (its WER the eval's). Returns
+    K1/K2/K3's launches of the QAT run."""
+    t0 = time.time()
+    out = os.path.join(root, 'serving_tools')
+    dev = str(DEVICE)
+    lines, err, secs, launches = run_counted(
+        port_validate.main, ['--epochs', str(TOOLS_EPOCHS), '--n-train',
+                             str(TOOLS_N_TRAIN), '--out', out, '--device',
+                             dev], QAT_COUNTERS, 'validate_serving.main')
+    report = json.loads(lines[-1])
+    demo_line = [ln for ln in err.splitlines() if ln.startswith('{"demo"')]
+    print(f'train_synthetic_demo ({TOOLS_EPOCHS} epochs, {TOOLS_N_TRAIN} '
+          f'utterances): {demo_line[-1] if demo_line else "no result line"}')
+    print(f'validate_serving parity: {json.dumps(report["parity"])}')
+    for name, row in report['paths'].items():
+        print(f'  {name:26s} WER {row["wer"]:.4f} CER {row["cer"]:.4f} '
+              f'({row["normalization"]})')
+    print(f'  same-tag checks: {json.dumps(report["same_tag_checks"])}')
+    check(report['ok'] and launches['ctc_beta'] > 0
+          and launches['stft_mel_log'] > 0,
+          f'validate_serving: exit 0, parity and same-tag checks hold; '
+          f'launches {launches}; {secs:.1f} s [{card}]')
+    run = os.path.join(out, 'run')
+    data = os.path.join(out, 'data')
+    train, val = (os.path.join(data, f'{s}.jsonl') for s in ('train', 'val'))
+    int8_art = os.path.join(out, 'artifact_int8')
+    labels = load_serving(int8_art)[0]['labels']
+    # qat_finetune's default batch of 16, its eval before and after
+    want = {'stft_mel_log': TOOLS_QAT_STEPS
+            + 2 * qat_eval_batches(val, labels, 16),
+            'ctc_alpha': TOOLS_QAT_STEPS, 'ctc_beta': TOOLS_QAT_STEPS}
+    qat, qat_launches, secs = run_qat_cli([
+        '--model-path', run, '--from-artifact', int8_art,
+        '--train-manifest', train, '--eval-manifest', val, '--out',
+        os.path.join(out, 'artifact_qat'), '--steps', str(TOOLS_QAT_STEPS),
+        '--device', dev], 'qat_finetune.main (demo)', want)
+    print(f'QAT on the demo model ({TOOLS_QAT_STEPS} LAMB steps, lr 1e-4): '
+          f'int8_full WER {qat["before"]["wer"]:.4f} -> '
+          f'{qat["after"]["wer"]:.4f}, CER {qat["before"]["cer"]:.4f} -> '
+          f'{qat["after"]["cer"]:.4f} (printed, not gated); loss '
+          f'{qat["history"][0]} -> {qat["history"][-1]}; {secs:.1f} s '
+          f'[{card}]')
+    lines, _, _ = run_quiet(port_arpa.main, [
+        '--manifest', train, '--out', os.path.join(out, 'lm.arpa')])
+    print(f'build_arpa: {lines[-1]}')
+    check(math.isfinite(json.loads(lines[-1])['train_ppl']),
+          'build_arpa: a finite train-set perplexity')
+    lines, _, secs = run_quiet(port_align.main, [
+        '--artifact', os.path.join(out, 'artifact_f32'), '--manifest', val,
+        '--out', os.path.join(out, 'align.jsonl'), '--device', dev])
+    summary = json.loads(lines[-1])
+    check(summary['failed'] == 0 and summary['num_utterances'] == 60,
+          f'align on the val split: {json.dumps(summary)}; {secs:.2f} s')
+    dump = os.path.join(out, 'val_dump.jsonl')
+    lines, _, _ = run_quiet(port_eval.main, [
+        '--model-path', run, '--test-manifest', val, '--dump-jsonl', dump,
+        '--device', dev])
+    result = json.loads(lines[-1])
+    rep_path = os.path.join(out, 'errors.json')
+    lines, _, _ = run_quiet(port_errors.main, [dump, '--worst', '3',
+                                               '--json-out', rep_path])
+    with open(rep_path) as f:
+        rep = json.load(f)
+    print('error_analysis: ' + '; '.join(lines[:2]))
+    check(abs(rep['wer'] - result['wer']) < 1e-12
+          and rep['num_utterances'] == result['num_utterances'],
+          f'error_analysis WER {rep["wer"]:.6f} = evaluate\'s '
+          f'{result["wer"]:.6f} over {rep["num_utterances"]} utterances')
+    print(f'serving tools phase: {time.time() - t0:.1f} s')
+    return qat_launches
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -4383,6 +4762,12 @@ def main() -> int:
         # The data layer: a FLAC corpus, the full-depth pipeline
         data_k1 = phase_data(root, card)
         torch.cuda.empty_cache()
+        # QAT of the Wav2Letter-20 run against its int8 artifact
+        qat_launches = phase_qat(manifest, w2l_run, arts, root, card)
+        torch.cuda.empty_cache()
+        # The serving tools on a model that trains
+        tools_qat = phase_tools(root, card)
+        torch.cuda.empty_cache()
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -4417,6 +4802,9 @@ def main() -> int:
     kernels[0]['streaming_launches'] = sum(stream['k1'].values()) + sum(
         qn_stream['k1'].values())
     kernels[0]['data_launches'] = sum(data_k1.values())
+    for entry in kernels[:3]:   # K1-K3: phase 20's and phase 21's QAT
+        entry['qat_launches'] = qat_launches[entry['name']] \
+            + tools_qat[entry['name']]
     kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
                                     stream['k1_err'], qn_stream['k1_err'])
     kernels[3]['streaming_launches'] = stream['qn']['depthwise_fwd'] + sum(

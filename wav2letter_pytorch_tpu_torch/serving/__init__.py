@@ -1,5 +1,5 @@
 """Serving of a trained Wav2Letter, Jasper or QuartzNet (PyTorch), offline
-and streaming: the JAX package's ``serving/`` but ``qat``.
+and streaming: the JAX package's ``serving/``.
 
 * ``fold`` — BatchNorm folded into the convs (``fold_batchnorm``);
 * ``quantize`` — per-channel int8 weights and static activation scales;
@@ -24,10 +24,9 @@ and streaming: the JAX package's ``serving/`` but ``qat``.
   (``SegmentingTranscriber``);
 * ``server`` / ``net`` — many streams batched into one session
   (``StreamMultiplexer``) and its TCP server and client
-  (``StreamingServer``, ``StreamClient``), on one device.
-
-Quantization-aware finetuning (``qat``) is left for a later slice of
-A.7.
+  (``StreamingServer``, ``StreamClient``), on one device;
+* ``qat`` — quantization-aware finetuning of the fold against its int8
+  graph (``qat_forward``, ``qat_finetune``).
 """
 
 from .endpoint import Segment, SegmentingTranscriber
@@ -40,6 +39,7 @@ from .longform import LongFormTranscriber, longform_logprobs
 from .lookahead import BoundedLookaheadStreamer, bounded_stream_logprobs
 from .net import StreamClient, StreamingServer
 from .parallel_infer import MeshInference
+from .qat import qat_finetune, qat_forward
 from .quantize import (calibrate_activation_scales, quantize_folded,
                        quantized_bytes)
 from .server import StreamMultiplexer
@@ -60,4 +60,4 @@ __all__ = ['fold_batchnorm', 'offline_forward', 'offline_forward_q8',
            'bounded_stream_logprobs', 'Segment', 'SegmentingTranscriber',
            'StreamMultiplexer', 'StreamingServer', 'StreamClient',
            'export_serving_jasper', 'fold_jasper', 'StreamingJasper',
-           'JasperStreamState']
+           'JasperStreamState', 'qat_forward', 'qat_finetune']

@@ -94,9 +94,13 @@ def _pad_time(x: torch.Tensor, left: int, right: int,
         return x
     t = x.shape[1]
     if mode == 'reflect':
-        idx = torch.cat([torch.arange(left, 0, -1), torch.arange(t),
-                         torch.arange(t - 2, t - 2 - right, -1)])
-        return x.index_select(1, idx.to(x.device))
+        # Built on x's device: a copy from the host would wait for the
+        # device's queue.
+        dev = x.device
+        idx = torch.cat([torch.arange(left, 0, -1, device=dev),
+                         torch.arange(t, device=dev),
+                         torch.arange(t - 2, t - 2 - right, -1, device=dev)])
+        return x.index_select(1, idx)
     B, _, C = x.shape
     return torch.cat([x.new_zeros(B, left, C), x, x.new_zeros(B, right, C)],
                      dim=1)
@@ -158,7 +162,8 @@ def dynamic_act_scale(x: torch.Tensor, valid_lengths=None) -> torch.Tensor:
     amax = torch.clamp(torch.amax(a, dim=(1, 2), keepdim=True), min=1e-6)
     # A tensor divisor: CUDA divides by a Python scalar as a multiply by
     # its rounded reciprocal, one bit off the CPU's (and JAX's) quotient.
-    return amax / amax.new_tensor(127.0)
+    # Filled on the device: a copy from the host would wait for its queue.
+    return amax / torch.full_like(amax, 127.0)
 
 
 def quantize_act(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
