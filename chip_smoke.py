@@ -181,11 +181,32 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    printed); ``build_arpa`` on its train split; ``align`` on its val
    split through the f32 artifact, no failure; ``error_analysis`` of an
    ``evaluate --dump-jsonl`` of the val split, its WER the eval's.
-22. One ``{"kernels": [...]}`` line: per kernel its launches on the
+22. Data parallelism (``parallel/mesh.py``): (a) ``train.main`` under
+   ``python -m torch.distributed.run --nproc-per-node 1`` (NCCL, world
+   1) on Wav2Letter-20 at full width, B=32, 4 steps, dropout off, against
+   the ungrouped ``train.main``, each a fresh process (``chip_smoke.py
+   --train-worker``) with cuDNN's deterministic algorithms: losses and
+   weights within 1e-6 relative, K1-K3's launches equal, the step's ms in
+   both and the gap (the collectives' cost at world 1); (b) the same for
+   QuartzNet-15x5 (NovoGrad, 2 steps, K1-K7); (c) two ranks on the one
+   card over gloo (``init_distributed(backend='gloo')``, then
+   ``train.main``), Wav2Letter with 4 layers at full width, a global B=8
+   as 4 + 4 with rank 1's last row masked, 3 steps, against one process
+   on the card (losses 1e-5, weights rtol 2e-4 atol 2e-6), and which
+   collectives gloo takes on CUDA tensors; (d) serving over
+   ``make_mesh()`` and over a mesh of two entries of the one card (the
+   row split, a launch a part, the concatenation and the per-device
+   frontends and streamers run): ``MeshInference`` f32 and int8_full and
+   the long-form windows over both, ``transcribe_long --mesh`` and a
+   ``serve_tcp --mesh`` round trip, a ``StreamingServer`` over the pair
+   with a streamer built on each entry, each the bits of its
+   ``mesh=None`` path, K1 counted.
+23. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
    and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
    QuartzNet's, K4 also its lookahead and exact streams', K6 its
-   lookahead stream's), max error against the plain
+   lookahead stream's, and each kernel's ``mesh_launches`` on phase
+   22's paths), max error against the plain
    version, time, plain time, roofline bound and the time of the nearest
    PyTorch library call (timed here only). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
@@ -4667,6 +4688,480 @@ def phase_tools(root: str, card: str) -> dict:
     return qat_launches
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_EPOCHS = 2                # (a) Wav2Letter-20: 4 steps under world 1
+DP_QN_EPOCHS = 1             # (b) QuartzNet-15x5: 2 steps
+DP_WORLD1_RTOL = 1e-6        # world 1 vs ungrouped: losses and weights
+DP2_LAYERS = 4               # (c) Wav2Letter depth on two ranks
+DP2_UTTS = 7                 # a global B=8: row 7 (rank 1's) is padding
+DP2_BATCH = 8
+DP2_STEPS = 3
+DP2_LOSS_RTOL = 1e-5         # (c) 2 ranks vs 1 process on the card
+DP2_PARAM_RTOL, DP2_PARAM_ATOL = 2e-4, 2e-6
+DP_SERVE_UTTS = 32           # (d) MeshInference's batch
+DP_LONG_MINUTES = 1.0        # (d) transcribe_long --mesh
+DP_TCP_SLOTS = 4
+
+
+def head_manifest(manifest: str, root: str, n: int) -> str:
+    """A manifest of ``manifest``'s first ``n`` rows, under ``root``."""
+    with open(manifest) as f:
+        rows = f.read().splitlines()[:n]
+    path = os.path.join(root, f'head{n}_manifest.jsonl')
+    with open(path, 'w') as f:
+        f.write('\n'.join(rows) + '\n')
+    return path
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms while the block runs: two runs of
+    the same training on the card otherwise differ from step 3 on (some
+    of cuDNN's default weight-gradient algorithms sum in no fixed
+    order)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def train_worker(spec_path: str) -> int:
+    """A training process of phase 22 (``chip_smoke.py --train-worker
+    SPEC``): ``train.main`` on each of ``spec['runs']`` in turn, with
+    cuDNN's deterministic algorithms, each run's kernel launches written
+    to its ``launches`` file. Under torchrun's environment ``train.main``
+    joins the group; with ``spec['backend']`` (gloo, for two ranks on one
+    GPU) this worker joins it first and records which collectives gloo
+    takes on CUDA tensors as they are."""
+    import torch.distributed as dist
+    from wav2letter_pytorch_tpu_torch import parallel
+    with open(spec_path) as f:
+        spec = json.load(f)
+    probe = {}
+    if spec.get('backend'):
+        dev = parallel.init_distributed(spec['device'], spec['backend'])
+        for name, op in (
+                ('all_reduce', lambda t: dist.all_reduce(t)),
+                ('broadcast', lambda t: dist.broadcast(t, 0)),
+                ('all_gather', lambda t: dist.all_gather(
+                    [torch.empty_like(t) for _ in range(parallel.world())],
+                    t))):
+            try:
+                op(torch.ones(4, device=dev))
+                probe[name] = 'takes CUDA tensors'
+            except (RuntimeError, ValueError) as e:
+                probe[name] = f'refuses CUDA tensors: {str(e)[:120]}'
+    rc = 0
+    with cudnn_deterministic():
+        for run in spec['runs']:
+            for fn in TRAIN_COUNTERS:
+                fn.launches = 0
+            os.environ['W2L_LAUNCHES_JSON'] = run['launches']
+            rc = rc or port_train.main(run['argv'])
+    if parallel.distributed():
+        if probe and parallel.rank() == 0:
+            with open(spec['probe'], 'w') as f:
+                json.dump(probe, f)
+        dist.destroy_process_group()
+    return rc
+
+
+def run_workers(root: str, name: str, argvs: list, world: int = 1,
+                backend: str | None = None) -> tuple:
+    """One ``train_worker`` process under ``torch.distributed.run
+    --nproc-per-node 1`` (``world`` 1) running ``train.main`` on each of
+    ``argvs``, or ``world`` of them started with torchrun's environment
+    (all on ``cuda:0``, over ``backend``). Returns (each run's kernel
+    launches summed over the ranks, wall seconds, gloo's probe or
+    None)."""
+    spec = os.path.join(root, f'{name}_spec.json')
+    counts = [os.path.join(root, f'{name}_launches_{i}.json')
+              for i in range(len(argvs))]
+    probe = os.path.join(root, f'{name}_probe.json')
+    with open(spec, 'w') as f:
+        json.dump({'runs': [{'argv': a, 'launches': c}
+                            for a, c in zip(argvs, counts)],
+                   'probe': probe, 'backend': backend,
+                   'device': str(DEVICE)}, f)
+    me = [os.path.abspath(__file__), '--train-worker', spec]
+    t0 = time.perf_counter()
+    if world == 1:
+        launched_run([sys.executable, '-m', 'torch.distributed.run',
+                      '--nproc-per-node', '1', '--master-addr', '127.0.0.1',
+                      '--master-port', str(free_port())] + me,
+                     dict(os.environ), f'{name}: torchrun --nproc-per-node '
+                     '1, train.main')
+    else:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable] + me, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=dict(
+                os.environ, RANK=str(r), LOCAL_RANK='0',
+                WORLD_SIZE=str(world), MASTER_ADDR='127.0.0.1',
+                MASTER_PORT=port)) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f'{name}: rank {r} rc {p.returncode}'
+                  + ('' if p.returncode == 0 else '\n' + out[-4000:]))
+    wall = time.perf_counter() - t0
+    launches = []
+    for path in counts:
+        total = {}
+        for r in range(world):
+            with open(f'{path}.{r}') as f:
+                for k, v in json.load(f).items():
+                    total[k] = total.get(k, 0) + v
+        launches.append(total)
+    found = None
+    if os.path.exists(probe):
+        with open(probe) as f:
+            found = json.load(f)
+    return launches, wall, found
+
+
+def dp_argv(manifest: str, run: str, overrides, epochs: int) -> list:
+    """``epochs`` epochs of the corpus in one length bucket (B=BATCH: 2
+    steps an epoch), no validation, one checkpoint at the end."""
+    return [f'data.train_manifest={manifest}',
+            f'data.val_manifest={manifest}', *overrides,
+            f'data.batch_size={BATCH}', 'data.num_length_buckets=1',
+            'trainer.log_every_n_steps=1', f'trainer.max_epochs={epochs}',
+            'trainer.val_every_n_epochs=1000',
+            f'trainer.checkpoint.every_n_epochs={epochs}',
+            'trainer.string_metrics_interval=0',
+            f'trainer.default_root_dir={run}', '--device', str(DEVICE)]
+
+
+def no_dropout(overrides) -> list:
+    """Overrides that turn dropout off in every layer of the model
+    ``overrides`` name (QuartzNet's config has none)."""
+    model = train_config(*overrides)['model']
+    if model['name'] == 'wav2letter':
+        return [f'model.layers.{i}.dropout=-1.0'
+                for i in range(int(model['mid_layers']))]
+    return [f'model.jasper_blocks.{i}.dropout=0.0'
+            for i, b in enumerate(model['jasper_blocks']) if b.get('dropout')
+            ] + (['model.dropout_default=0.0']
+                 if model.get('dropout_default') else [])
+
+
+def run_metrics(run_dir: str) -> dict:
+    out = {}
+    with open(os.path.join(run_dir, 'metrics.csv')) as f:
+        for line in f.read().splitlines()[1:]:
+            _, step, metric, value = line.split(',')
+            out.setdefault(metric, {})[int(step)] = float(value)
+    return out
+
+
+def state_rel(a: dict, b: dict) -> tuple:
+    """(||a - b|| / ||b|| over every floating tensor of two state dicts
+    together, the largest such ratio of one tensor)."""
+    num = den = worst = 0.0
+    for k, v in b.items():
+        if v.is_floating_point():
+            d2 = float(((a[k].double() - v.double()) ** 2).sum())
+            v2 = float((v.double() ** 2).sum())
+            num, den = num + d2, den + v2
+            worst = max(worst, math.sqrt(d2 / v2) if v2 else math.sqrt(d2))
+    return math.sqrt(num / den), worst
+
+
+def launched_run(cmd, env, what: str, timeout: int = 600) -> str:
+    """A subprocess of this phase; its output, which must end in rc 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=os.path.dirname(
+        os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=timeout)
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f'{what}: rc {proc.returncode} in '
+          f'{time.perf_counter() - t0:.1f} s' + (
+              '' if proc.returncode == 0 else '\n' + out[-4000:]))
+    return out
+
+
+def phase_dp_world1(manifest: str, root: str, card: str) -> list:
+    """(a) Wav2Letter-20 and (b) QuartzNet-15x5: ``train.main`` ungrouped
+    in this process, then both under one ``torch.distributed.run
+    --nproc-per-node 1`` process (NCCL, world 1), with cuDNN's
+    deterministic algorithms: losses and final weights within
+    DP_WORLD1_RTOL, the same kernel launches; each run's step ms from its
+    logged utterances a second (steps 2 on, host clock), and the gap.
+    Returns the world-1 runs' launches."""
+    cases = [('Wav2Letter-20', [f'model.mid_layers={MID_LAYERS}',
+                                *no_dropout([])], DP_EPOCHS,
+              TRAIN_COUNTERS[:3]),
+             ('QuartzNet-15x5', [*QN, 'optimizer=novograd',
+                                 *no_dropout(QN)], DP_QN_EPOCHS,
+              TRAIN_COUNTERS)]
+    runs = {(what, kind): os.path.join(root, f'dp_{what}_{kind}')
+            for what, *_ in cases for kind in ('one', 'nccl')}
+    one = {}
+    with cudnn_deterministic():
+        for what, over, epochs, counters in cases:
+            torch.cuda.empty_cache()
+            one[what] = run_counted(
+                port_train.main, dp_argv(manifest, runs[what, 'one'], over,
+                                         epochs), counters,
+                f'train.main ({what}, ungrouped, this process)')[3]
+    torch.cuda.empty_cache()
+    nccl, wall, _ = run_workers(root, 'world1', [
+        dp_argv(manifest, runs[what, 'nccl'], over, epochs)
+        for what, over, epochs, _ in cases])
+    for (what, _, epochs, counters), got_n in zip(cases, nccl):
+        steps = 2 * epochs
+        got_n = {fn.__name__: got_n[fn.__name__] for fn in counters}
+        got = run_metrics(runs[what, 'nccl'])
+        want = run_metrics(runs[what, 'one'])
+        losses = [(want['train_loss'][s], got['train_loss'].get(s))
+                  for s in range(1, steps + 1)]
+        loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for w, g in losses)
+        a = Checkpointer(os.path.join(runs[what, 'nccl'],
+                                      'checkpoints')).restore()
+        b = Checkpointer(os.path.join(runs[what, 'one'],
+                                      'checkpoints')).restore()
+        rel, worst = state_rel(a['model'], b['model'])
+        check(a['step'] == b['step'] == steps
+              and loss_rel <= DP_WORLD1_RTOL and rel <= DP_WORLD1_RTOL,
+              f'{what} under torchrun, world 1 over NCCL vs ungrouped, '
+              f'{steps} steps: losses {[round(w, 6) for w, _ in losses]}, '
+              f'max rel {loss_rel:.2e}; weights and BN statistics rel '
+              f'{rel:.2e}, worst tensor {worst:.2e} (gate '
+              f'{DP_WORLD1_RTOL:g})')
+        check(got_n == one[what] and all(got_n.values()),
+              f'{what} world-1 launches {got_n} = the ungrouped run\'s '
+              f'{one[what]}')
+        ms = {k: 1e3 * BATCH / m['utterances_per_sec'][steps]
+              for k, m in (('one', want), ('nccl', got))}
+        print(f'{what} train step (cuDNN deterministic), B={BATCH}: '
+              f'ungrouped {ms["one"]:.3f} ms, world 1 over NCCL '
+              f'{ms["nccl"]:.3f} ms, gap {ms["nccl"] - ms["one"]:.3f} ms '
+              f'({100 * (ms["nccl"] / ms["one"] - 1):.2f} %), steps '
+              f'2-{steps} from utterances_per_sec [{card}]')
+    print(f'torchrun world-1 process (both models): {wall:.1f} s wall')
+    return nccl
+
+
+def phase_dp_two_ranks(manifest: str, root: str, card: str) -> dict:
+    """(c) Two ranks on the one card over gloo (``train_worker``): W2L
+    with DP2_LAYERS layers at full width, global B=8 as 4 + 4 over
+    DP2_UTTS utterances (rank 1's last row a masked repeat), DP2_STEPS
+    steps with the config's dither and dropout, against one process (this
+    one), both with cuDNN's deterministic algorithms."""
+    small = head_manifest(manifest, root, DP2_UTTS)
+    runs = {k: os.path.join(root, f'dp2_{k}') for k in ('one', 'gloo')}
+    argv = {k: [f'data.train_manifest={small}', f'data.val_manifest={small}',
+                f'model.mid_layers={DP2_LAYERS}',
+                f'data.batch_size={DP2_BATCH}', 'data.num_length_buckets=1',
+                'trainer.log_every_n_steps=1',
+                f'trainer.max_epochs={DP2_STEPS}',
+                f'trainer.checkpoint.every_n_epochs={DP2_STEPS}',
+                f'trainer.default_root_dir={r}', '--device', str(DEVICE)]
+            for k, r in runs.items()}
+    torch.cuda.empty_cache()
+    with cudnn_deterministic():
+        run_counted(port_train.main, argv['one'], TRAIN_COUNTERS[:3],
+                    f'train.main (W2L-{DP2_LAYERS}, B={DP2_BATCH}, one '
+                    'process)')
+    torch.cuda.empty_cache()
+    (launches,), wall, probe = run_workers(root, 'dp2', [argv['gloo']],
+                                           world=2, backend='gloo')
+    check(probe is not None and all(v == 'takes CUDA tensors'
+                                    for v in probe.values()),
+          f'gloo on CUDA tensors, the collectives the trainer uses: {probe}')
+    got, want = run_metrics(runs['gloo']), run_metrics(runs['one'])
+    losses = [(want['train_loss'][s], got['train_loss'].get(s))
+              for s in range(1, DP2_STEPS + 1)]
+    loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for w, g in losses)
+    a = Checkpointer(os.path.join(runs['gloo'], 'checkpoints')).restore()
+    b = Checkpointer(os.path.join(runs['one'], 'checkpoints')).restore()
+    excess = max(allclose_excess(a['model'][k].double(), v.double(),
+                                 DP2_PARAM_ATOL, DP2_PARAM_RTOL)
+                 for k, v in b['model'].items() if v.is_floating_point())
+    check(a['step'] == b['step'] == DP2_STEPS and loss_rel <= DP2_LOSS_RTOL
+          and excess <= 0,
+          f'W2L-{DP2_LAYERS} full width, B={DP2_BATCH} as 4 + 4 (rank 1 '
+          f'holds the masked row), 2 ranks over gloo on one card vs one '
+          f'process: losses {[round(w, 6) for w, _ in losses]}, max rel '
+          f'{loss_rel:.2e} (gate {DP2_LOSS_RTOL:g}); weights within rtol '
+          f'{DP2_PARAM_RTOL:g} atol {DP2_PARAM_ATOL:g} (worst excess '
+          f'{excess:.2e}); {wall:.1f} s wall [{card}]')
+    check(all(launches[fn.__name__] > 0 for fn in TRAIN_COUNTERS[:3]),
+          f'K1-K3 launched on both ranks: {launches}')
+    return launches
+
+
+def tcp_finals(srv, utts) -> list:
+    """Each of ``utts``' FINAL from ``srv``, one client at a time."""
+    stop = serve_in_thread(srv)
+    try:
+        texts = []
+        for _, a in utts:
+            c = StreamClient('127.0.0.1', srv.port, timeout=300)
+            piece = int(16000 * TCP_PIECE_S)
+            for j in range(0, len(a), piece):
+                c.send(a[j:j + piece])
+            texts.append(c.finish())
+    finally:
+        stop()
+    return texts
+
+
+def phase_dp_serving(manifest: str, arts: dict, root: str,
+                     card: str) -> dict:
+    """(d) Serving over ``make_mesh()`` (every visible GPU; [cuda:0]
+    here) and over a mesh of two entries of the one card, on which the
+    row split, a launch a part, the concatenation and the per-device
+    copies (a frontend copy a part; a streamer built from the artifact a
+    part) all run: MeshInference f32 and int8_full and the long-form
+    windows over both, ``transcribe_long --mesh`` and ``serve_tcp
+    --mesh`` over ``make_mesh()``, a ``StreamingServer`` over the pair;
+    each the bits of its mesh=None path. Returns K1's launches on the
+    mesh paths."""
+    from wav2letter_pytorch_tpu_torch import parallel
+    from wav2letter_pytorch_tpu_torch.serving import LongFormTranscriber
+    from wav2letter_pytorch_tpu_torch.serving.net import StreamingServer
+    meshes = {'make_mesh()': parallel.make_mesh(),
+              'pair': parallel.Mesh([DEVICE, DEVICE])}
+    print(f'make_mesh(): {meshes["make_mesh()"]}; the pair: '
+          f'{meshes["pair"]}')
+    k1 = {}
+    loaded = {'f32': load_serving(arts['f32']),
+              'int8_full': load_serving(arts['int8'])}
+    meta = loaded['f32'][0]
+    utts = corpus_audio(manifest, meta['labels'])[:DP_SERVE_UTTS]
+    T = max(len(a) for _, a in utts)
+    audio = np.zeros((len(utts), T), np.float32)
+    for i, (_, a) in enumerate(utts):
+        audio[i, :len(a)] = a
+    lens = np.array([len(a) for _, a in utts], np.int32)
+    for mode, (m_meta, folded, stats) in loaded.items():
+        outs = {}
+        for name, m in (('none', None), *meshes.items()):
+            mi = MeshInference(m_meta['layers'], folded,
+                               artifact_frontend(m_meta, stats,
+                                                 device=DEVICE),
+                               mesh=m, mode=mode,
+                               act_scales=m_meta.get('act_scales'),
+                               device=DEVICE)
+            stft_mel_log.launches = 0
+            outs[name] = mi.logprobs(audio, lens)
+            if m is None:
+                continue
+            what = f'MeshInference {mode} over {name}'
+            k1[what] = stft_mel_log.launches
+            check(all(np.array_equal(a, b) for a, b in zip(outs[name],
+                                                           outs['none']))
+                  and k1[what] == m.size
+                  and len({id(fe) for fe, _ in mi._parts}) == m.size,
+                  f'{what} = {m} (B={len(utts)}): the bits of mesh=None; '
+                  f'K1 {k1[what]} launch(es), a frontend a part')
+    # long form: the windows of a concatenation of the corpus
+    long = np.concatenate([a for _, a in utts])[
+        :int(DP_LONG_MINUTES * 60 * 16000)]
+    got = {}
+    for name, m in (('none', None), *meshes.items()):
+        lf = LongFormTranscriber(meta['layers'], loaded['f32'][1],
+                                 artifact_frontend(meta, None, device=DEVICE),
+                                 port_eval.GreedyDecoder(meta['labels']),
+                                 mesh=m, device=DEVICE)
+        stft_mel_log.launches = 0
+        got[name] = lf.logprobs(long)
+        if m is None:
+            continue
+        k1[f'LongFormTranscriber over {name}'] = stft_mel_log.launches
+        check(np.array_equal(got[name][0], got['none'][0])
+              and got[name][1] == got['none'][1],
+              f'long form over {name} = {m}, {len(long) / 16000:.1f} s: '
+              'the bits of mesh=None')
+    lines = {}
+    for name, flag in (('mesh', ['--mesh']), ('none', [])):
+        out, _, _ = run_quiet(port_long.main, [
+            '--artifact', arts['f32'], '--concat-manifest', manifest,
+            '--minutes', str(DP_LONG_MINUTES), '--device', str(DEVICE),
+            *flag], k1 if name == 'mesh' else None,
+            'transcribe_long ' + ' '.join(flag), 2)   # warm-up, timed
+        line = json.loads(out[0])
+        for key in ('wall_seconds', 'x_realtime', 'device'):
+            line.pop(key)
+        lines[name] = line
+    check(lines['mesh'] == lines['none'],
+          f'transcribe_long --mesh prints what it prints without: '
+          f'{lines["mesh"]}')
+    # serve_tcp --mesh: two clients' FINALs, with and without the mesh
+    finals = {}
+    for name, flag in (('mesh', ['--mesh']), ('none', [])):
+        srv, _ = port_serve.build_server(port_serve.parse_args(
+            ['--artifact', arts['f32'], '--host', '127.0.0.1', '--port', '0',
+             '--slots', str(DP_TCP_SLOTS), '--chunk-frames',
+             str(STREAM_CHUNK), '--device', str(DEVICE), *flag]))
+        check((srv.mux.mesh is not None) == (name == 'mesh'),
+              f'serve_tcp {" ".join(flag) or "(no --mesh)"}: mesh '
+              f'{srv.mux.mesh}')
+        stft_mel_log.launches = 0
+        finals[name] = tcp_finals(srv, utts[:2])
+        if name == 'mesh':
+            k1['serve_tcp --mesh'] = stft_mel_log.launches
+    check(finals['mesh'] == finals['none'] and all(finals['mesh']),
+          f'serve_tcp --mesh: two clients\' FINALs equal the server\'s '
+          f'without --mesh [{card}]')
+    # a StreamingServer over the pair: a streamer built on each entry
+    pair = meshes['pair']
+    streamers = [streaming_from_artifact(arts['f32'],
+                                         chunk_frames=STREAM_CHUNK,
+                                         device=d)[0]
+                 for d in pair.devices]
+    srv = StreamingServer(streamers, meta['labels'], slots=DP_TCP_SLOTS,
+                          host='127.0.0.1', port=0, mesh=pair)
+    stft_mel_log.launches = 0
+    got = tcp_finals(srv, utts[:2])
+    k1['StreamingServer over pair'] = stft_mel_log.launches
+    check(got == finals['none']
+          and [p[0] for p in srv.mux._parts] == streamers,
+          f'StreamingServer over {pair}, a streamer built on each entry: '
+          f'two clients\' FINALs equal serve_tcp\'s without --mesh; K1 '
+          f'{k1["StreamingServer over pair"]} launches [{card}]')
+    print(f'mesh serving: K1 launches {json.dumps(k1)}')
+    return k1
+
+
+def phase_data_parallel(manifest: str, arts: dict, root: str,
+                        card: str) -> dict:
+    """Phase 22: (a) Wav2Letter-20 and (b) QuartzNet-15x5 under torchrun
+    at world 1 over NCCL against ungrouped runs, (c) two ranks on the card
+    over gloo against one process, (d) serving over ``make_mesh()``.
+    Returns each kernel's launches on the data-parallel paths."""
+    t0 = time.time()
+    w2l, qn = phase_dp_world1(manifest, root, card)
+    two = phase_dp_two_ranks(manifest, root, card)
+    serve_k1 = phase_dp_serving(manifest, arts, root, card)
+    launches = {fn.__name__: qn[fn.__name__] for fn in TRAIN_COUNTERS}
+    for name in ('stft_mel_log', 'ctc_alpha', 'ctc_beta'):
+        launches[name] += w2l[name] + two[name]
+    launches['stft_mel_log'] += sum(serve_k1.values())
+    print(f'data-parallel phase: {time.time() - t0:.1f} s; launches '
+          f'{json.dumps(launches)}')
+    return launches
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -4690,6 +5185,8 @@ def kernel_entry(name, source, replaces, launches, err, numbers):
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == '--train-worker':
+        return train_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False: this needs '
               'an NVIDIA GPU', file=sys.stderr)
@@ -4698,10 +5195,15 @@ def main() -> int:
     port_eval.resolve_device(DEVICE)  # TF32 off for the checks too
     phase_environment()
     card = card_line()
+
+    def lap(what: str) -> None:
+        torch.cuda.empty_cache()
+        print(f'[{time.time() - t_start:.1f} s] {what}: done', flush=True)
     phase_build()
     k1_err, k1_main = phase_k1()
     k4_err, k5_err = phase_k4_k5()
     k6_err, k7_err = phase_k6_k7()
+    lap('phases 1-5 and 11: build and kernel checks')
     with tempfile.TemporaryDirectory() as root:
         manifest, longest = write_corpus(root)
         s_main = -(-longest // 16) * 16  # the loader's target padding
@@ -4717,7 +5219,7 @@ def main() -> int:
         phase_overfit(root)
         torch.cuda.empty_cache()
         phase_train_timing(manifest, root, card)
-        torch.cuda.empty_cache()
+        lap('phases 6-10: Wav2Letter-20 eval and training')
         # QuartzNet-15x5
         qn = dict(overrides=QN, what='QuartzNet-15x5')
         ev = phase_main_path(manifest, **qn)
@@ -4741,33 +5243,36 @@ def main() -> int:
         phase_train_timing(manifest, root, card,
                            overrides=QN + ['optimizer=novograd'],
                            what='QuartzNet-15x5')
-        torch.cuda.empty_cache()
+        lap('phases 12-14: QuartzNet-15x5 eval and training')
         # Decoding: the training phases' runs, beam search and an LM
         lm_path = phase_lm(manifest, root)
         phase_decoding_peaky(lm_path)
         cli = phase_decoding_w2l(manifest, w2l_run, lm_path, root, card)
         phase_decoding_qn(manifest, qn_run, card)
         phase_decoding_timing(manifest, w2l_run, lm_path, card, cli)
-        torch.cuda.empty_cache()
+        lap('phase 15: decoding')
         # Serving: artifacts of the Wav2Letter-20 run
         serve_k1, arts = phase_serving(manifest, w2l_run, lm_path, root,
                                        card)
-        torch.cuda.empty_cache()
+        lap('phase 16: serving')
         # Streaming: the Wav2Letter-20 run and its artifacts, QuartzNet's
         stream = phase_streaming(manifest, w2l_run, qn_run, arts, root, card)
-        torch.cuda.empty_cache()
+        lap('phase 17: streaming')
         # Streaming QuartzNet-15x5: its run and an artifact of it
         qn_stream = phase_streaming_jasper(manifest, qn_run, root, card)
-        torch.cuda.empty_cache()
+        lap('phase 18: QuartzNet streaming')
         # The data layer: a FLAC corpus, the full-depth pipeline
         data_k1 = phase_data(root, card)
-        torch.cuda.empty_cache()
+        lap('phase 19: the data layer')
         # QAT of the Wav2Letter-20 run against its int8 artifact
         qat_launches = phase_qat(manifest, w2l_run, arts, root, card)
-        torch.cuda.empty_cache()
+        lap('phase 20: QAT')
         # The serving tools on a model that trains
         tools_qat = phase_tools(root, card)
-        torch.cuda.empty_cache()
+        lap('phase 21: the serving tools')
+        # Data parallelism: torchrun at world 1, two ranks, mesh serving
+        mesh_launches = phase_data_parallel(manifest, arts, root, card)
+        lap('phase 22: data parallelism')
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -4812,6 +5317,8 @@ def main() -> int:
     kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                     qn_stream['k4_err'])
     kernels[5]['streaming_launches'] = stream['qn']['sep_fwd']
+    for entry in kernels:       # phase 22's data-parallel paths
+        entry['mesh_launches'] = mesh_launches[entry['name']]
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

@@ -23,7 +23,7 @@ from wav2letter_pytorch_tpu.data.features import \
 from wav2letter_pytorch_tpu.decoding.decoder import \
     PrefixBeamSearchLMDecoder as JaxBeam
 from wav2letter_pytorch_tpu.serving import longform as jlong
-from wav2letter_pytorch_tpu_torch import serving
+from wav2letter_pytorch_tpu_torch import parallel, serving
 from wav2letter_pytorch_tpu_torch import transcribe_long as long_cli
 from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
@@ -178,13 +178,14 @@ def test_single_shot_transcriber_and_refusals(small):
                                      chunk_frames=40, max_batch=3,
                                      device='cpu')
     assert lf.transcribe(audio) == want
-    for fn in (lambda: serving.LongFormTranscriber(
-                   SMALL_LAYERS, small, _fe(), decoder, mesh=object(),
-                   device='cpu'),
-               lambda: serving.longform_logprobs(
-                   SMALL_LAYERS, small, _fe(), audio, mesh=object())):
-        with pytest.raises(ValueError, match='A.9'):
-            fn()
+    # over a CPU mesh of 2 entries the windows split, the result stays
+    mesh = parallel.make_mesh(2, device='cpu')
+    assert serving.LongFormTranscriber(
+        SMALL_LAYERS, small, _fe(), decoder, chunk_frames=40, max_batch=3,
+        mesh=mesh).transcribe(audio) == want
+    np.testing.assert_allclose(serving.longform_logprobs(
+        SMALL_LAYERS, small, _fe(), audio, chunk_frames=40, mesh=mesh)[0],
+        ref, atol=EXACT_TOL, rtol=0)
     with pytest.raises(ValueError, match='int8_full'):
         longform.make_window_forward(SMALL_LAYERS, small, mode='int8_full')
 
@@ -326,7 +327,14 @@ def test_transcribe_long_cli_concat_hotwords_and_refusals(artifact, capsys,
     with pytest.raises(ValueError, match=f'^{want.value}$'):
         long_cli.main(['--artifact', art, '--device', 'cpu', '--audio',
                        str(stub)])
-    for argv, match in ((['--audio', wav, '--mesh'], 'A.9'),
-                        ([], 'need --audio')):
-        with pytest.raises(SystemExit, match=match):
-            long_cli.main(['--artifact', art, '--device', 'cpu', *argv])
+    # --mesh: the windows over parallel.device_mesh (one CPU here)
+    plain = _run(['--artifact', art, '--audio', wav, '--chunk-frames', '40'],
+                 capsys)
+    meshed = _run(['--artifact', art, '--audio', wav, '--chunk-frames', '40',
+                   '--mesh'], capsys)
+    for result, _ in (plain, meshed):
+        for key in ('wall_seconds', 'x_realtime'):
+            result.pop(key)
+    assert meshed == plain
+    with pytest.raises(SystemExit, match='need --audio'):
+        long_cli.main(['--artifact', art, '--device', 'cpu'])

@@ -30,7 +30,7 @@ from wav2letter_pytorch_tpu import serving as jserve
 from wav2letter_pytorch_tpu.data.features import AudioConfig as JaxAudio
 from wav2letter_pytorch_tpu.data.features import \
     SpectrogramFrontend as JaxFrontend
-from wav2letter_pytorch_tpu_torch import serve_tcp, serving
+from wav2letter_pytorch_tpu_torch import parallel, serve_tcp, serving
 from wav2letter_pytorch_tpu_torch.data.audio_io import write_wav
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
@@ -386,7 +386,9 @@ def test_protocol_errors_are_jax_texts(server, pair):
 def test_serve_tcp_entry_point(tmp_path, pair, capsys):
     """``serve_tcp`` serves a port artifact (f32 + CMVN) and its
     ``--client`` mode streams a WAV file to it: the FINAL printed is the
-    dedicated session's on the artifact. ``--mesh`` raises, naming A.9."""
+    dedicated session's on the artifact. ``--mesh`` serves the slots over
+    ``parallel.device_mesh`` (one CPU here); slots the mesh does not
+    divide are refused."""
     _, sw, model = pair
     art = serving.export_serving(
         str(tmp_path / 'art'), SMALL_LAYERS, len(LABELS), model,
@@ -412,7 +414,18 @@ def test_serve_tcp_entry_point(tmp_path, pair, capsys):
         assert out[-1] == f'final  : {want!r}' and want
     finally:
         stop()
-    with pytest.raises(SystemExit, match='A.9'):
-        serve_tcp.main(['--artifact', art, '--mesh', '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='A.9'):
-        StreamingServer(sw, LABELS, mesh=object())
+    srv, _ = serve_tcp.build_server(serve_tcp.parse_args(
+        ['--artifact', art, '--port', '0', '--slots', '2', '--chunk-frames',
+         '16', '--mesh', '--device', 'cpu']))
+    assert srv.mux.mesh.devices == [torch.device('cpu')]
+    stop = _serve(srv)
+    try:
+        assert serve_tcp.main(['--client', wav, '--port',
+                               str(srv.port)]) == 0
+        out = capsys.readouterr().out.strip().splitlines()
+        assert out[-1] == f'final  : {want!r}'
+    finally:
+        stop()
+    with pytest.raises(ValueError, match='divisible'):
+        StreamingServer(sw, LABELS, slots=3,
+                        mesh=parallel.make_mesh(2, device='cpu'))

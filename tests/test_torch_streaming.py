@@ -23,7 +23,7 @@ from wav2letter_pytorch_tpu.data.features import AudioConfig as JaxAudio
 from wav2letter_pytorch_tpu.data.features import \
     SpectrogramFrontend as JaxFrontend
 from wav2letter_pytorch_tpu.serving import lookahead as jlook
-from wav2letter_pytorch_tpu_torch import serving
+from wav2letter_pytorch_tpu_torch import parallel, serving
 from wav2letter_pytorch_tpu_torch.data import resample
 from wav2letter_pytorch_tpu_torch.data.features import (AudioConfig,
                                                         SpectrogramFrontend)
@@ -595,8 +595,10 @@ def test_streaming_errors_and_refusals(small, tmp_path):
     sess.feed(np.zeros((1, 100), np.float32))
     with pytest.raises(ValueError, match='prime window'):
         sess.finish()
-    with pytest.raises(NotImplementedError, match='A.9'):
-        serving.StreamMultiplexer(sw, slots=2, labels=LABELS, mesh=object())
+    with pytest.raises(ValueError, match=r'slots \(3\) must be divisible '
+                       r'by the mesh size \(2\)'):
+        serving.StreamMultiplexer(sw, slots=3, labels=LABELS,
+                                  mesh=parallel.make_mesh(2, device='cpu'))
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match='no CUDA device'):

@@ -2,12 +2,13 @@
 
     python -m wav2letter_pytorch_tpu_torch.align --artifact ART \
         --manifest data.jsonl [--out words.jsonl] \
-        [--norm per-utterance|cmvn] [--device cuda]
+        [--norm per-utterance|cmvn] [--device cuda | --cpu]
 
 The counterpart of the JAX package's ``scripts/align.py``. Runs a
 Wav2Letter serving artifact (any weight format) over the manifest in
-batches of 8 (``serving.MeshInference``: kernel K1 and the folded stack,
-one device) and aligns each utterance's transcript to its log-probs by
+batches of ``max(8, n)`` rounded up to the n devices of
+``parallel.device_mesh`` (``serving.MeshInference``: kernel K1 and the
+folded stack) and aligns each utterance's transcript to its log-probs by
 CTC Viterbi (``decoding/forced_align.py::word_alignments``). Writes one
 JSON record an utterance (``path``, ``text``, ``words`` as ``[word,
 start_s, end_s]``, or ``error``) and prints the summary line
@@ -30,11 +31,17 @@ def main(argv=None) -> int:
     parser.add_argument('--norm', default='per-utterance',
                         choices=['per-utterance', 'cmvn'])
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('--cpu', action='store_true',
+                        help='run on the CPU (--device cpu)')
     args = parser.parse_args(argv)
+    if args.cpu:
+        args.device = 'cpu'
+
 
     from .data.dataset import (BucketBatchLoader, ManifestDataset,
                                resample_flag)
     from .decoding.forced_align import word_alignments
+    from .parallel import device_mesh
     from .runtime import resolve_device
     from .serving import MeshInference, artifact_frontend, load_serving
 
@@ -45,9 +52,10 @@ def main(argv=None) -> int:
     ac = meta['audio_conf']
     frontend = artifact_frontend(
         meta, norm_stats if args.norm == 'cmvn' else None, device=dev)
-    mi = MeshInference(meta['layers'], folded, frontend, mode=meta['format'],
+    mi = MeshInference(meta['layers'], folded, frontend,
+                       mesh=device_mesh(args.device), mode=meta['format'],
                        padding_mode=meta.get('padding_mode', 'reflect'),
-                       act_scales=meta.get('act_scales'), device=dev)
+                       act_scales=meta.get('act_scales'))
     scale = 1
     for layer in meta['layers']:
         scale *= int(layer.get('stride', 1))
@@ -55,9 +63,9 @@ def main(argv=None) -> int:
 
     ds = ManifestDataset(args.manifest, int(ac['sample_rate']),
                          meta['labels'], resample=resample_flag(ac))
-    # The JAX script rounds max(8, n) up to its n devices; here n is 1.
-    loader = BucketBatchLoader(ds, 8, frontend.hop, num_buckets=4,
-                               shuffle=False)
+    n_dev = mi.mesh.size
+    loader = BucketBatchLoader(ds, max(8, n_dev) + (-max(8, n_dev)) % n_dev,
+                               frontend.hop, num_buckets=4, shuffle=False)
     records, n_failed = [], 0
     for batch in loader:
         logp, sizes = mi.logprobs(batch['audio'], batch['audio_lengths'])

@@ -154,16 +154,14 @@ DEFAULT_GROUPS = {'audio': 'standard_16k', 'optimizer': 'exp_lr_optimizer',
                   'model': 'wav2letter'}
 
 # Keys the port does not act on, with the only value it accepts: the TPU
-# package's dispatch, device-cache, host-memory, PRNG, mesh, multi-host and
-# kernel-selection knobs, and features not ported (yet).
+# package's dispatch, device-cache, host-memory, PRNG and kernel-selection
+# knobs, tensor and sequence parallelism, and features not ported (yet).
 UNSUPPORTED = {
     'trainer.steps_per_dispatch': 1,
     'trainer.device_cache': False,
     'trainer.host_rss_budget_gb': None,
     'trainer.prng_impl': 'rbg',
-    'trainer.preempt_sync_every': 25,
     'trainer.ctc_impl': 'auto',
-    'trainer.mesh.data': -1,
     'trainer.mesh.seq': 1,
     'trainer.mesh.model': 1,
     'model.stft_method': 'auto',
@@ -429,8 +427,11 @@ def check_supported(cfg: dict) -> None:
         except KeyError:
             continue
         if value != default:
+            later = (' (tensor and sequence parallelism come in a later '
+                     'slice, ROADMAP A.9)' if key.startswith('trainer.mesh.')
+                     else '')
             raise ValueError(f'{key}={value!r} is not supported by the '
-                             f'PyTorch port (only {default!r})')
+                             f'PyTorch port (only {default!r}){later}')
     for key, choices in CHOICES.items():
         try:
             value = get_path(cfg, key)

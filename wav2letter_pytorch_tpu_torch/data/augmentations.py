@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 def band_mask(starts: torch.Tensor, widths: torch.Tensor,
               length: int) -> torch.Tensor:
@@ -36,7 +38,8 @@ def rect_mask(t0, tw, f0, fw, T: int, F: int) -> torch.Tensor:
 def _randint(gen, high: int, shape, device) -> torch.Tensor:
     """Integers in [0, high), as ``jax.random.randint(key, shape, 0,
     high)``."""
-    return torch.randint(0, high, shape, generator=gen, device=device)
+    return draw_rows(lambda size, generator: torch.randint(
+        0, high, size, generator=generator, device=device), shape, gen)
 
 
 def _draw_bands(gen, length: int, batch: int, n_masks: int, max_width: int,

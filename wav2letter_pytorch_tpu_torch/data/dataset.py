@@ -24,6 +24,7 @@ import threading
 
 import numpy as np
 
+from ..parallel.mesh import check_divisible
 from . import label_sets
 from .audio_io import audio_info, read_audio
 from .resample import resample, resample_ratio
@@ -157,19 +158,36 @@ class BucketBatchLoader:
     ``epoch`` is the epoch the next ``iter()`` runs (each ``iter()``
     advances it); a resumed run sets it. ``drop_last`` drops each bucket's
     short final batch.
+
+    Data parallelism, two ways:
+
+    * ``shard_id`` / ``num_shards``, the JAX package's multi-host API:
+      this loader walks ``order[shard_id::num_shards]`` of the epoch's
+      order, ``batch_size`` being the per-host batch;
+    * ``row_shard=(rank, world)``, what ``train.py`` uses: every rank
+      walks the same global batches (``batch_size`` rows, the same
+      buckets and padding) and builds only rows ``[rank * b, (rank + 1) *
+      b)`` of each, ``b = batch_size / world``, decoding only the samples
+      of those rows. A ``world``-rank run then sees exactly the batches of
+      one process, and every rank has the same number of batches.
     """
 
     def __init__(self, dataset: ManifestDataset, batch_size: int,
                  frame_hop: int, num_buckets: int = 4,
                  max_duration: float | None = None, prefetch: int = 2,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard_id: int = 0,
+                 num_shards: int = 1, row_shard: tuple = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.prefetch = prefetch
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.shard_id = int(shard_id)
+        self.num_shards = int(num_shards)
+        self.row_rank, self.row_world = (int(v) for v in row_shard)
+        self.rows = check_divisible(batch_size, self.row_world)
         self.epoch = 0
 
         metas = [dataset.sample_meta(i) for i in range(len(dataset))]
@@ -207,6 +225,8 @@ class BucketBatchLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
         buckets: dict[int, list[int]] = {}
         for idx in order:
             b = self._bucket_of(int(self.lengths[idx]))
@@ -218,9 +238,11 @@ class BucketBatchLoader:
                 yield b, rest
 
     def _make_batch(self, bucket: int, indices: list[int]):
+        """Rows ``[lo, lo + rows)`` of the global batch of ``indices``."""
         pad_to = self.bucket_edges[bucket]
         n = len(indices)
-        B = self.batch_size
+        B = self.rows
+        lo = self.row_rank * B
         audio = np.zeros((B, pad_to), self.dataset.audio_dtype)
         audio_lengths = np.ones((B,), np.int32)
         s_max = _round_up(max(self.max_target_len, 1), TARGET_MULTIPLE)
@@ -228,24 +250,27 @@ class BucketBatchLoader:
         target_lengths = np.zeros((B,), np.int32)
         batch_mask = np.zeros((B,), np.float32)
         texts, paths = [], []
-        for j, idx in enumerate(indices):
-            samples, target, path, text = self.dataset[idx]
+        # Short final batch: the padding rows repeat the last real sample;
+        # batch_mask keeps them out of the loss and the metrics.
+        for j in range(B):
+            if lo + j >= n and j > 0:
+                audio[j:] = audio[j - 1]
+                audio_lengths[j:] = audio_lengths[j - 1]
+                targets[j:] = targets[j - 1]
+                target_lengths[j:] = target_lengths[j - 1]
+                break
+            samples, target, path, text = self.dataset[
+                indices[min(lo + j, n - 1)]]
             t = min(len(samples), pad_to)
             audio[j, :t] = samples[:t]
             audio_lengths[j] = t
             target = target[:s_max]
             targets[j, :len(target)] = target
             target_lengths[j] = len(target)
-            batch_mask[j] = 1.0
-            texts.append(text)
-            paths.append(path)
-        # Short final batch: repeat the last real sample into the padding
-        # rows, which batch_mask keeps out of the loss and the metrics.
-        for j in range(n, B):
-            audio[j] = audio[n - 1]
-            audio_lengths[j] = audio_lengths[n - 1]
-            targets[j] = targets[n - 1]
-            target_lengths[j] = target_lengths[n - 1]
+            if lo + j < n:
+                batch_mask[j] = 1.0
+                texts.append(text)
+                paths.append(path)
         return dict(audio=audio, audio_lengths=audio_lengths, targets=targets,
                     target_lengths=target_lengths, batch_mask=batch_mask,
                     texts=texts, paths=paths)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw_rows
 from ..ops.stft_mel import (MAX_FFT, MIN_FFT, K1Tables, build_tables,
                             stft_mel_log)
 
@@ -283,8 +284,8 @@ class SpectrogramFrontend(nn.Module):
         if generator is not None and self.dither > 0:
             valid = (torch.arange(T, device=audio.device)[None, :]
                      < sample_lengths[:, None])
-            noise = torch.randn(audio.shape, generator=generator,
-                                device=audio.device)
+            noise = draw_rows(torch.randn, audio.shape, generator,
+                              device=audio.device)
             audio = audio + self.dither * noise * valid
 
         # Pre-emphasis: x[t] - 0.97 * x[t-1], first sample unchanged.

@@ -6,7 +6,8 @@ package's ``test.py``.
         [--lm-path lm.arpa] [--beam-search-params k=8,alpha=0.15,...] \
         [--beam-backend host|device] [--hotwords w1,w2 --hotword-weight W] \
         [--word-timings] [--print-samples | --print-all] \
-        [--dump-jsonl f.jsonl] [--seed N] [--batch-size B] [--device cuda] \
+        [--dump-jsonl f.jsonl] [--seed N] [--batch-size B] \
+        [--device cuda | --cpu] \
         [--mid-layers N] [model=quartznet] [key=value ...]
 
 Reads a CSV or JSON-lines manifest of WAV or FLAC files (resampled to the
@@ -41,7 +42,9 @@ A serving artifact (``export_serving``'s, or the JAX package's
 --offline``, as ``test.py`` evaluates one: batched inference of the folded
 stack (``serving.MeshInference``: kernel K1 and the folded convs, f32 or
 int8 weights, or with ``--int8-full`` int8 activations on the int8 tensor
-cores), normalised per utterance or with the artifact's CMVN
+cores) over every visible GPU (``parallel.device_mesh``; the batch is
+``max(8, n)`` rounded up to the n devices, ``mesh_devices`` in the
+result), normalised per utterance or with the artifact's CMVN
 (``--offline-norm cmvn``), decoded greedily or, with the artifact's bundled
 LM (unless ``--no-lm``), an LM, beam parameters or hotwords, by the host
 beam search. Without ``--offline`` an artifact is evaluated through the
@@ -76,6 +79,7 @@ from .decoding.beam_device import DeviceBeamDecoder
 from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
                                _beam_offsets, get_time_per_word,
                                parse_beam_params)
+from .parallel import device_mesh
 from .runtime import resolve_device
 from .serving import (MeshInference, artifact_frontend, compute_cmvn,
                       load_serving, quantize_folded, streaming_from_artifact)
@@ -309,6 +313,8 @@ def parse_args(argv=None):
                              "Wav2Letter, the config's own for Jasper; "
                              'not with --model-path)')
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('--cpu', action='store_true',
+                        help='run on the CPU (--device cpu)')
     parser.add_argument('--print-samples', action='store_true',
                         help='print a (reference, decoded) pair per batch')
     parser.add_argument('--print-all', action='store_true',
@@ -394,6 +400,8 @@ def parse_args(argv=None):
     parser.add_argument('overrides', nargs='*', metavar='key=value',
                         help='config overrides, e.g. model=quartznet')
     args = parser.parse_args(argv)
+    if args.cpu:
+        args.device = 'cpu'
     if args.model_path and (args.weights or args.mid_layers is not None):
         parser.error('--weights and --mid-layers do not go with '
                      '--model-path (the run gives the model)')
@@ -468,15 +476,17 @@ def run_artifact_eval(args) -> int:
         if meta['format'] != 'int8':
             folded = quantize_folded(folded)
         mode = 'int8_full'
-    mi = MeshInference(meta['layers'], folded, frontend, mode=mode,
+    mi = MeshInference(meta['layers'], folded, frontend,
+                       mesh=device_mesh(args.device), mode=mode,
                        padding_mode=meta.get('padding_mode', 'reflect'),
-                       act_scales=meta.get('act_scales'), device=dev)
-    n_dev = 1   # one device; data parallelism over several is ROADMAP A.9
+                       act_scales=meta.get('act_scales'))
+    n_dev = mi.mesh.size
+    bs = args.batch_size or max(8, n_dev)
+    bs += (-bs) % n_dev
     ds = ManifestDataset(args.test_manifest, frontend.conf.sample_rate,
                          meta['labels'],
                          resample=resample_flag(meta['audio_conf']))
-    loader = BucketBatchLoader(ds, args.batch_size or max(8, n_dev),
-                               frontend.hop, num_buckets=4)
+    loader = BucketBatchLoader(ds, bs, frontend.hop, num_buckets=4)
     acc = RatioAccumulator()
     dump = UttDump(args.dump_jsonl)
     is_beam = isinstance(decoder, PrefixBeamSearchLMDecoder)

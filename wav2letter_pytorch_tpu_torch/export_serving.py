@@ -4,7 +4,7 @@
         --out DIR [--int8] [--cmvn-manifest train.csv [--cmvn-limit N]] \
         [--calibrate [--calibrate-clips N]] [--average-last K] \
         [--lm-path lm.arpa [--lm-beam-params k=16,alpha=0.15,...]] \
-        [--device cuda]
+        [--device cuda | --cpu]
 
 The counterpart of the JAX package's ``scripts/export_serving.py``, over
 the port's run directories (``training/build.py::load_run``). The artifact
@@ -57,7 +57,12 @@ def parse_args(argv=None):
                              'bundled LM as its decode settings')
     parser.add_argument('--device', default='cuda',
                         help='device of the CMVN and calibration passes')
-    return parser.parse_args(argv)
+    parser.add_argument('--cpu', action='store_true',
+                        help='run those passes on the CPU (--device cpu)')
+    args = parser.parse_args(argv)
+    if args.cpu:
+        args.device = 'cpu'
+    return args
 
 
 def main(argv=None) -> int:

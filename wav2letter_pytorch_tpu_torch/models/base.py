@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_gather, draw_rows, world
+
 
 def hardtanh_0_20(x: torch.Tensor) -> torch.Tensor:
     """clamp(0, 20) activation."""
@@ -73,17 +75,43 @@ def init_conv_(weight: torch.Tensor, mode: str = 'xavier_uniform',
                                      generator=generator)
 
 
+def global_batch_stats(x: torch.Tensor):
+    """(mean, biased variance) per channel of ``x`` [B_r, C, T] over every
+    rank's B_r x T, differentiably: each rank's (count, mean, M2) are
+    gathered and combined with Chan's parallel formula (not E[x^2] -
+    mean^2, which loses digits when |mean| >> std)."""
+    count = torch.full((1,), float(x.shape[0] * x.shape[2]),
+                       dtype=x.dtype, device=x.device)
+    mean = x.mean(dim=(0, 2))
+    m2 = ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2))
+    parts = all_gather(torch.cat([count, mean, m2]))   # [W, 1 + 2C]
+    C = x.shape[1]
+    n = parts[:, :1].detach()
+    means, m2s = parts[:, 1:C + 1], parts[:, C + 1:]
+    total = n.sum()
+    g_mean = (n * means).sum(0) / total
+    g_m2 = m2s.sum(0) + (n * (means - g_mean) ** 2).sum(0)
+    return g_mean, g_m2 / total
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
     """``BatchNorm1d`` (same parameters, buffers and state-dict keys) whose
     train-mode running statistics follow flax: the biased batch variance,
     the one it normalises with, goes into ``running_var``. With
-    ``freeze_stats`` set (``frozen_statistics``) they stay as they are."""
+    ``freeze_stats`` set (``frozen_statistics``) they stay as they are.
+
+    Under a process group of more than one rank, train mode normalises
+    with the statistics of the global batch (``global_batch_stats``), as
+    the JAX package's global-batch step does: every rank then holds the
+    same running statistics, those of one process on the whole batch."""
 
     freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if world() > 1:
+            return self._cross_replica(x)
         if not self.freeze_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
@@ -93,6 +121,17 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = global_batch_stats(x)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        y = (x - mean[None, :, None]) * torch.rsqrt(var + self.eps)[None, :,
+                                                                   None]
+        return y * self.weight[None, :, None] + self.bias[None, :, None]
 
 
 @contextlib.contextmanager
@@ -114,8 +153,9 @@ def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
     the kept values by ``1 / (1 - rate)``; the mask is drawn from
-    ``generator`` (torch's default generator when None)."""
+    ``generator`` (torch's default generator when None; a
+    ``RowGenerator``'s draw is this rank's rows of the global batch's)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw_rows(torch.rand, x.shape, generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))

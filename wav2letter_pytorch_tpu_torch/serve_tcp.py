@@ -3,11 +3,12 @@
 The port's counterpart of the JAX package's ``scripts/serve_tcp.py``, with
 the same flags, plus ``--device``.
 
-Server (one device, up to ``--slots`` concurrent live streams batched into
-one streaming session: ``serving/net.py``):
+Server (up to ``--slots`` concurrent live streams batched into one
+streaming session: ``serving/net.py``; with ``--mesh`` the slots split
+over every visible GPU, ``parallel.device_mesh``):
 
     python -m wav2letter_pytorch_tpu_torch.serve_tcp --artifact ART \\
-        --host 0.0.0.0 --port 7600 --slots 16 [--device cuda]
+        --host 0.0.0.0 --port 7600 --slots 16 [--mesh] [--device cuda]
 
 Client (sends a WAV file chunk by chunk, prints partials and the final):
 
@@ -21,9 +22,6 @@ import argparse
 import sys
 import time
 
-MESH_TODO = ('--mesh: sharding the slots over several devices is not '
-             'ported (ROADMAP A.9)')
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -36,7 +34,8 @@ def parse_args(argv=None):
                    help='concurrent-stream capacity (batch rows)')
     p.add_argument('--mesh', action='store_true',
                    help='shard the slot batch across all local devices '
-                        '(not ported: raises)')
+                        '(StreamMultiplexer mesh mode; slots must divide '
+                        'by the device count)')
     p.add_argument('--chunk-frames', type=int, default=64,
                    help='feature frames per streaming step')
     p.add_argument('--realtime', action='store_true',
@@ -59,13 +58,17 @@ def main(argv=None) -> int:
 def build_server(args):
     """The ``StreamingServer`` of ``--artifact`` (not yet listening) and
     the artifact's meta."""
+    from .parallel import device_mesh
     from .serving import StreamingServer, streaming_from_artifact
-    if args.mesh:
-        raise SystemExit(MESH_TODO)
-    model, labels, meta = streaming_from_artifact(
-        args.artifact, chunk_frames=args.chunk_frames, device=args.device)
-    srv = StreamingServer(model, labels, slots=args.slots, host=args.host,
-                          port=args.port)
+    mesh = device_mesh(args.device) if args.mesh else None
+    # one streamer a device, each built there from the artifact
+    built = [streaming_from_artifact(args.artifact,
+                                     chunk_frames=args.chunk_frames, device=d)
+             for d in (mesh.devices if mesh else [args.device])]
+    _, labels, meta = built[0]
+    srv = StreamingServer([m for m, _, _ in built], labels,
+                          slots=args.slots, host=args.host, port=args.port,
+                          mesh=mesh)
     return srv, meta
 
 
@@ -75,9 +78,10 @@ def run_server(args) -> int:
     srv, meta = build_server(args)
     model = srv.mux.m
     chunk_s = model.chunk_samples / model.sample_rate
+    where = srv.mux.mesh if srv.mux.mesh is not None else model.device
     print(f'serving {meta.get("family", "wav2letter")} '
           f'({meta["format"]} weights) on {args.host}:{args.port} '
-          f'({model.device}): {args.slots} slots, {chunk_s * 1000:.0f} ms '
+          f'({where}): {args.slots} slots, {chunk_s * 1000:.0f} ms '
           f'chunks, {model.prime_samples / model.sample_rate:.2f} s prime '
           'window', flush=True)
     try:

@@ -25,7 +25,10 @@ edge, where the local SAME padding is the global one.
 
 BN-folded Wav2Letter stacks only. int8_full is exact with static
 ``act_scales``; dynamic scales reduce per window, not per utterance.
-Windows sharded over several devices (``mesh``) are ROADMAP A.9.
+With a ``mesh`` each group of windows is split over its devices (the
+group rounded to a multiple of the mesh size), every group is launched
+before any result is fetched, and the results come back to the
+frontend's device.
 """
 
 from __future__ import annotations
@@ -33,12 +36,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, shard_rows
 from ..runtime import resolve_device
 from .infer import (_layer_geometry, offline_forward, offline_forward_q8,
                     to_device)
-
-MESH_TODO = ('windows over a device mesh are not ported: one device for '
-             'now (multi-GPU is ROADMAP A.9)')
 
 
 def stack_geometry(layers):
@@ -128,13 +129,13 @@ def longform_logprobs(layers, folded, frontend, audio, mode: str = 'f32',
     ``audio``: 1-D samples. ``frontend``: on the device to run on (the
     stack runs there too). ``chunk_frames``: core output frames a window
     (the memory knob; halos come from the receptive field). ``max_batch``:
-    windows a call. ``fwd``/``weights``: a prebuilt ``make_window_forward``
-    and ``to_device`` weights, for repeated calls. Returns ``(log_probs
-    [T_out, L], valid_frames)`` as numpy, ``valid_frames = frames // S``
-    (``offline_forward``'s floor convention).
+    windows a call. ``mesh``: a ``parallel.Mesh`` to spread the windows
+    over (None: the frontend's device alone). ``fwd``/``weights``: a
+    prebuilt ``make_window_forward`` and the weights (a ``to_device``
+    copy on each of the mesh's devices), for repeated calls. Returns
+    ``(log_probs [T_out, L], valid_frames)`` as numpy, ``valid_frames =
+    frames // S`` (``offline_forward``'s floor convention).
     """
-    if mesh is not None:
-        raise ValueError(MESH_TODO)
     dev = frontend.fb_t.device
     audio = np.asarray(audio, np.float32).reshape(-1)
     with torch.no_grad():
@@ -152,17 +153,25 @@ def longform_logprobs(layers, folded, frontend, audio, mode: str = 'f32',
                                       padding_mode=padding_mode,
                                       act_scales=act_scales,
                                       f32_layers=f32_layers)
+        if mesh is None:
+            mesh = Mesh([dev])
+        max_batch = max(max_batch // mesh.size, 1) * mesh.size
         if weights is None:
-            weights = to_device(folded, dev)
+            weights = [to_device(folded, d) for d in mesh.devices]
         if w_len is None:                      # short utterance: one shot
-            return fwd(weights, feats[None])[0][0].cpu().numpy(), t_frames // S
+            return (fwd(weights[0], feats[None])[0][0].cpu().numpy(),
+                    t_frames // S)
 
-        out = None
+        launched = []
         for lo in range(0, len(starts), max_batch):
             group = [feats[a:a + w_len] for a in starts[lo:lo + max_batch]]
             # the last group repeats its last window to the full batch
             group += group[-1:] * (max_batch - len(group))
-            logp, _ = fwd(weights, torch.stack(group))
+            launched.append([fwd(w, part)[0] for w, part in zip(
+                weights, shard_rows(torch.stack(group), mesh))])
+        out = None
+        for lo, parts in zip(range(0, len(starts), max_batch), launched):
+            logp = torch.cat([p.to(dev) for p in parts])
             if out is None:
                 out = logp.new_empty((_out_frames(t_frames, layers),
                                       logp.shape[-1]))
@@ -236,20 +245,20 @@ def decode_segmented(log_probs, decoder, blank_index: int = 0,
 
 class LongFormTranscriber:
     """Folded weights + frontend + decoder -> ``transcribe(audio) -> str``
-    for recordings of any length, on ``device``. The weights are copied
-    there once (``weights``); ``fwd`` is the stack's
+    for recordings of any length, on ``device`` (with a ``mesh``, its
+    first device, the windows spread over all of them). The weights are
+    copied there once (``weights``); ``fwd`` is the stack's
     ``make_window_forward``."""
 
     def __init__(self, layers, folded, frontend, decoder, mode='f32',
                  padding_mode='reflect', act_scales=None, f32_layers=(),
                  chunk_frames: int = 2000, max_batch: int = 8, mesh=None,
                  device='cuda'):
-        if mesh is not None:
-            raise ValueError(MESH_TODO)
-        dev = resolve_device(device)
+        dev = resolve_device(device if mesh is None else mesh.devices[0])
         self._kw = dict(mode=mode, padding_mode=padding_mode,
                         act_scales=act_scales, f32_layers=f32_layers,
-                        chunk_frames=chunk_frames, max_batch=max_batch)
+                        chunk_frames=chunk_frames, max_batch=max_batch,
+                        mesh=mesh)
         self.layers, self.folded = layers, folded
         self.frontend = frontend.to(dev)
         self.decoder = decoder
@@ -258,10 +267,12 @@ class LongFormTranscriber:
                                        act_scales=act_scales,
                                        f32_layers=f32_layers)
         self.weights = to_device(folded, dev)
+        self._weights = [self.weights] + [
+            to_device(folded, d) for d in (mesh.devices[1:] if mesh else [])]
 
     def logprobs(self, audio):
         return longform_logprobs(self.layers, self.folded, self.frontend,
-                                 audio, fwd=self.fwd, weights=self.weights,
+                                 audio, fwd=self.fwd, weights=self._weights,
                                  **self._kw)
 
     def transcribe(self, audio) -> str:

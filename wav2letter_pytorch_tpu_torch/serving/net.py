@@ -44,7 +44,7 @@ import struct
 
 import numpy as np
 
-from .server import MESH_TODO, StreamMultiplexer
+from .server import StreamMultiplexer
 
 # Frame types.
 HELLO, AUDIO, END = 0x01, 0x02, 0x03
@@ -101,22 +101,24 @@ class StreamingServer:
     """Serve a streaming model over TCP on ``host:port``.
 
     ``model``: a ``StreamingWav2Letter`` or ``StreamingJasper`` (on the
-    device it serves from).
+    device it serves from), or with ``mesh`` one a device of the mesh
+    (``StreamMultiplexer``).
     ``labels``: decode alphabet (blank at 0, as everywhere else).
     ``slots``: concurrent-stream capacity (= batch rows of the one
     batched streaming step).
     ``poll``: tick-loop sleep when no slot is steppable; defaults to a
     quarter chunk of audio time, floored at 1 ms.
-    ``mesh`` raises: sharding the slots over several devices is ROADMAP
-    A.9.
+    ``mesh``: a ``parallel.Mesh`` to split the slot batch over
+    (``StreamMultiplexer``'s mesh mode: no collectives, n devices serve n
+    times the streams of one).
     """
 
     def __init__(self, model, labels, slots: int = 16,
                  host: str = '127.0.0.1', port: int = 0,
                  poll: float | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
-        self.mux = StreamMultiplexer(model, slots=slots, labels=labels)
+        self.mux = StreamMultiplexer(model, slots=slots, labels=labels,
+                                     mesh=mesh)
+        model = self.mux.m
         self.sample_rate = model.sample_rate
         self.host, self.port = host, port
         cs = model.chunk_samples

@@ -1,6 +1,6 @@
 """Stream multiplexer: batch many live audio streams into one session.
 
-The counterpart of the JAX package's ``serving/server.py``, on one device.
+The counterpart of the JAX package's ``serving/server.py``.
 ``StreamMultiplexer`` owns one batched streaming state with a fixed number
 of SLOTS; streams attach to a free slot, feed audio, and detach with a
 final transcript, and every slot's row advances in one batched step a
@@ -19,6 +19,15 @@ buffered. ``tick_ready()`` steps only the streams that do and keeps the
 other rows as they were (``torch.where``). Greedy incremental
 transcription is built in; for beam or custom decoding drive a dedicated
 ``StreamingSession`` instead.
+
+Over a ``parallel.Mesh`` of n devices the slot axis is split: slots
+``[i * slots / n, (i + 1) * slots / n)`` and their state rows live on
+device ``i``, served by a streamer built on that device (the caller
+builds one a device from its source: ``streaming_from_artifact(...,
+device=d)``). A tick
+launches every device's step on its rows of the chunk batch before it
+fetches any result. Rows never interact, so the split needs no
+collective.
 """
 
 from __future__ import annotations
@@ -26,10 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import canonical
 from .streaming import greedy_collapse
-
-MESH_TODO = ('a multiplexer over a device mesh is not ported: one device '
-             'for now (multi-GPU is ROADMAP A.9)')
 
 
 def _map_state(fn, *states):
@@ -48,26 +55,45 @@ class StreamMultiplexer:
     """Multiplex up to ``slots`` live streams through one batched session.
 
     ``model``: a ``StreamingWav2Letter`` or a ``StreamingJasper``; the
-    batched state lives on its device. ``mesh`` raises: sharding the slots over several devices is
-    ROADMAP A.9.
+    batched state lives on its device. With ``mesh`` (a ``parallel.Mesh``
+    whose size divides ``slots``) the state is split over the mesh's
+    devices, and ``model`` is a list of one streamer a device, each on
+    its device, or one streamer when every device of the mesh is its own.
     """
 
     def __init__(self, model, slots: int = 16, labels=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         if labels is None:
             raise ValueError('labels are required (greedy transcription is '
                              'the multiplexer output; for custom decoding '
                              'use StreamingSession directly)')
-        self.m = model
+        models = list(model) if isinstance(model, (list, tuple)) else [model]
+        if mesh is not None:
+            if slots % mesh.size:
+                raise ValueError(f'slots ({slots}) must be divisible by '
+                                 f'the mesh size ({mesh.size})')
+            if len(models) == 1:
+                models = models * mesh.size
+            want = [canonical(d) for d in mesh.devices]
+            have = [canonical(m.device) for m in models]
+            if have != want:
+                raise ValueError(
+                    f'streamers on {[str(d) for d in have]} for {mesh}: '
+                    'build one streamer on each of its devices')
+        elif len(models) > 1:
+            raise ValueError('several streamers need a mesh')
+        self.m = model = models[0]
         self.slots = slots
         self.labels = list(labels)
-        self._weights = model._weights_dev
-        # Bootstrap a valid batched state: tile a one-row silence prime.
-        silence = model.audio_tensor(np.zeros((1, model.prime_samples)))
-        row, _ = model._prime_fn(self._weights, silence)
-        self._state = _map_state(
-            lambda s: s.repeat_interleave(slots, dim=0), row)
+        self.mesh = mesh
+        self._rows = slots // len(models)
+        # Bootstrap a valid batched state on each device: tile a one-row
+        # silence prime over its rows.
+        silence = np.zeros((1, model.prime_samples))
+        self._parts = []
+        for m in models:
+            row, _ = m._prime_fn(m._weights_dev, m.audio_tensor(silence))
+            self._parts.append([m, _map_state(
+                lambda s: s.repeat_interleave(self._rows, dim=0), row)])
         self._buf = [np.zeros(0, np.float32)] * slots
         self._active = [False] * slots
         self._primed = [False] * slots
@@ -101,11 +127,12 @@ class StreamMultiplexer:
                 and len(self._buf[slot]) >= self.m.prime_samples):
             chunk = self._buf[slot][:self.m.prime_samples][None]
             self._buf[slot] = self._buf[slot][self.m.prime_samples:]
-            row_state, logp = self.m._prime_fn(self._weights,
-                                               self.m.audio_tensor(chunk))
-            index = torch.tensor([slot], device=self.m.device)
+            m, state = self._parts[slot // self._rows]
+            row_state, logp = m._prime_fn(m._weights_dev,
+                                          m.audio_tensor(chunk))
+            index = torch.tensor([slot % self._rows], device=m.device)
             _map_state(lambda s, r: s.index_copy_(0, index, r.to(s.dtype)),
-                       self._state, row_state)
+                       state, row_state)
             self._consumed[slot] = self.m.prime_samples
             self._primed[slot] = True
             self._decode(slot, logp[0].cpu().numpy())
@@ -149,19 +176,26 @@ class StreamMultiplexer:
             chunks[s] = self._buf[s][:cs]
             self._buf[s] = self._buf[s][cs:]
             self._consumed[s] += cs
-        new_state, logp = self.m._step_fn(self._weights, self._state,
-                                          self.m.audio_tensor(chunks))
-        if len(stepped) < self.slots:
-            mask = np.zeros(self.slots, bool)
-            mask[stepped] = True
-            mask = torch.from_numpy(mask).to(self.m.device)
-            self._state = _map_state(
-                lambda n, o: torch.where(
-                    mask.view((-1,) + (1,) * (n.dim() - 1)), n, o),
-                new_state, self._state)
-        else:
-            self._state = new_state
-        logp = logp.cpu().numpy()
+        mask = np.zeros(self.slots, bool)
+        mask[stepped] = True
+        k = self._rows
+        outs = []
+        for i, part in enumerate(self._parts):   # launch every device
+            m, state = part
+            new_state, logp = m._step_fn(
+                m._weights_dev, state, m.audio_tensor(chunks[i * k:
+                                                            (i + 1) * k]))
+            keep = mask[i * k:(i + 1) * k]
+            if keep.all():
+                part[1] = new_state
+            else:
+                keep = torch.from_numpy(keep).to(m.device)
+                part[1] = _map_state(
+                    lambda n, o: torch.where(
+                        keep.view((-1,) + (1,) * (n.dim() - 1)), n, o),
+                    new_state, state)
+            outs.append(logp)
+        logp = np.concatenate([o.cpu().numpy() for o in outs])
         return {s: self._decode(s, logp[s]) for s in stepped}
 
     def detach(self, slot: int, total_samples: int | None = None) -> str:
@@ -185,11 +219,12 @@ class StreamMultiplexer:
                              'partial chunk')
         padded = np.zeros((1, self.m.chunk_samples), np.float32)
         padded[0, :len(tail)] = tail
-        row_state = _map_state(lambda s: s[slot:slot + 1], self._state)
-        logp, valid = self.m._finish_fn(
-            self._weights, row_state, self.m.audio_tensor(padded),
-            torch.tensor([tail_len], dtype=torch.int64,
-                         device=self.m.device))
+        m, state = self._parts[slot // self._rows]
+        r = slot % self._rows
+        row_state = _map_state(lambda s: s[r:r + 1], state)
+        logp, valid = m._finish_fn(
+            m._weights_dev, row_state, m.audio_tensor(padded),
+            torch.tensor([tail_len], dtype=torch.int64, device=m.device))
         self._decode(slot, logp[0, :int(valid[0])].cpu().numpy())
         text = self._text[slot]
         self._active[slot] = False

@@ -3,7 +3,10 @@
     python -m wav2letter_pytorch_tpu_torch.train \
         data.train_manifest=train.jsonl data.val_manifest=val.jsonl \
         [model.mid_layers=20] [optimizer=novograd] [--resume] [--cfg] \
-        [--device cuda]
+        [--device cuda | --cpu]
+
+    torchrun --nproc-per-node N -m wav2letter_pytorch_tpu_torch.train \
+        ... trainer.mesh.data=N      # data parallel over N GPUs
 
 The counterpart of the JAX package's ``train.py``: dotted ``key=value``
 overrides and group swaps (``config.py``), WAV or FLAC manifests (CSV or
@@ -12,14 +15,24 @@ JSON lines; ``data.cache_audio``, ``data.audio_dtype`` and
 ``<trainer.default_root_dir>/checkpoints`` and ``metrics.csv`` beside
 them. ``--resume`` continues from the latest checkpoint; ``--cfg`` prints
 the composed config as JSON and exits. The device defaults to ``cuda``
-and raises when no card is present.
+and raises when no card is present; ``--cpu`` is ``--device cpu``.
+
+Under torchrun (``WORLD_SIZE`` in the environment) every process joins
+the group (``parallel.init_distributed``: NCCL on ``cuda:LOCAL_RANK``,
+gloo on the CPU) and trains on its rows of each global batch of
+``data.batch_size`` (``BucketBatchLoader(row_shard=...)``), which must
+divide by the world size: the same math as the JAX package's
+``trainer.mesh.data=N`` step. ``trainer.mesh.data`` -1 means the world
+size; another value must equal it.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 
+from . import parallel
 from .config import load_config
 from .data.dataset import BucketBatchLoader, ManifestDataset, resample_flag
 from .runtime import resolve_device
@@ -29,16 +42,19 @@ from .training.build import (build_frontend, build_labels, build_model,
 from .training.trainer import Trainer
 
 
-def get_data_loaders(labels, data_cfg, seed: int = 0):
+def get_data_loaders(labels, data_cfg, seed: int = 0, row_shard=(0, 1)):
     """(train, val) loaders. The train loader shuffles epoch ``e`` with
     ``np.random.default_rng(seed + e)``, as the JAX loader does; the JAX
-    entry point passes no seed, so the two orders agree at seed 0."""
+    entry point passes no seed, so the two orders agree at seed 0.
+    ``row_shard=(rank, world)``: each batch is this rank's rows of the
+    global batch."""
     ac = data_cfg['audio_conf']
     sr = int(ac['sample_rate'])
     kwargs = dict(frame_hop=int(sr * ac['window_stride']),
                   num_buckets=int(data_cfg.get('num_length_buckets', 4)),
                   max_duration=data_cfg.get('max_duration'),
-                  prefetch=int(data_cfg.get('prefetch', 2)))
+                  prefetch=int(data_cfg.get('prefetch', 2)),
+                  row_shard=row_shard)
     batch_size = int(data_cfg['batch_size'])
     ds_kwargs = dict(resample=resample_flag(ac),
                      cache_audio=bool(data_cfg.get('cache_audio', False)),
@@ -53,6 +69,22 @@ def get_data_loaders(labels, data_cfg, seed: int = 0):
     return train, val
 
 
+def data_world(mesh_data) -> int:
+    """The world size ``trainer.mesh.data`` asks for, checked against
+    torchrun's ``WORLD_SIZE`` (1 without torchrun)."""
+    launched = int(os.environ.get('WORLD_SIZE', '1'))
+    want = int(mesh_data if mesh_data is not None else -1)
+    if want == -1 or want == launched:
+        return launched
+    if 'WORLD_SIZE' not in os.environ:
+        raise SystemExit(
+            f'trainer.mesh.data={want}: launch one process a device with '
+            f'torchrun --nproc-per-node {want} -m '
+            'wav2letter_pytorch_tpu_torch.train ...')
+    raise SystemExit(f'trainer.mesh.data={want} but torchrun started '
+                     f'WORLD_SIZE={launched} processes')
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = 'cuda'
@@ -63,6 +95,8 @@ def main(argv=None) -> int:
             device = next(it, device)
         elif arg.startswith('--device='):
             device = arg.partition('=')[2]
+        elif arg == '--cpu':
+            device = 'cpu'
         else:
             rest.append(arg)
     flags = {a for a in rest if a.startswith('--')}
@@ -74,10 +108,15 @@ def main(argv=None) -> int:
         print(json.dumps(cfg, indent=2))
         return 0
 
-    dev = resolve_device(device)
+    world = data_world(cfg['trainer'].get('mesh', {}).get('data'))
+    if 'WORLD_SIZE' in os.environ:
+        dev = parallel.init_distributed(device)
+    else:
+        dev = resolve_device(device)
     labels = build_labels(cfg['model'])
     seed = int(cfg['trainer'].get('seed', 0))
-    train_loader, val_loader = get_data_loaders(labels, cfg['data'], seed)
+    train_loader, val_loader = get_data_loaders(
+        labels, cfg['data'], seed, row_shard=(parallel.rank(), world))
     model = build_model(cfg['model'], len(labels), seed=seed).to(dev)
     frontend = build_frontend(cfg['model'], device=dev)
     steps_per_epoch = len(train_loader)
@@ -90,7 +129,29 @@ def main(argv=None) -> int:
         trainer.fit(train_loader, val_loader, resume='--resume' in flags)
     finally:
         trainer.close()
+        dump_launches()
     return 0
+
+
+def dump_launches() -> None:
+    """With ``W2L_LAUNCHES_JSON`` set, write each kernel wrapper's launch
+    count (``<wrapper>.launches``) there as JSON, suffixed by the rank
+    under a process group: launch checks of a process started by
+    torchrun read it."""
+    path = os.environ.get('W2L_LAUNCHES_JSON')
+    if not path:
+        return
+    from .ops.ctc_kernel import ctc_alpha, ctc_beta
+    from .ops.depthwise import depthwise_fwd, depthwise_wgrad
+    from .ops.sep_conv import sep_bwd, sep_fwd
+    from .ops.stft_mel import stft_mel_log
+    counts = {fn.__name__: fn.launches for fn in (
+        stft_mel_log, ctc_alpha, ctc_beta, depthwise_fwd, depthwise_wgrad,
+        sep_fwd, sep_bwd)}
+    if parallel.distributed():
+        path = f'{path}.{parallel.rank()}'
+    with open(path, 'w') as f:
+        json.dump(counts, f)
 
 
 if __name__ == '__main__':

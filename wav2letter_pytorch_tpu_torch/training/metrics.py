@@ -14,25 +14,34 @@ import random
 import numpy as np
 
 
-def string_metrics(decoder, ids, output_lengths, texts, prefix: str,
-                   batch_mask=None, print_decoded_prob: float = 0.0) -> dict:
-    """{prefix}_cer / {prefix}_wer / {prefix}_len_ratio of the greedy
-    decoding of ``ids`` [B, T] against ``texts``; rows where
-    ``batch_mask`` is 0 (shape padding) are skipped."""
+def string_sums(decoder, ids, output_lengths, texts, prefix: str,
+                batch_mask=None, print_decoded_prob: float = 0.0):
+    """The ``RatioAccumulator`` of ``string_metrics``: numerators and
+    denominators of every key, zero where no row is real (a rank's rows
+    of a global batch can all be padding)."""
     decoded = decoder.decode_ids(np.asarray(ids), np.asarray(output_lengths))
     if texts and random.random() < print_decoded_prob:
         print(f'reference: {texts[0]}')
         print(f'decoded  : {decoded[0]}')
     acc = RatioAccumulator()
+    for key in ('cer', 'wer', 'len_ratio'):
+        acc.add(f'{prefix}_{key}', 0.0, 0.0)
     for j, expected in enumerate(texts):
         if batch_mask is not None and not batch_mask[j]:
             continue
         acc.add(f'{prefix}_cer', *decoder.cer_ratio(expected, decoded[j]))
         acc.add(f'{prefix}_wer', *decoder.wer_ratio(expected, decoded[j]))
         acc.add(f'{prefix}_len_ratio', len(decoded[j]), len(expected))
-    return {k: acc.sums.get(k, 0) / max(acc.denoms.get(k, 0), 1)
-            for k in (f'{prefix}_cer', f'{prefix}_wer',
-                      f'{prefix}_len_ratio')}
+    return acc
+
+
+def string_metrics(decoder, ids, output_lengths, texts, prefix: str,
+                   batch_mask=None, print_decoded_prob: float = 0.0) -> dict:
+    """{prefix}_cer / {prefix}_wer / {prefix}_len_ratio of the greedy
+    decoding of ``ids`` [B, T] against ``texts``; rows where
+    ``batch_mask`` is 0 (shape padding) are skipped."""
+    return string_sums(decoder, ids, output_lengths, texts, prefix,
+                       batch_mask, print_decoded_prob).ratios(floor=1)
 
 
 class RatioAccumulator:
@@ -46,6 +55,7 @@ class RatioAccumulator:
         self.sums[key] = self.sums.get(key, 0.0) + num
         self.denoms[key] = self.denoms.get(key, 0.0) + denom
 
-    def ratios(self) -> dict:
-        return {k: self.sums[k] / max(self.denoms[k], 1e-12)
+    def ratios(self, floor: float = 1e-12) -> dict:
+        """Each key's sum over its denominator (at least ``floor``)."""
+        return {k: self.sums[k] / max(self.denoms[k], floor)
                 for k in self.sums}

@@ -26,8 +26,29 @@ The counterpart of ``wav2letter_pytorch_tpu.training.trainer``:
   with ``{'epoch'}``; ``resume`` replays the checkpointed epoch's shuffle;
 * the preemption signal (``trainer.preempt_signal``, SIGTERM) stops at the
   next step boundary with a checkpoint carrying ``{'epoch', 'epoch_step',
-  'preempted'}``; ``resume`` then skips the batches already applied, so
-  every batch is applied exactly once across the preemption.
+  'preempted'}`` and sets ``stopped_reason = 'signal'``; ``resume`` then
+  skips the batches already applied, so every batch is applied exactly
+  once across the preemption.
+
+Data parallelism (``parallel/mesh.py``): under a process group each rank
+trains on its rows of every global batch (``BucketBatchLoader``'s
+``row_shard``) and the update is the one-process update of the global
+batch:
+
+* each rank's masked CTC sum is divided by the global ``sum(batch_mask)``
+  (a short last batch may put all its masked rows on the last ranks, so
+  an average of the ranks' means would be wrong), and the gradients are
+  summed over the ranks once an update, before the accumulation division
+  and the clip; BatchNorm normalises with the global batch's statistics;
+* the draws of dither, SpecAugment and dropout are made for the global
+  batch and each rank keeps its rows (``RowGenerator``);
+* parameters are broadcast from rank 0 when ``fit`` starts (after a
+  resume); the logged loss, train WER/CER and validation metrics are
+  reduced over the ranks; only rank 0 writes ``config.json``,
+  ``metrics.csv`` and checkpoints (the others wait at a barrier);
+* with more than one rank the signal is agreed: every
+  ``trainer.preempt_sync_every`` steps the ranks take the max of their
+  flags, so all stop at the same step with one checkpoint.
 """
 
 from __future__ import annotations
@@ -44,24 +65,37 @@ import torch
 
 from ..data.augmentations import build_augment_fn
 from ..ops.ctc_kernel import ctc_loss_kernel
+from ..parallel import mesh
 from ..runtime import resolve_device
 from .checkpoint import Checkpointer
 from .logging import MetricLogger
-from .metrics import RatioAccumulator, string_metrics
+from .metrics import RatioAccumulator, string_sums
 
 
 def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
-                    batch_mask):
-    """torch 'mean' CTC reduction restricted to real (unmasked) rows."""
+                    batch_mask, mask_sum=None):
+    """torch 'mean' CTC reduction restricted to real (unmasked) rows.
+    ``mask_sum``: the denominator, when the batch is a rank's rows of a
+    global batch (its ``sum(batch_mask)``); this batch's own by default."""
     per = ctc_loss_kernel(log_probs, out_lens, targets, target_lengths,
                           reduction='none')
     tl = torch.clamp(target_lengths, min=1).to(torch.float32)
     weighted = per / tl * batch_mask
-    return torch.sum(weighted) / torch.clamp(torch.sum(batch_mask), min=1.0)
+    if mask_sum is None:
+        mask_sum = torch.sum(batch_mask)
+    return torch.sum(weighted) / torch.clamp(mask_sum, min=1.0)
+
+
+def global_mask_sum(batch_mask):
+    """``sum(batch_mask)`` over every rank's rows (None outside a process
+    group: the batch is the whole batch)."""
+    if not mesh.distributed():
+        return None
+    return mesh.all_reduce_sum(torch.sum(batch_mask).reshape(1))[0]
 
 
 @torch.no_grad()
-def eval_step(model, frontend, batch, output: str = 'ids'):
+def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
     """One batch of tensors on the device -> (loss, out, out_lens [B]).
     ``output='ids'``: ``out`` is the argmax ids [B, T'] int32 (greedy
     decoding: only they cross to the host); ``'model'``: the model's own
@@ -69,7 +103,7 @@ def eval_step(model, frontend, batch, output: str = 'ids'):
     probabilities), for beam decoding. One forward either way. The caller
     puts the model in eval mode. A model that emits probabilities in eval
     mode (Jasper) is scored on log(max(probs, 1e-30)), as the JAX trainer
-    does."""
+    does. ``mask_sum`` as ``masked_ctc_mean`` takes it."""
     if output not in ('ids', 'model'):
         raise ValueError(f"output must be 'ids' or 'model', got {output!r}")
     feats, flens = frontend(batch['audio'], batch['audio_lengths'])
@@ -77,7 +111,8 @@ def eval_step(model, frontend, batch, output: str = 'ids'):
     log_probs = (torch.log(torch.clamp(out, min=1e-30))
                  if getattr(model, 'eval_emits_probs', False) else out)
     loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
-                           batch['target_lengths'], batch['batch_mask'])
+                           batch['target_lengths'], batch['batch_mask'],
+                           mask_sum)
     if output == 'ids':
         out = torch.argmax(out, dim=-1).to(torch.int32)
     return loss, out, out_lens
@@ -90,10 +125,15 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 
 def step_generators(seed: int, step: int, device) -> tuple:
-    """(dither, augment, dropout) generators of training step ``step``."""
+    """(dither, augment, dropout) generators of training step ``step``;
+    with more than one rank, ``RowGenerator``s over the global batch."""
     seeds = np.random.SeedSequence([int(seed), int(step)]).generate_state(3)
-    return tuple(torch.Generator(device=device).manual_seed(int(s))
+    gens = tuple(torch.Generator(device=device).manual_seed(int(s))
                  for s in seeds)
+    if mesh.world() > 1:
+        gens = tuple(mesh.RowGenerator(g, mesh.rank(), mesh.world())
+                     for g in gens)
+    return gens
 
 
 def clip_by_global_norm(grads, max_norm: float) -> None:
@@ -128,6 +168,14 @@ class Trainer:
                                      or 8), 1)
         self.val_every = int(tcfg.get('val_every_n_epochs', 1) or 1)
         self.preempt_signal = tcfg.get('preempt_signal', 'SIGTERM')
+        self.preempt_sync = max(int(tcfg.get('preempt_sync_every', 25)
+                                    or 25), 1)
+        self.distributed = mesh.distributed()
+        self.is_main = mesh.is_main()
+        # under a process group the gradients live in one flat buffer,
+        # all-reduced once an update
+        self._grads = (mesh.FlatGrads(self._params()) if self.distributed
+                       else None)
         self.print_decoded_prob = float(
             cfg['model'].get('print_decoded_prob', 0) or 0)
         self.run_dir = run_dir or tcfg.get('default_root_dir', '.')
@@ -137,15 +185,22 @@ class Trainer:
                                  keep_last=int(ck.get('keep_last', 3)),
                                  monitor=ck.get('monitor'),
                                  mode=ck.get('mode', 'min'))
-        self.logger = MetricLogger(self.run_dir)
+        self.logger = MetricLogger(self.run_dir) if self.is_main else None
         self.augment_fn = build_augment_fn(
             (cfg.get('data') or {}).get('augment'))
         self.step = 0
         self._preempt_requested = False
+        self._saved_step = None
+        self.stopped_reason = None
 
     def close(self) -> None:
         """Close the metrics file."""
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
+
+    def _log(self, step: int, metrics: dict) -> None:
+        if self.logger is not None:
+            self.logger.log(step, metrics)
 
     # ---------------------------------------------------------------- state
     def _params(self):
@@ -153,26 +208,47 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """Everything a resume needs: step, weights and BN statistics,
-        optimizer state, and gradients accumulated so far in a cycle."""
-        mid_cycle = self.step % self.accum != 0
+        optimizer state, and gradients accumulated so far in a cycle
+        (summed over the ranks: under a process group every rank calls
+        this)."""
+        grads = None
+        if self.step % self.accum != 0:
+            grads = [p.grad for p in self._params()]
+            if self.distributed:
+                grads = [None if g is None else g.clone() for g in grads]
+                mesh.all_reduce_flat([g for g in grads if g is not None])
         return {'step': self.step, 'model': self.model.state_dict(),
                 'optimizer': self.optimizer.state_dict(),
-                'grad_accum': ([p.grad for p in self._params()]
-                               if mid_cycle else None)}
+                'grad_accum': grads}
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state['step'])
         self.model.load_state_dict(state['model'])
         self.optimizer.load_state_dict(state['optimizer'])
         grads = state.get('grad_accum') or [None] * len(self._params())
+        if not self.is_main:   # the summed gradients count once
+            grads = [None] * len(grads)
         for p, g in zip(self._params(), grads):
             p.grad = None if g is None else g.to(p.device)
+        if self._grads is not None:
+            self._grads.bind()
+
+    def _save(self, step: int, metrics=None, extra=None) -> None:
+        """Checkpoint ``step``, written by rank 0 (every rank calls this)."""
+        state = self.state_dict()
+        if self.is_main:
+            self.ckpt.save(step, state, metrics=metrics, extra=extra)
+        self._saved_step = step
+        mesh.barrier()
 
     # ---------------------------------------------------------------- steps
-    def train_step(self, batch: dict):
+    def train_step(self, batch: dict, reduce_loss: bool = True):
         """One micro-step on a batch of device tensors; returns (loss,
         argmax ids [B, T'] int32, out_lens [B]). Every
-        ``accumulate_grad_batches``-th call applies the update."""
+        ``accumulate_grad_batches``-th call applies the update. Under a
+        process group the loss is the global batch's, or with
+        ``reduce_loss=False`` this rank's share of it (the ranks' shares
+        sum to it; ``fit`` reduces only the losses it logs)."""
         g_dither, g_aug, g_drop = step_generators(self.seed, self.step,
                                                   self.device)
         with torch.no_grad():
@@ -184,15 +260,21 @@ class Trainer:
         self.model.train()
         log_probs, out_lens = self.model(feats, flens, generator=g_drop)
         loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
-                               batch['target_lengths'], batch['batch_mask'])
+                               batch['target_lengths'], batch['batch_mask'],
+                               global_mask_sum(batch['batch_mask']))
         loss.backward()
         self.step += 1
         if self.step % self.accum == 0:
             self._update()
         ids = torch.argmax(log_probs.detach(), dim=-1).to(torch.int32)
-        return loss.detach(), ids, out_lens
+        loss = loss.detach()
+        if self.distributed and reduce_loss:
+            loss = mesh.all_reduce_sum(loss.reshape(1))[0]
+        return loss, ids, out_lens
 
     def _update(self) -> None:
+        if self._grads is not None:
+            self._grads.all_reduce()
         grads = [p.grad for p in self._params() if p.grad is not None]
         with torch.no_grad():
             if self.accum > 1:
@@ -204,25 +286,44 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group['lr'] = lr
         self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        # the flat buffer's views are zeroed in place
+        self.optimizer.zero_grad(set_to_none=self._grads is None)
 
     # ------------------------------------------------------------------ fit
     def _flush_metrics(self, pending: list) -> None:
-        """WER/CER of the pending steps, from one device-to-host copy."""
+        """WER/CER of the pending steps, from one device-to-host copy (and,
+        under a process group, one reduction of their sums)."""
         if not pending:
             return
         flat = torch.cat([t.reshape(-1).to(torch.int32) for p in pending
                           for t in (p[1], p[2])]).cpu().numpy()
         off = 0
+        accs = []
         for m_step, ids, lens, texts, mask in pending:
             n_ids, n_lens = ids.numel(), lens.numel()
             ids_np = flat[off:off + n_ids].reshape(ids.shape)
             lens_np = flat[off + n_ids:off + n_ids + n_lens]
             off += n_ids + n_lens
-            self.logger.log(m_step, string_metrics(
+            accs.append(string_sums(
                 self.decoder, ids_np, lens_np, texts, 'train',
                 batch_mask=mask, print_decoded_prob=self.print_decoded_prob))
+        self._reduce_sums(accs)
+        for (m_step, *_), acc in zip(pending, accs):
+            self._log(m_step, acc.ratios(floor=1))
         pending.clear()
+
+    def _reduce_sums(self, accs: list) -> None:
+        """Sum the accumulators' numerators and denominators over the ranks
+        (float64, one collective)."""
+        if not self.distributed:
+            return
+        keys = [(a, k) for a in accs for k in sorted(a.sums)]
+        vec = torch.tensor([v for a, k in keys
+                            for v in (a.sums[k], a.denoms[k])],
+                           dtype=torch.float64, device=self.device)
+        vec = mesh.all_reduce_sum(vec).tolist()
+        for i, (a, k) in enumerate(keys):
+            a.sums[k], a.denoms[k] = vec[2 * i], vec[2 * i + 1]
 
     def _install_signal(self):
         sig = getattr(signal, str(self.preempt_signal), None) \
@@ -243,11 +344,13 @@ class Trainer:
         if train_loader.peek_batch() is None:
             raise ValueError('empty training loader')
         os.makedirs(self.run_dir, exist_ok=True)
-        with open(os.path.join(self.run_dir, 'config.json'), 'w') as f:
-            json.dump(self.cfg, f, indent=2)
+        if self.is_main:
+            with open(os.path.join(self.run_dir, 'config.json'), 'w') as f:
+                json.dump(self.cfg, f, indent=2)
         start_epoch, resume_skip = 0, 0
         if resume and self.ckpt.latest_step() is not None:
             self.load_state_dict(self.ckpt.restore())
+            self._saved_step = self.step
             print(f'Resumed from step {self.step}')
             extra = self.ckpt.load_extra()
             if 'epoch' in extra:
@@ -257,11 +360,15 @@ class Trainer:
             elif len(train_loader):
                 start_epoch = self.step // len(train_loader)
             train_loader.epoch = start_epoch
+        if self.distributed:
+            mesh.broadcast_module(self.model)
 
         self._preempt_requested = False
+        self.stopped_reason = None
         sig, prev_handler = self._install_signal()
         t0, utts, pending = None, 0, []
         preempt_stop = False
+        n_steps = 0
         try:
             for epoch in range(start_epoch, self.max_epochs):
                 skip = resume_skip if epoch == start_epoch else 0
@@ -275,7 +382,7 @@ class Trainer:
                                 and self.step >= int(self.max_steps)):
                             break
                         loss, ids, out_lens = self.train_step(
-                            to_device(batch, self.device))
+                            to_device(batch, self.device), reduce_loss=False)
                         if t0 is None:
                             float(loss)  # the first step ends before timing
                             t0 = time.time()
@@ -283,13 +390,15 @@ class Trainer:
                             utts += int(batch['batch_mask'].sum())
                         self._after_step(loss, ids, out_lens, batch, t0,
                                          utts, pending)
-                        if self._preempt_requested:
+                        n_steps += 1
+                        if self._stop_agreed(n_steps):
                             preempt_stop = True
+                            self.stopped_reason = 'signal'
                             break
                 self._flush_metrics(pending)
                 if preempt_stop:
-                    if self.step not in self.ckpt.all_steps():
-                        self.ckpt.save(self.step, self.state_dict(), extra={
+                    if self.step != self._saved_step:
+                        self._save(self.step, extra={
                             'epoch': epoch,
                             'epoch_step': self.step - epoch_start_step,
                             'preempted': True})
@@ -299,18 +408,33 @@ class Trainer:
                 val = None
                 if val_loader is not None and (epoch + 1) % self.val_every == 0:
                     val = self.validate(val_loader)
-                    self.logger.log(self.step, val)
-                    print(f'epoch {epoch}: ' + ' '.join(
-                        f'{k}={v:.4f}' for k, v in val.items()))
+                    self._log(self.step, val)
+                    if self.is_main:
+                        print(f'epoch {epoch}: ' + ' '.join(
+                            f'{k}={v:.4f}' for k, v in val.items()))
                 if (epoch + 1) % self.ckpt_every == 0:
-                    self.ckpt.save(self.step, self.state_dict(), metrics=val,
-                                   extra={'epoch': epoch + 1})
+                    self._save(self.step, metrics=val,
+                               extra={'epoch': epoch + 1})
                 if (self.max_steps is not None
                         and self.step >= int(self.max_steps)):
                     break
         finally:
             if sig is not None:
                 signal.signal(sig, prev_handler)
+
+    def _stop_agreed(self, n_steps: int) -> bool:
+        """Whether to stop for the signal after this step. With more than
+        one rank, the flags are reduced (max) every ``preempt_sync_every``
+        steps, at the same step on every rank, and only there: a rank
+        that stopped alone would leave the others waiting in a
+        collective."""
+        if mesh.world() == 1:
+            return self._preempt_requested
+        if n_steps % self.preempt_sync:
+            return False
+        flag = torch.tensor([float(self._preempt_requested)],
+                            device=self.device)
+        return bool(mesh.all_reduce_max(flag)[0] > 0)
 
     def _after_step(self, loss, ids, out_lens, batch, t0, utts, pending):
         step = self.step
@@ -320,26 +444,40 @@ class Trainer:
             if len(pending) >= self.metrics_flush:
                 self._flush_metrics(pending)
         if step % self.log_every == 0 or step == 1:
+            if self.distributed:   # the global batch's loss
+                loss = mesh.all_reduce_sum(loss.reshape(1))[0]
             value = float(loss)
             if not math.isfinite(value):
                 raise FloatingPointError(f'non-finite training loss at step '
                                          f'{step}: {value}')
             logs = {'train_loss': value,
                     'learning_rate': self.schedule((step - 1) // self.accum)}
+            if self.distributed:
+                utts = int(mesh.all_reduce_sum(torch.tensor(
+                    [utts], dtype=torch.int64, device=self.device))[0])
             if utts:
                 logs['utterances_per_sec'] = utts / max(time.time() - t0,
                                                         1e-9)
-            self.logger.log(step, logs)
+            self._log(step, logs)
 
     # ------------------------------------------------------------- validate
     def validate(self, val_loader) -> dict:
+        """val_loss (the mean of the batches' losses), val_cer, val_wer and
+        val_len_ratio over the loader; under a process group each rank
+        scores its rows and the sums are reduced, so every rank returns
+        the one-process numbers."""
         self.model.eval()
         acc = RatioAccumulator()
         losses = []
+        if self.distributed:   # every rank reduces the same keys
+            for key in ('val_cer', 'val_wer', 'val_len_ratio'):
+                acc.add(key, 0.0, 0.0)
         for batch in val_loader:
-            loss, ids, out_lens = eval_step(self.model, self.frontend,
-                                            to_device(batch, self.device))
-            losses.append(float(loss))
+            b = to_device(batch, self.device)
+            loss, ids, out_lens = eval_step(
+                self.model, self.frontend, b,
+                mask_sum=global_mask_sum(b['batch_mask']))
+            losses.append(loss.reshape(1))
             decoded = self.decoder.decode_ids(ids.cpu().numpy(),
                                               out_lens.cpu().numpy())
             for j, expected in enumerate(batch['texts']):
@@ -350,6 +488,11 @@ class Trainer:
                 acc.add('val_wer', *self.decoder.wer_ratio(expected,
                                                            decoded[j]))
                 acc.add('val_len_ratio', len(decoded[j]), len(expected))
+        if self.distributed:
+            self._reduce_sums([acc])
+            if losses:
+                losses = list(mesh.all_reduce_sum(torch.cat(losses)))
+        losses = [float(v) for v in losses]
         out = {'val_loss': float(np.mean(losses)) if losses else 0.0}
         out.update(acc.ratios())
         return out

@@ -5,21 +5,23 @@
         [--chunk-frames 2000] [--max-batch 8] [--verify-oneshot] \
         [--lm-path lm.arpa --beam-search-params k=..] [--no-lm] \
         [--hotwords w1,w2] [--word-timings] [--json-out r.json] \
-        [--device cuda]
+        [--mesh] [--device cuda]
     python -m wav2letter_pytorch_tpu_torch.transcribe_long --artifact DIR \
         --concat-manifest test.csv --minutes 10
 
 The counterpart of the JAX package's ``scripts/transcribe_long.py``, over
-``serving.LongFormTranscriber`` on ``--device``. With ``--concat-manifest``
-the input is the manifest's utterances concatenated up to ``--minutes``,
-and since their transcripts are known the result also holds the WER and
-CER. ``--verify-oneshot`` also runs the one-shot offline stack on the same
-audio and reports its largest log-prob difference from the chunked one.
-Prints one JSON line (and the transcript when no reference is known).
+``serving.LongFormTranscriber`` on ``--device`` (with ``--mesh``, the
+windows spread over every visible GPU, ``parallel.device_mesh``). With
+``--concat-manifest`` the input is the manifest's utterances concatenated
+up to ``--minutes``, and since their transcripts are known the result
+also holds the WER and CER. ``--verify-oneshot`` also runs the one-shot
+offline stack on the same audio and reports its largest log-prob
+difference from the chunked one. Prints one JSON line (and the transcript
+when no reference is known).
 
 ``--audio`` reads WAV or FLAC (other containers with soundfile) and
 resamples a file at another rate to the artifact's, as the JAX script
-does. Windows over several devices (``--mesh``) are ROADMAP A.9.
+does.
 """
 
 from __future__ import annotations
@@ -55,8 +57,7 @@ def parse_args(argv=None):
     parser.add_argument('--max-batch', type=int, default=8,
                         help='windows per call')
     parser.add_argument('--mesh', action='store_true',
-                        help='shard windows across devices (not ported: '
-                             'ROADMAP A.9)')
+                        help='shard windows across all local devices')
     parser.add_argument('--verify-oneshot', action='store_true',
                         help='cross-check against the one-shot offline run')
     parser.add_argument('--lm-path', default='',
@@ -114,16 +115,15 @@ def read_input(args, meta, sample_rate: int):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh:
-        raise SystemExit('--mesh: windows over several devices are not '
-                         'ported (ROADMAP A.9); the port runs on one device')
     from .decoding.decoder import (GreedyDecoder, PrefixBeamSearchLMDecoder,
                                    get_time_per_word, parse_beam_params)
+    from .parallel import device_mesh
     from .runtime import resolve_device
     from .serving import LongFormTranscriber, artifact_frontend, load_serving
     from .serving.longform import decode_segmented
 
-    dev = resolve_device(args.device)
+    mesh = device_mesh(args.device) if args.mesh else None
+    dev = resolve_device(args.device if mesh is None else mesh.devices[0])
     meta, folded, norm_stats = load_serving(args.artifact)
     if meta.get('family', 'wav2letter') != 'wav2letter':
         raise SystemExit('long-form supports the wav2letter family; use '
@@ -151,7 +151,7 @@ def main(argv=None) -> int:
         padding_mode=padding_mode,
         act_scales=act_scales if mode == 'int8_full' else None,
         chunk_frames=args.chunk_frames, max_batch=args.max_batch,
-        device=dev)
+        mesh=mesh, device=dev)
 
     secs = len(audio) / sample_rate
     print(f'input: {secs / 60:.1f} min ({len(audio)} samples), mode={mode}, '
