@@ -201,12 +201,39 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    ``serve_tcp --mesh`` round trip, a ``StreamingServer`` over the pair
    with a streamer built on each entry, each the bits of its
    ``mesh=None`` path, K1 counted.
-23. One ``{"kernels": [...]}`` line: per kernel its launches on the
+23. Tensor parallelism (``parallel/tp.py``), ranks sharing the one card
+   over gloo, each run with cuDNN's deterministic algorithms and dropout
+   off against one process (``train_worker`` in this process) on the
+   same global batch: (a) Wav2Letter-20 at full width,
+   ``trainer.mesh.model=2``, B=8 of ~8 s, 3 steps; (b) QuartzNet-15x2
+   (QuartzNet-15x5 at full width with 2 repeats a block), NovoGrad,
+   model=2, 2 steps; (c) Wav2Letter-4 at full width
+   on four ranks, data=2 x model=2, B=8 as 4 + 4 with the second
+   replica's last row masked, a gradient clip, 3 steps. Gates: every
+   step's loss within 1e-5 relative; the weights and BN statistics after
+   the first update ((c): after every update) within rtol 2e-4 atol
+   2e-6; the first update of each optimizer moment, and the TP run's
+   last update of the weights, the BN statistics and each optimizer
+   moment against one process's resumed from the TP checkpoint before
+   it, within 1e-3 relative distance beyond float32 rounding, while the
+   TP run without its last update (the control) lies outside it; each
+   rank's K1-K3 (K1-K7 for QuartzNet) launches equal to the one
+   process's; each rank's conv weights and their optimizer state at
+   most 0.55 of the one process's; (c)'s checkpoint loads strict=True
+   into one process and
+   ``evaluate.main --model-path`` on the TP run gives that model's loss
+   evaluated by hand to the bit, within 1e-5 of the one-process
+   checkpoint's, log p within 1e-4. Printed: each rank's bytes of
+   parameters, buffers and optimizer state and its peak memory in a
+   train step and in a checkpoint save beside the one process's, the
+   step's ms of both ((c)'s ranks run beside (a)'s and (b)'s), K6 and
+   K7 a launch with the whole and a model=2 rank's pointwise weight.
+24. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
    and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
    QuartzNet's, K4 also its lookahead and exact streams', K6 its
-   lookahead stream's, and each kernel's ``mesh_launches`` on phase
-   22's paths), max error against the plain
+   lookahead stream's, each kernel's ``mesh_launches`` on phase 22's
+   paths and ``tp_launches`` on phase 23's), max error against the plain
    version, time, plain time, roofline bound and the time of the nearest
    PyTorch library call (timed here only). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
@@ -217,8 +244,10 @@ the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import math
@@ -4736,13 +4765,17 @@ def cudnn_deterministic():
 
 
 def train_worker(spec_path: str) -> int:
-    """A training process of phase 22 (``chip_smoke.py --train-worker
-    SPEC``): ``train.main`` on each of ``spec['runs']`` in turn, with
-    cuDNN's deterministic algorithms, each run's kernel launches written
-    to its ``launches`` file. Under torchrun's environment ``train.main``
-    joins the group; with ``spec['backend']`` (gloo, for two ranks on one
-    GPU) this worker joins it first and records which collectives gloo
-    takes on CUDA tensors as they are."""
+    """A training process of phases 22 and 23 (``chip_smoke.py
+    --train-worker SPEC``, or this process): ``train.main`` on each of
+    ``spec['runs']`` in turn, with cuDNN's deterministic algorithms, each
+    run's kernel launches written to its ``launches`` file and, for a run
+    with a ``memory`` file, the trainer's state bytes (``state_bytes``),
+    each train step's ms and the peak memory of a step and of a
+    checkpoint save above what was allocated when the run began written
+    there. Under torchrun's environment ``train.main`` joins
+    the group; with ``spec['backend']`` (gloo, for two ranks on one GPU)
+    this worker joins it first and records which collectives gloo takes
+    on CUDA tensors as they are."""
     import torch.distributed as dist
     from wav2letter_pytorch_tpu_torch import parallel
     with open(spec_path) as f:
@@ -4762,12 +4795,52 @@ def train_worker(spec_path: str) -> int:
             except (RuntimeError, ValueError) as e:
                 probe[name] = f'refuses CUDA tensors: {str(e)[:120]}'
     rc = 0
+    patched = {k: getattr(Trainer, k) for k in ('fit', 'train_step',
+                                                '_save')}
     with cudnn_deterministic():
         for run in spec['runs']:
             for fn in TRAIN_COUNTERS:
                 fn.launches = 0
             os.environ['W2L_LAUNCHES_JSON'] = run['launches']
-            rc = rc or port_train.main(run['argv'])
+            record = {'step_ms': [], 'step_peak': 0, 'save_peak': 0}
+            trained = []
+            gc.collect()   # the last run's trainer is gone before ``base``
+            base = torch.cuda.memory_allocated()
+
+            def kept_fit(self, *args, **kw):
+                trained.append(self)
+                return patched['fit'](self, *args, **kw)
+
+            def timed(name, key):
+                def call(self, *args, **kw):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    out = patched[name](self, *args, **kw)
+                    torch.cuda.synchronize()
+                    if name == 'train_step':
+                        record['step_ms'].append(
+                            1e3 * (time.perf_counter() - t0))
+                    record[key] = max(record[key],
+                                      torch.cuda.max_memory_allocated()
+                                      - base)
+                    return out
+                return call
+            if run['memory']:
+                Trainer.fit = kept_fit
+                Trainer.train_step = timed('train_step', 'step_peak')
+                Trainer._save = timed('_save', 'save_peak')
+            try:
+                rc = rc or port_train.main(run['argv'])
+            finally:
+                os.environ.pop('W2L_LAUNCHES_JSON')
+                for k, fn in patched.items():
+                    setattr(Trainer, k, fn)
+            if trained:
+                suffix = (f'.{parallel.rank()}' if parallel.distributed()
+                          else '')
+                with open(run['memory'] + suffix, 'w') as f:
+                    json.dump({**state_bytes(trained[0]), **record}, f)
     if parallel.distributed():
         if probe and parallel.rank() == 0:
             with open(spec['probe'], 'w') as f:
@@ -4776,26 +4849,72 @@ def train_worker(spec_path: str) -> int:
     return rc
 
 
+def state_bytes(trainer) -> dict:
+    """This process's bytes of the trainer's parameters, buffers and
+    optimizer state, and of its conv weights (3-d parameters) and their
+    optimizer state."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    conv = [p for p in trainer.model.parameters() if p.dim() == 3]
+    state = trainer.optimizer.state
+    return {
+        'params': sum(nbytes(p) for p in trainer.model.parameters()),
+        'buffers': sum(nbytes(b) for b in trainer.model.buffers()),
+        'optimizer': sum(nbytes(t) for st in state.values()
+                         for t in st.values() if torch.is_tensor(t)),
+        'conv_weights_and_state': sum(
+            nbytes(p) + sum(nbytes(t) for t in state.get(p, {}).values()
+                            if torch.is_tensor(t)) for p in conv)}
+
+
+def summed(ranks: list) -> dict:
+    """Each kernel's launches summed over ``run_workers``' ranks of one
+    run."""
+    total = {}
+    for counts, _ in ranks:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def read_ranks(path: str, world: int, here: bool = False) -> list:
+    """The JSON each rank wrote to ``path`` (suffixed ``.rank`` under a
+    process group)."""
+    out = []
+    for r in range(world):
+        with open(path if here else f'{path}.{r}') as f:
+            out.append(json.load(f))
+    return out
+
+
 def run_workers(root: str, name: str, argvs: list, world: int = 1,
-                backend: str | None = None) -> tuple:
+                backend: str | None = None, here: bool = False,
+                record: bool = False) -> tuple:
     """One ``train_worker`` process under ``torch.distributed.run
     --nproc-per-node 1`` (``world`` 1) running ``train.main`` on each of
-    ``argvs``, or ``world`` of them started with torchrun's environment
-    (all on ``cuda:0``, over ``backend``). Returns (each run's kernel
-    launches summed over the ranks, wall seconds, gloo's probe or
-    None)."""
+    ``argvs``, or (``here``) ``train_worker`` in this process, with no
+    process group, or ``world`` of them started with torchrun's
+    environment (all on ``cuda:0``, over ``backend``). Returns (for each
+    run, each rank's (kernel launches, its ``state_bytes`` with step ms
+    and peak memory when ``record``, else None), wall seconds, gloo's
+    probe or None)."""
     spec = os.path.join(root, f'{name}_spec.json')
     counts = [os.path.join(root, f'{name}_launches_{i}.json')
               for i in range(len(argvs))]
+    memory = [os.path.join(root, f'{name}_memory_{i}.json') if record
+              else None for i in range(len(argvs))]
     probe = os.path.join(root, f'{name}_probe.json')
     with open(spec, 'w') as f:
-        json.dump({'runs': [{'argv': a, 'launches': c}
-                            for a, c in zip(argvs, counts)],
+        json.dump({'runs': [{'argv': a, 'launches': c, 'memory': m}
+                            for a, c, m in zip(argvs, counts, memory)],
                    'probe': probe, 'backend': backend,
                    'device': str(DEVICE)}, f)
     me = [os.path.abspath(__file__), '--train-worker', spec]
     t0 = time.perf_counter()
-    if world == 1:
+    if here:
+        check(train_worker(spec) == 0, f'{name}: train.main in this '
+              'process returned 0')
+    elif world == 1:
         launched_run([sys.executable, '-m', 'torch.distributed.run',
                       '--nproc-per-node', '1', '--master-addr', '127.0.0.1',
                       '--master-port', str(free_port())] + me,
@@ -4822,14 +4941,10 @@ def run_workers(root: str, name: str, argvs: list, world: int = 1,
             check(p.returncode == 0, f'{name}: rank {r} rc {p.returncode}'
                   + ('' if p.returncode == 0 else '\n' + out[-4000:]))
     wall = time.perf_counter() - t0
-    launches = []
-    for path in counts:
-        total = {}
-        for r in range(world):
-            with open(f'{path}.{r}') as f:
-                for k, v in json.load(f).items():
-                    total[k] = total.get(k, 0) + v
-        launches.append(total)
+    launches = [list(zip(read_ranks(path, world, here),
+                         read_ranks(mem, world, here) if mem
+                         else [None] * world))
+                for path, mem in zip(counts, memory)]
     found = None
     if os.path.exists(probe):
         with open(probe) as f:
@@ -4926,6 +5041,7 @@ def phase_dp_world1(manifest: str, root: str, card: str) -> list:
     nccl, wall, _ = run_workers(root, 'world1', [
         dp_argv(manifest, runs[what, 'nccl'], over, epochs)
         for what, over, epochs, _ in cases])
+    nccl = [summed(ranks) for ranks in nccl]
     for (what, _, epochs, counters), got_n in zip(cases, nccl):
         steps = 2 * epochs
         got_n = {fn.__name__: got_n[fn.__name__] for fn in counters}
@@ -4982,8 +5098,9 @@ def phase_dp_two_ranks(manifest: str, root: str, card: str) -> dict:
                     f'train.main (W2L-{DP2_LAYERS}, B={DP2_BATCH}, one '
                     'process)')
     torch.cuda.empty_cache()
-    (launches,), wall, probe = run_workers(root, 'dp2', [argv['gloo']],
-                                           world=2, backend='gloo')
+    (ranks,), wall, probe = run_workers(root, 'dp2', [argv['gloo']],
+                                        world=2, backend='gloo')
+    launches = summed(ranks)
     check(probe is not None and all(v == 'takes CUDA tensors'
                                     for v in probe.values()),
           f'gloo on CUDA tensors, the collectives the trainer uses: {probe}')
@@ -5162,6 +5279,340 @@ def phase_data_parallel(manifest: str, arts: dict, root: str,
     return launches
 
 
+# ---------------------------------------------------- tensor parallelism
+
+TP_BATCH = 8                 # (a), (b): a global B=8 of ~8 s utterances
+TP_W2L_STEPS = 3             # (a) Wav2Letter-20
+TP_QN_STEPS = 2              # (b) QuartzNet-15x5
+TP4_LAYERS = 4               # (c) Wav2Letter depth on 4 ranks
+TP4_UTTS = 7                 # (c) a global B=8 as 4 + 4: row 7 is padding
+TP4_STEPS = 3
+TP4_CLIP = 1.0               # (c) gradient_clip_val
+TP_LOSS_RTOL = 1e-5          # TP vs one process: losses
+TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-4, 2e-6   # JAX's TP bars: the state
+                             # after the first update ((c): every update)
+# An update from a state both sides share (the first, from the init; the
+# last, one process resumed from the TP run's checkpoint before it),
+# for each group of the state (weights, BN statistics, each optimizer
+# moment): the TP run's against the one process's, relative distance
+# beyond float32 rounding (``update_rel``), at most this. Sound runs read
+# at most 5.3e-5 on an H100, a wrong update ~1 (skipped or doubled ~1,
+# flipped ~2; the control, the run without its update, read 0.97-1.0
+# and must exceed it). Not on the free-running trajectories:
+# their later updates drift 1e-2 to 0.26 apart there from rounding alone.
+TP_UPDATE_RTOL = 1e-3
+TP_EVAL_LOGP_ATOL = 1e-4     # (c): the TP and the one-process checkpoints
+                             # evaluated alike, log p apart
+TP_QN_REPEAT = 2             # (b): QuartzNet's repeats a block (5 in
+                             # QuartzNet-15x5), cut for the time limit
+TP_STATE_SHARE = 0.55        # a rank's conv weights + their optimizer state
+                             # at model=2, of the one process's
+
+
+def tp_argv(manifest: str, run: str, overrides, steps: int,
+            batch: int = TP_BATCH) -> list:
+    """``steps`` epochs of one batch each (``manifest`` holds ``batch``
+    utterances or one fewer), one length bucket, no validation, a
+    checkpoint after every step."""
+    return [f'data.train_manifest={manifest}',
+            f'data.val_manifest={manifest}', *overrides,
+            f'data.batch_size={batch}', 'data.num_length_buckets=1',
+            'trainer.log_every_n_steps=1', f'trainer.max_epochs={steps}',
+            'trainer.val_every_n_epochs=1000',
+            'trainer.checkpoint.every_n_epochs=1',
+            f'trainer.checkpoint.keep_last={steps}',
+            'trainer.string_metrics_interval=0',
+            f'trainer.default_root_dir={run}', '--device', str(DEVICE)]
+
+
+def restored(run: str, step: int | None = None) -> dict:
+    return Checkpointer(os.path.join(run, 'checkpoints')).restore(step)
+
+
+def state_excess(a: dict, b: dict) -> tuple:
+    """(worst allclose excess at the TP bars over the floating tensors of
+    two state dicts, the tensor it is in)."""
+    excess = {k: allclose_excess(a[k].double(), v.double(), TP_PARAM_ATOL,
+                                 TP_PARAM_RTOL)
+              for k, v in b.items() if v.is_floating_point()}
+    worst = max(excess, key=excess.get)
+    return excess[worst], worst
+
+
+def state_groups(state: dict) -> dict:
+    """A checkpoint's floating tensors by group, {group: {name: tensor}}:
+    'weights', 'BN statistics' and each optimizer moment ('optimizer
+    momentum_buffer', 'optimizer exp_avg', ...)."""
+    out = {}
+    for k, v in state['model'].items():
+        if v.is_floating_point():
+            g = ('BN statistics' if k.endswith(('running_mean',
+                                                'running_var'))
+                 else 'weights')
+            out.setdefault(g, {})[k] = v
+    for i, st in state['optimizer']['state'].items():
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.is_floating_point():
+                out.setdefault(f'optimizer {k}', {})[i] = v
+    return out
+
+
+def update_rel(prev_a: dict, a: dict, prev_b: dict, b: dict) -> dict:
+    """For each group of ``b`` (``state_groups``), the TP run's update
+    against the one process's: ||max(|(a - prev_a) - (b - prev_b)| -
+    ulp(b), 0)|| / ||b - prev_b|| over the group's tensors, in float64 on
+    the card. ulp(b), the float32 spacing at each stored value of ``b``,
+    allows for the rounding of the last add into the two stored states
+    (an SGD update at lr 1e-5 is ~100 such spacings of a weight). A group
+    missing from a ``prev`` is zeros (an optimizer's state before its
+    first step). Returns {group: (ratio, (the largest ratio of one
+    tensor, its name))}: 0 where neither moved, inf where only ``a``
+    did."""
+    out = {}
+    for g, tb in b.items():
+        num = den = 0.0
+        worst = (0.0, '')
+        for k, vb in tb.items():
+            def moved(prev, v):
+                v = v.to(DEVICE, torch.float64)
+                p = prev.get(g, {}).get(k)
+                return v if p is None else v - p.to(DEVICE, torch.float64)
+            ub = moved(prev_b, vb)
+            x = vb.to(DEVICE, torch.float32).abs()
+            ulp = torch.nextafter(x, torch.full_like(x, math.inf)) - x
+            d = torch.clamp((moved(prev_a, a[g][k]) - ub).abs()
+                            - ulp.double(), min=0)
+            d2, u2 = float((d * d).sum()), float((ub * ub).sum())
+            num, den = num + d2, den + u2
+            if u2:
+                worst = max(worst, (math.sqrt(d2 / u2), str(k)))
+        out[g] = (math.sqrt(num / den) if den else
+                  (0.0 if num == 0 else math.inf), worst)
+    return out
+
+
+def tp_compare(what: str, runs: dict, steps: int, one: tuple, ranks: list,
+               counters, card: str, bars_to: int = 1,
+               batch: int = TP_BATCH) -> dict:
+    """The gates of one phase-23 case, the TP run against the one
+    process's: every step's loss; the weights and BN statistics at JAX's
+    TP bars after each of the first ``bars_to`` updates; the first update
+    of each optimizer moment (from the init both share) and the last
+    update of each group of the state (against ``runs['resume']``, one
+    process resumed from the TP run's checkpoint before it) within
+    TP_UPDATE_RTOL, and the control (the TP run without its last update)
+    outside it; each rank's launches of ``counters`` equal to the one
+    process's and its conv weights and their optimizer state at most
+    TP_STATE_SHARE of the one process's. Prints each rank's state bytes
+    and peak memory (a train step's, a checkpoint save's) beside the one
+    process's, and the ms of steps 2 on of both (host clock around each
+    train step, synchronised). Returns the launches summed over the
+    ranks."""
+    got, want = run_metrics(runs['tp']), run_metrics(runs['one'])
+    losses = [(want['train_loss'][s], got['train_loss'].get(s))
+              for s in range(1, steps + 1)]
+    loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for w, g in losses)
+    check(loss_rel <= TP_LOSS_RTOL,
+          f'{what}: TP on {len(ranks)} ranks over gloo vs one process, '
+          f'{steps} steps: losses {[round(w, 6) for w, _ in losses]}, max '
+          f'rel {loss_rel:.2e} (gate {TP_LOSS_RTOL:g}) [{card}]')
+
+    def updates(label, rel):
+        check(all(r <= TP_UPDATE_RTOL for r, _ in rel.values()),
+              f'{what}: {label}, TP against one process, each group within '
+              f'{TP_UPDATE_RTOL:g}: ' + '; '.join(
+                  f'{g} {r:.3e} (worst tensor {t:.3e}, {k})'
+                  for g, (r, (t, k)) in rel.items()))
+
+    for s in range(1, bars_to + 1):
+        a, b = restored(runs['tp'], s), restored(runs['one'], s)
+        check(a['step'] == b['step'] == s
+              and a['model'].keys() == b['model'].keys(),
+              f'{what}: both runs saved step {s}, the same keys')
+        excess, worst = state_excess(a['model'], b['model'])
+        check(excess <= 0,
+              f'{what}: weights and BN statistics after step {s} within '
+              f'rtol {TP_PARAM_RTOL:g} atol {TP_PARAM_ATOL:g} (worst excess '
+              f'{excess:.2e}, {worst})')
+        if s == 1:   # the weights' first update would need the init
+            updates('update 1 of the optimizer moments', {
+                g: v for g, v in update_rel({}, state_groups(a), {},
+                                            state_groups(b)).items()
+                if g.startswith('optimizer')})
+    start = state_groups(restored(runs['tp'], steps - 1))
+    a, b = restored(runs['tp']), restored(runs['resume'])
+    check(a['step'] == b['step'] == steps,
+          f'{what}: the TP run and one process resumed from its step '
+          f'{steps - 1} saved step {steps}')
+    last = state_groups(b)
+    updates(f'update {steps} from the TP run\'s step {steps - 1}',
+            update_rel(start, state_groups(a), start, last))
+    control = update_rel(start, start, start, last)
+    moving = {g: r for g, (r, _) in control.items()
+              if any(float(v.abs().max()) for v in last[g].values())}
+    check(all(r > TP_UPDATE_RTOL for r in moving.values()),
+          f'{what}: control, the TP run without its update {steps}, each '
+          f'group outside {TP_UPDATE_RTOL:g}: '
+          + '; '.join(f'{g} {r:.3e}' for g, r in moving.items()))
+    one_counts, one_bytes = one
+    names = [fn.__name__ for fn in counters]
+    want_n = {k: one_counts[k] for k in names}
+    for r, (counts, _) in enumerate(ranks):
+        got_n = {k: counts[k] for k in names}
+        check(got_n == want_n and all(got_n.values()),
+              f'{what}: rank {r} launches {got_n} = the one process\'s '
+              f'{want_n}')
+    for r, (_, nbytes) in enumerate(ranks):
+        share = (nbytes['conv_weights_and_state']
+                 / one_bytes['conv_weights_and_state'])
+        print(f'{what} rank {r}: {memory_line(nbytes)} [{card}]')
+        check(share <= TP_STATE_SHARE,
+              f'{what} rank {r}: conv weights + their optimizer state '
+              f'{share:.4f} of the one process\'s (gate {TP_STATE_SHARE})')
+    print(f'{what} one process: {memory_line(one_bytes)} [{card}]')
+    ms = {'one': one_bytes['step_ms'][1:],
+          'tp': [max(r[1]['step_ms'][s] for r in ranks)
+                 for s in range(1, steps)]}
+    print(f'{what} train step, B={batch}, steps 2-{steps}: one process '
+          f'{", ".join(f"{t:.3f}" for t in ms["one"])} ms, TP over gloo '
+          f'{", ".join(f"{t:.3f}" for t in ms["tp"])} ms (the slowest '
+          f'rank; host clock, synchronised) [{card}]')
+    total = {}
+    for counts, _ in ranks:
+        for k in names:
+            total[k] = total.get(k, 0) + counts[k]
+    return total
+
+
+def memory_line(nbytes: dict) -> str:
+    return (f'parameters {nbytes["params"]:,} B, buffers '
+            f'{nbytes["buffers"]:,} B, optimizer state '
+            f'{nbytes["optimizer"]:,} B, conv weights + their state '
+            f'{nbytes["conv_weights_and_state"]:,} B; peak allocated in a '
+            f'train step {nbytes["step_peak"]:,} B, in a checkpoint save '
+            f'{nbytes["save_peak"]:,} B')
+
+
+def tp_sep_timing(card: str) -> None:
+    """K6 and K7 a launch at QuartzNet's unit shapes and B=TP_BATCH with
+    the whole ``wpw`` (model=1) and with its Cout/2 columns (a model=2
+    rank's)."""
+    for B, T, Cin, Cout, K, d in SEP_MAIN:
+        times = {}
+        for cout in (Cout, Cout // 2):
+            (x, wdw, wpw, g), l1, l2, p = sep_inputs(TP_BATCH, T, Cin, cout,
+                                                     K, d, 7, DEVICE)
+            times[cout] = (
+                cuda_ms(lambda: sep_fwd(x, l1, l2, wdw, wpw, d, p)),
+                cuda_ms(lambda: sep_bwd(x, l1, l2, wdw, wpw, g, d, p)))
+        full, half = times[Cout], times[Cout // 2]
+        print(f'K6/K7 at B={TP_BATCH}, T={T}, Cin={Cin}, K={K}, d={d}: '
+              f'Cout={Cout} (model=1) {full[0]:.4f} / {full[1]:.4f} ms, '
+              f'Cout={Cout // 2} (a model=2 rank) {half[0]:.4f} / '
+              f'{half[1]:.4f} ms a launch [{card}]')
+
+
+def phase_tensor_parallel(manifest: str, root: str, card: str) -> dict:
+    """Phase 23: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
+    with trainer.mesh.model=2 on two ranks sharing the card over gloo, (c)
+    Wav2Letter-4 on four ranks, data=2 x model=2, with a gradient clip;
+    each against one process on the same global batch, all with cuDNN's
+    deterministic algorithms and dropout off; (c)'s checkpoint loaded
+    strict into one process and evaluated. Returns each kernel's launches
+    on the TP paths, summed over the ranks."""
+    t0 = time.time()
+    head8 = head_manifest(manifest, root, TP_BATCH)
+    head7 = head_manifest(manifest, root, TP4_UTTS)
+    w2l = [f'model.mid_layers={MID_LAYERS}', *no_dropout([])]
+    qn = [*QN, 'optimizer=novograd', *no_dropout(QN)] + [
+        f'model.jasper_blocks.{i}.repeat={TP_QN_REPEAT}'
+        for i, blk in enumerate(train_config(*QN)['model']['jasper_blocks'])
+        if int(blk.get('repeat', 1)) > 1]
+    w2l4 = [f'model.mid_layers={TP4_LAYERS}', *no_dropout([]),
+            f'trainer.gradient_clip_val={TP4_CLIP}']
+    cases = {'a': ('(a) Wav2Letter-20', head8, w2l, TP_W2L_STEPS),
+             'b': (f'(b) QuartzNet-15x{TP_QN_REPEAT}', head8, qn,
+                   TP_QN_STEPS),
+             'c': (f'(c) Wav2Letter-{TP4_LAYERS}, data=2 x model=2, clip '
+                   f'{TP4_CLIP:g}', head7, w2l4, TP4_STEPS)}
+    runs = {k: {side: os.path.join(root, f'tp_{k}_{side}')
+                for side in ('one', 'tp', 'resume')} for k in cases}
+    grid = {'a': ['trainer.mesh.data=1', 'trainer.mesh.model=2'],
+            'b': ['trainer.mesh.data=1', 'trainer.mesh.model=2'],
+            'c': ['trainer.mesh.data=2', 'trainer.mesh.model=2']}
+
+    def argv(k, side):
+        _, m, over, steps = cases[k]
+        return tp_argv(m, runs[k][side], over + (grid[k] if side == 'tp'
+                                                 else []), steps) + (
+            ['--resume'] if side == 'resume' else [])
+    torch.cuda.empty_cache()
+    # (c)'s four ranks start beside (a)'s and (b)'s two (the phase's time;
+    # their steps' ms share the card and the host)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        started = pool.submit(run_workers, root, 'tp4', [argv('c', 'tp')],
+                              world=4, backend='gloo', record=True)
+        two, wall, probe = run_workers(root, 'tp2',
+                                       [argv(k, 'tp') for k in 'ab'],
+                                       world=2, backend='gloo', record=True)
+        (four,), wall4, _ = started.result()
+    check(probe is not None and all(v == 'takes CUDA tensors'
+                                    for v in probe.values()),
+          f'gloo on CUDA tensors, the collectives TP uses: {probe}')
+    print(f'[{time.time() - t0:.1f} s] phase 23: (a), (b) on 2 ranks '
+          f'{wall:.1f} s wall, beside (c) on 4 ranks {wall4:.1f} s wall')
+    for k, (_, _, _, steps) in cases.items():   # the resumed runs' start
+        src = os.path.join(runs[k]['tp'], 'checkpoints')
+        dst = os.path.join(runs[k]['resume'], 'checkpoints')
+        os.makedirs(dst)
+        for f in (f'ckpt_{steps - 1}.pt', f'meta_{steps - 1}.json'):
+            os.link(os.path.join(src, f), os.path.join(dst, f))
+    torch.cuda.empty_cache()
+    ones, wall, _ = run_workers(
+        root, 'tp_one', [argv(k, side) for side in ('one', 'resume')
+                         for k in cases], here=True, record=True)
+    print(f'[{time.time() - t0:.1f} s] phase 23: the one-process runs, '
+          f'fresh and resumed from the TP checkpoints, {wall:.1f} s wall')
+    launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
+    for k, ranks in (('a', two[0]), ('b', two[1]), ('c', four)):
+        what, _, _, steps = cases[k]
+        counters = TRAIN_COUNTERS if k == 'b' else TRAIN_COUNTERS[:3]
+        got = tp_compare(what, runs[k], steps, ones['abc'.index(k)][0],
+                         ranks, counters, card,
+                         bars_to=steps if k == 'c' else 1)
+        for name, n in got.items():
+            launches[name] += n
+    # (c): the checkpoint in one process
+    tp_run = runs['c']['tp']
+    state = restored(tp_run)
+    cfg = run_config(tp_run)
+    check(cfg['trainer']['mesh'] == {'data': 2, 'seq': 1, 'model': 2},
+          f'(c) run config mesh {cfg["trainer"]["mesh"]}')
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])))
+    model.load_state_dict(state['model'], strict=True)
+    result, _, _, _, _ = run_cli(['--model-path', tp_run, '--test-manifest',
+                                  head7, '--device', str(DEVICE)])
+    _, _, _, outs, by_hand = run_model_outputs(tp_run, head7, 1)
+    _, _, _, one_outs, one_loss = run_model_outputs(runs['c']['one'],
+                                                    head7, 1)
+    logp_diff = max(float(np.abs(outs[k] - one_outs[k]).max())
+                    for k in outs)
+    loss_rel = abs(by_hand - one_loss) / abs(one_loss)
+    check(result['loss'] == by_hand and loss_rel <= TP_LOSS_RTOL
+          and logp_diff <= TP_EVAL_LOGP_ATOL,
+          f'(c) the TP checkpoint loads strict=True into one process; '
+          f'evaluate.main --model-path on the TP run (mesh 2 x 2 in its '
+          f'config) gives the loss of that model evaluated by hand, bit for '
+          f'bit: {result["loss"]!r} = {by_hand!r}; against the one-process '
+          f'run\'s checkpoint evaluated alike: loss {one_loss!r} (rel '
+          f'{loss_rel:.2e}, gate {TP_LOSS_RTOL:g}), max |log p| difference '
+          f'{logp_diff:.2e} (gate {TP_EVAL_LOGP_ATOL:g})')
+    tp_sep_timing(card)
+    print(f'tensor-parallel phase: {time.time() - t0:.1f} s; launches '
+          f'{json.dumps(launches)}')
+    return launches
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -5273,6 +5724,9 @@ def main() -> int:
         # Data parallelism: torchrun at world 1, two ranks, mesh serving
         mesh_launches = phase_data_parallel(manifest, arts, root, card)
         lap('phase 22: data parallelism')
+        # Tensor parallelism: 2 and 4 ranks sharing the card over gloo
+        tp_launches = phase_tensor_parallel(manifest, root, card)
+        lap('phase 23: tensor parallelism')
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -5317,8 +5771,9 @@ def main() -> int:
     kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                     qn_stream['k4_err'])
     kernels[5]['streaming_launches'] = stream['qn']['sep_fwd']
-    for entry in kernels:       # phase 22's data-parallel paths
+    for entry in kernels:       # phases 22's and 23's parallel paths
         entry['mesh_launches'] = mesh_launches[entry['name']]
+        entry['tp_launches'] = tp_launches[entry['name']]
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

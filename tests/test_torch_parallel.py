@@ -307,10 +307,11 @@ def test_make_mesh_and_shard_rows():
 
 
 @pytest.mark.parametrize('override,match', [
-    ('trainer.mesh.model=2', 'mesh.model'),
     ('trainer.mesh.seq=2', 'mesh.seq'),
 ])
 def test_tensor_and_sequence_parallelism_refused(override, match):
+    """Sequence parallelism is still refused, naming the later slice
+    (tensor parallelism is taken: the next test)."""
     with pytest.raises(ValueError, match=match) as e:
         load_config(['data.train_manifest=x', 'data.val_manifest=y',
                      override])
@@ -318,6 +319,19 @@ def test_tensor_and_sequence_parallelism_refused(override, match):
     axis = override.split('.')[2].split('=')[0]
     with pytest.raises(ValueError, match=f'mesh {axis}=2'):
         parallel.make_mesh(2, device='cpu', **{axis: 2})
+
+
+def test_tensor_parallelism_taken():
+    """``trainer.mesh.model=2`` loads, and ``make_mesh(2, model=2)`` is
+    JAX's 2 x 2 grid."""
+    cfg = load_config(['data.train_manifest=x', 'data.val_manifest=y',
+                       'trainer.mesh.model=2'])
+    assert cfg['trainer']['mesh']['model'] == 2
+    mesh = parallel.make_mesh(2, model=2, device='cpu')
+    theirs = jax_make_mesh(2, model=2)
+    assert mesh.shape == dict(zip(theirs.axis_names,
+                                  theirs.devices.shape)) == \
+        {'data': 2, 'model': 2}
 
 
 def test_config_takes_mesh_data_and_preempt_sync():

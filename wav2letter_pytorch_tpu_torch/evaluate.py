@@ -27,7 +27,9 @@ pairs, with ``--word-timings`` its ``timings  :`` lines and with
 The model: ``--model-path`` is a run directory of the port's trainer; its
 ``config.json`` (after ``key=value`` overrides) builds the model and its
 newest checkpoint (or the average of the newest ``--average-last`` K) gives
-the weights. Otherwise the model comes from the training config
+the weights; a run trained with tensor parallelism (``trainer.mesh.model``
+> 1 in its config) evaluates in one process, as its checkpoints hold the
+whole tensors. Otherwise the model comes from the training config
 (``config.py``, the same overrides as ``train.py``): Wav2Letter-20 by
 default, ``model=quartznet`` or ``model=jasper`` for the Jasper family
 (kernels K4 and K6), with ``--weights`` a ``state_dict`` saved with

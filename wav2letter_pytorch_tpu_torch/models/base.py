@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_gather, draw_rows, world
+from ..parallel.mesh import all_gather, data_group, data_world, draw_rows
 
 
 def hardtanh_0_20(x: torch.Tensor) -> torch.Tensor:
@@ -77,14 +77,17 @@ def init_conv_(weight: torch.Tensor, mode: str = 'xavier_uniform',
 
 def global_batch_stats(x: torch.Tensor):
     """(mean, biased variance) per channel of ``x`` [B_r, C, T] over every
-    rank's B_r x T, differentiably: each rank's (count, mean, M2) are
-    gathered and combined with Chan's parallel formula (not E[x^2] -
-    mean^2, which loses digits when |mean| >> std)."""
+    replica's B_r x T, differentiably: each rank's (count, mean, M2) are
+    gathered over the data group and combined with Chan's parallel
+    formula (not E[x^2] - mean^2, which loses digits when |mean| >>
+    std). Under tensor parallelism ``x`` is this rank's channel slice and
+    the ranks of the data group hold the same slice."""
     count = torch.full((1,), float(x.shape[0] * x.shape[2]),
                        dtype=x.dtype, device=x.device)
     mean = x.mean(dim=(0, 2))
     m2 = ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2))
-    parts = all_gather(torch.cat([count, mean, m2]))   # [W, 1 + 2C]
+    parts = all_gather(torch.cat([count, mean, m2]),
+                       data_group())   # [W, 1 + 2C]
     C = x.shape[1]
     n = parts[:, :1].detach()
     means, m2s = parts[:, 1:C + 1], parts[:, C + 1:]
@@ -100,17 +103,21 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     the one it normalises with, goes into ``running_var``. With
     ``freeze_stats`` set (``frozen_statistics``) they stay as they are.
 
-    Under a process group of more than one rank, train mode normalises
-    with the statistics of the global batch (``global_batch_stats``), as
-    the JAX package's global-batch step does: every rank then holds the
-    same running statistics, those of one process on the whole batch."""
+    Under a process group of more than one replica, train mode
+    normalises with the statistics of the global batch
+    (``global_batch_stats``, over the data group), as the JAX package's
+    global-batch step does: every replica then holds the same running
+    statistics, those of one process on the whole batch. Under tensor
+    parallelism the weight, bias and running statistics are this rank's
+    channel slice (``parallel.tp``) and so is the input: BatchNorm is
+    per channel, so the model ranks need no collective."""
 
     freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if world() > 1:
+        if data_world() > 1:
             return self._cross_replica(x)
         if not self.freeze_stats:
             with torch.no_grad():

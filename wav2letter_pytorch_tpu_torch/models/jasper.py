@@ -34,6 +34,16 @@ the biased batch variance (``FlaxBatchNorm1d``); dropout draws from the
 backward (``torch.utils.checkpoint``), replaying its dropout draws and
 leaving BatchNorm statistics alone, so gradients are bit-identical.
 
+Under tensor parallelism (``parallel.tp.shard_module``) every sharded
+conv gives its rank's output channels: a 1x1 or grouped conv column-
+parallel from the whole input (``MaskedConv._column``), a depthwise conv
+through K4 on the input's channel slice, the fused unit through K6/K7 on
+the whole input, the gathered depthwise weight and the rank's pointwise
+columns; each norm runs on the slice and the channels are gathered
+after it, before GroupShuffle, the residual add, act and dropout (the
+model=1 draws). Remat re-runs the gathers, in the same order on every
+rank.
+
 Layout ``[B, T, C]`` throughout, as in JAX. Parameter keys are the
 reference torch layout: ``jasper_encoder.{b}.mconv.{i}.conv.weight``, the
 norm at its ``mconv`` index, parameter-less slots for act + dropout after
@@ -53,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.depthwise import depthwise_conv1d
 from ..ops.sep_conv import sep_conv1d
+from ..parallel import tp
 from .base import (FlaxBatchNorm1d, compute_new_kernel_size, dropout,
                    frozen_statistics, get_same_padding, hardtanh_0_20,
                    init_conv_)
@@ -127,7 +138,27 @@ def make_norm(kind: str, channels: int, norm_groups: int) -> nn.Module:
 
 
 def apply_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return norm(x.transpose(1, 2)).transpose(1, 2)
+    """``norm`` on [B, T, C] (this rank's channel slice when its
+    parameters are sharded: ``tp.group_norm`` combines the statistics of
+    a group that straddles the shards)."""
+    y = x.transpose(1, 2)
+    y = tp.group_norm(y, norm) if isinstance(norm, nn.GroupNorm) else norm(y)
+    return y.transpose(1, 2)
+
+
+def norm_gathered(norm: nn.Module, x: torch.Tensor,
+                  sliced: bool) -> torch.Tensor:
+    """``norm`` on ``x`` [B, T, C], whose channels are this rank's slice
+    when ``sliced``, with the whole channels out: the norm runs on the
+    slice where its parameters are sharded (a whole ``x`` is cut to it),
+    then the slices are gathered (``tp.gather_from_model``)."""
+    norm_sharded = tp.is_sharded(norm.weight)
+    if sliced and not norm_sharded:
+        x, sliced = tp.gather_from_model(x, 2), False
+    elif norm_sharded and not sliced:
+        x, sliced = tp.scatter_to_model(x, 2), True
+    x = apply_norm(norm, x)
+    return tp.gather_from_model(x, 2) if sliced else x
 
 
 class MaskedConv(nn.Module):
@@ -158,6 +189,43 @@ class MaskedConv(nn.Module):
         self.uses_kernel = (kernel_size > 1 and heads == -1 and not use_bias
                             and groups == features == in_channels)
 
+    @property
+    def out_sharded(self) -> bool:
+        """Whether ``forward`` returns this rank's slice of the output
+        channels (the weight is sharded, ``parallel.tp``): a depthwise
+        conv then runs on the input's slice, any other conv is column-
+        parallel. A heads-folded conv gathers its weight and returns the
+        whole output."""
+        return self.heads == -1 and tp.is_sharded(self.conv.weight)
+
+    def _column(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output channels of the (grouped) conv from the whole
+        input ``x`` [B, T, C]: one conv over the groups the slice covers
+        whole, else one conv a group it touches, on that group's input
+        channels."""
+        sl = tp.shard_slice(self.conv.weight)
+        opg = self.features // self.groups
+        ipg = self.in_channels // self.groups
+        pieces, start = [], sl.start
+        while start < sl.stop:
+            g = start // opg
+            stop = min(sl.stop, (g + 1) * opg)
+            pieces.append((g, start - sl.start, stop - sl.start))
+            start = stop
+        xt = x.transpose(1, 2)
+        w, b = self.conv.weight, self.conv.bias
+        geometry = (self.stride, self.padding, self.dilation)
+        if len(pieces) > 1 and all(hi - lo == opg for _, lo, hi in pieces):
+            g0 = pieces[0][0]
+            y = F.conv1d(xt[:, g0 * ipg:(g0 + len(pieces)) * ipg], w, b,
+                         *geometry, len(pieces))
+        else:
+            y = torch.cat([F.conv1d(
+                xt[:, g * ipg:(g + 1) * ipg], w[lo:hi],
+                None if b is None else b[lo:hi], *geometry, 1)
+                for g, lo, hi in pieces], 1)
+        return y.transpose(1, 2)
+
     def out_length(self, lens: torch.Tensor) -> torch.Tensor:
         return (lens + 2 * self.padding
                 - self.dilation * (self.kernel_size - 1) - 1) / self.stride + 1
@@ -171,16 +239,22 @@ class MaskedConv(nn.Module):
             lens = self.out_length(lens)
         if self.uses_kernel:
             w = self.conv.weight[:, 0, :].t().contiguous()      # [K, C]
+            if self.out_sharded:   # K4 on this rank's channels
+                x = tp.scatter_to_model(x, 2)
             return depthwise_conv1d(x.contiguous(), w, self.stride,
                                     self.dilation, self.padding), lens
+        if self.out_sharded:
+            return self._column(tp.copy_to_model(x)), lens
         B, T, C = x.shape
-        groups = self.groups
+        groups, weight = self.groups, self.conv.weight
         if self.heads != -1:
             # [B, T, C] -> [B * C/heads, T, heads]
             x = x.reshape(B, T, C // self.heads, self.heads).transpose(1, 2)
             x = x.reshape(-1, T, self.heads)
             groups = self.heads
-        y = F.conv1d(x.transpose(1, 2), self.conv.weight, self.conv.bias,
+            # replicated on every model rank, from the whole weight
+            weight = tp.whole_param(weight, partial=False)
+        y = F.conv1d(x.transpose(1, 2), weight, self.conv.bias,
                      self.stride, self.padding, self.dilation,
                      groups).transpose(1, 2)
         if self.heads != -1:
@@ -255,12 +329,21 @@ class JasperBlock(nn.Module):
         self.out = nn.ModuleList([Activation(activation), Dropout(dropout)])
 
     def _unit(self, slots, x, lens):
-        """One repeat's conv(s), norm and GroupShuffle."""
+        """One repeat's conv(s), norm and GroupShuffle. Under tensor
+        parallelism each sharded conv gives this rank's output channels
+        (a conv that feeds another has them gathered first) and the norm
+        gathers them after itself (``norm_gathered``)."""
         convs = [self.mconv[i] for i in slots['convs']]
         if self.fused:
             dw, pw = convs
-            wdw = dw.conv.weight[:, 0, :].t().contiguous()      # [K, Cin]
+            # K6/K7 on the whole x and depthwise weight and this rank's
+            # pointwise columns; the ranks' dwdw are partial sums
+            sliced = pw.out_sharded
+            wdw = tp.whole_param(dw.conv.weight, partial=sliced)
+            wdw = wdw[:, 0, :].t().contiguous()                 # [K, C]
             wpw = pw.conv.weight[:, :, 0].t().contiguous()      # [Cin, Cout]
+            if sliced:
+                x = tp.copy_to_model(x)
             x = sep_conv1d(x.contiguous(), lens if self.conv_mask else None,
                            wdw, wpw, self.dilation, self.pad,
                            use_mask=self.conv_mask)
@@ -269,9 +352,13 @@ class JasperBlock(nn.Module):
                 lens = (lens + 2 * self.pad
                         - self.dilation * (self.kernel - 1) - 1) + 1
         else:
+            sliced = False
             for conv in convs:
+                if sliced:
+                    x = tp.gather_from_model(x, 2)
                 x, lens = conv(x, lens)
-        x = apply_norm(self.mconv[slots['norm']], x)
+                sliced = conv.out_sharded
+        x = norm_gathered(self.mconv[slots['norm']], x, sliced)
         if 'shuffle' in slots:
             x = self.mconv[slots['shuffle']](x)
         return x, lens
@@ -288,7 +375,7 @@ class JasperBlock(nn.Module):
             branches = panes if self.dense_residual else [panes[-1]]
             for (conv, norm), res_in in zip(self.res, branches):
                 r, _ = conv(res_in, lens_orig)
-                r = apply_norm(norm, r)
+                r = norm_gathered(norm, r, conv.out_sharded)
                 x = x + r if self.residual_mode == 'add' else torch.maximum(
                     x, r)
         x = self.out[0](x)

@@ -13,6 +13,12 @@ activation with probability ``1 - rate``, scales it by ``1 / (1 - rate)``,
 and draws from the ``generator`` passed to ``forward`` (``rate == -1``
 disables it). In eval mode both are as in torch.
 
+Under tensor parallelism (``parallel.tp.shard_module``) a block whose
+conv is sharded computes its rank's output channels from the whole
+input, BatchNorm on them, and gathers the channels before dropout (the
+mask of the model=1 run) and the clamp; the 29-label head stays whole on
+every rank.
+
 The public layout is the JAX one, ``[B, T, F]`` in and ``[B, T', L]`` out;
 inside, activations are ``[B, C, T]`` for ``F.conv1d``. Parameter keys are
 the reference torch layout (``conv1ds.conv1d_{i}.conv1.*``,
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp
 from .base import (FlaxBatchNorm1d, dropout, hardtanh_0_20, init_conv_,
                    same_pad_amount)
 
@@ -75,6 +82,11 @@ class Conv1dBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        # tensor parallelism (parallel.tp): a sharded conv is column-
+        # parallel, its Cout slice and BN on it, then the channels gathered
+        sharded = tp.is_sharded(self.conv1.weight)
+        if sharded:
+            x = tp.copy_to_model(x)
         left, right = same_pad_amount(x.shape[-1], self.kernel_size,
                                       self.stride, self.dilation)
         if left or right:
@@ -82,6 +94,8 @@ class Conv1dBlock(nn.Module):
         x = self.conv1(x)
         if self.batch_norm is not None:
             x = self.batch_norm(x)
+        if sharded:
+            x = tp.gather_from_model(x, 1)
         if self.training and self.dropout != -1 and self.dropout > 0:
             x = dropout(x, self.dropout, generator)
         if self.use_activation:

@@ -10,11 +10,17 @@ NovoGrad of the original recipe), per parameter tensor:
 * direction ``d = g / (sqrt(v) + eps)``, plus ``weight_decay * p``, times
   ``1 - beta1`` with ``grad_averaging``;
 * momentum ``m <- beta1 * m + d`` and ``p <- p - lr * m``.
+
+Under tensor parallelism (``parallel/tp.py``) ``||g||^2`` of a sharded
+parameter is summed over its model group (one all-reduce an update), so
+the second moment, replicated, is the whole tensor's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import tp
 
 
 class Novograd(torch.optim.Optimizer):
@@ -43,9 +49,10 @@ class Novograd(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             beta1, beta2 = group['betas']
-            for p in group['params']:
-                if p.grad is None:
-                    continue
+            params = [p for p in group['params'] if p.grad is not None]
+            # a tensor-parallel shard's squares summed over its model group
+            norms = tp.sq_sums([p.grad for p in params], params)
+            for p, norm in zip(params, norms):
                 g = p.grad
                 state = self.state[p]
                 if not state:
@@ -55,7 +62,6 @@ class Novograd(torch.optim.Optimizer):
                     state['max_exp_avg_sq'] = torch.zeros_like(
                         state['exp_avg_sq'])
                 v = state['exp_avg_sq']
-                norm = torch.sum(g * g)
                 # The first step copies the norm (v is still exactly 0).
                 v.copy_(torch.where(v == 0, norm, beta2 * v
                                     + (1 - beta2) * norm))

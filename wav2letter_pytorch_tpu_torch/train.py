@@ -8,6 +8,9 @@
     torchrun --nproc-per-node N -m wav2letter_pytorch_tpu_torch.train \
         ... trainer.mesh.data=N      # data parallel over N GPUs
 
+    torchrun --nproc-per-node N*M -m wav2letter_pytorch_tpu_torch.train \
+        ... trainer.mesh.data=N trainer.mesh.model=M   # and tensor parallel
+
 The counterpart of the JAX package's ``train.py``: dotted ``key=value``
 overrides and group swaps (``config.py``), WAV or FLAC manifests (CSV or
 JSON lines; ``data.cache_audio``, ``data.audio_dtype`` and
@@ -24,6 +27,12 @@ gloo on the CPU) and trains on its rows of each global batch of
 divide by the world size: the same math as the JAX package's
 ``trainer.mesh.data=N`` step. ``trainer.mesh.data`` -1 means the world
 size; another value must equal it.
+
+``trainer.mesh.model=M`` > 1 adds tensor parallelism (``parallel/tp.py``):
+the world is ``data x model`` ranks (data -1 means ``WORLD_SIZE //
+model``), M ranks share each replica's channel shards and its rows of the
+global batch, and the checkpoints keep the model=1 layout. It needs
+torchrun: without a process group it stops rather than train unsharded.
 """
 
 from __future__ import annotations
@@ -69,20 +78,27 @@ def get_data_loaders(labels, data_cfg, seed: int = 0, row_shard=(0, 1)):
     return train, val
 
 
-def data_world(mesh_data) -> int:
-    """The world size ``trainer.mesh.data`` asks for, checked against
-    torchrun's ``WORLD_SIZE`` (1 without torchrun)."""
+def data_world(mesh_data, mesh_model=1) -> int:
+    """The data extent ``trainer.mesh.data`` x ``trainer.mesh.model`` asks
+    for, checked against torchrun's ``WORLD_SIZE`` (1 without
+    torchrun): ``WORLD_SIZE`` must be data x model; data -1 means
+    ``WORLD_SIZE // model``."""
     launched = int(os.environ.get('WORLD_SIZE', '1'))
+    model = int(mesh_model or 1)
     want = int(mesh_data if mesh_data is not None else -1)
-    if want == -1 or want == launched:
-        return launched
-    if 'WORLD_SIZE' not in os.environ:
+    data = launched // model if want == -1 else want
+    if 'WORLD_SIZE' not in os.environ and (want not in (-1, 1)
+                                           or model > 1):
         raise SystemExit(
-            f'trainer.mesh.data={want}: launch one process a device with '
-            f'torchrun --nproc-per-node {want} -m '
-            'wav2letter_pytorch_tpu_torch.train ...')
-    raise SystemExit(f'trainer.mesh.data={want} but torchrun started '
-                     f'WORLD_SIZE={launched} processes')
+            f'trainer.mesh.data={want} trainer.mesh.model={model}: launch '
+            f'one process a device with torchrun --nproc-per-node '
+            f'{max(data, 1) * model} -m wav2letter_pytorch_tpu_torch.train '
+            '...')
+    if data < 1 or data * model != launched:
+        raise SystemExit(f'trainer.mesh.data={want} x trainer.mesh.model='
+                         f'{model} but torchrun started WORLD_SIZE='
+                         f'{launched} processes')
+    return data
 
 
 def main(argv=None) -> int:
@@ -108,15 +124,17 @@ def main(argv=None) -> int:
         print(json.dumps(cfg, indent=2))
         return 0
 
-    world = data_world(cfg['trainer'].get('mesh', {}).get('data'))
+    mesh_cfg = cfg['trainer'].get('mesh', {})
+    model_size = int(mesh_cfg.get('model', 1) or 1)
+    world = data_world(mesh_cfg.get('data'), model_size)
     if 'WORLD_SIZE' in os.environ:
-        dev = parallel.init_distributed(device)
+        dev = parallel.init_distributed(device, model=model_size)
     else:
         dev = resolve_device(device)
     labels = build_labels(cfg['model'])
     seed = int(cfg['trainer'].get('seed', 0))
     train_loader, val_loader = get_data_loaders(
-        labels, cfg['data'], seed, row_shard=(parallel.rank(), world))
+        labels, cfg['data'], seed, row_shard=(parallel.data_rank(), world))
     model = build_model(cfg['model'], len(labels), seed=seed).to(dev)
     frontend = build_frontend(cfg['model'], device=dev)
     steps_per_epoch = len(train_loader)

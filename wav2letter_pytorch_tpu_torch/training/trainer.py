@@ -49,6 +49,21 @@ batch:
 * with more than one rank the signal is agreed: every
   ``trainer.preempt_sync_every`` steps the ranks take the max of their
   flags, so all stop at the same step with one checkpoint.
+
+Tensor parallelism (``trainer.mesh.model`` = m > 1, ``parallel/tp.py``):
+the world is ``world // m`` replicas of m ranks. The model is built whole
+from the seed, as model=1 builds it, and each rank keeps its channel
+shards (``tp.shard_module``); the m ranks of a replica hold the same
+rows and draw alike, so "the ranks" above are the replicas: gradients
+(sharded and replicated leaves alike), row counts, losses and metric sums
+are reduced over the data group only (over the world, each row would
+count m times). The global gradient norm of
+``gradient_clip_val`` and NovoGrad's per-tensor norms add the squares of
+a sharded leaf over the model group and count a replicated leaf once
+(``tp.sq_sums``). Checkpoints gather every sharded leaf (parameters,
+BatchNorm statistics, optimizer moments, accumulated gradients, the last
+reduced over the data group first), so rank 0 writes the model=1 layout
+and any topology restores it (a restore slices).
 """
 
 from __future__ import annotations
@@ -65,7 +80,7 @@ import torch
 
 from ..data.augmentations import build_augment_fn
 from ..ops.ctc_kernel import ctc_loss_kernel
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..runtime import resolve_device
 from .checkpoint import Checkpointer
 from .logging import MetricLogger
@@ -87,11 +102,12 @@ def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
 
 
 def global_mask_sum(batch_mask):
-    """``sum(batch_mask)`` over every rank's rows (None outside a process
-    group: the batch is the whole batch)."""
+    """``sum(batch_mask)`` over every replica's rows (None outside a
+    process group: the batch is the whole batch)."""
     if not mesh.distributed():
         return None
-    return mesh.all_reduce_sum(torch.sum(batch_mask).reshape(1))[0]
+    return mesh.all_reduce_sum(torch.sum(batch_mask).reshape(1),
+                               mesh.data_group())[0]
 
 
 @torch.no_grad()
@@ -126,20 +142,25 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def step_generators(seed: int, step: int, device) -> tuple:
     """(dither, augment, dropout) generators of training step ``step``;
-    with more than one rank, ``RowGenerator``s over the global batch."""
+    with more than one replica, ``RowGenerator``s over the global
+    batch."""
     seeds = np.random.SeedSequence([int(seed), int(step)]).generate_state(3)
     gens = tuple(torch.Generator(device=device).manual_seed(int(s))
                  for s in seeds)
-    if mesh.world() > 1:
-        gens = tuple(mesh.RowGenerator(g, mesh.rank(), mesh.world())
-                     for g in gens)
+    if mesh.data_world() > 1:
+        gens = tuple(mesh.RowGenerator(g, mesh.data_rank(),
+                                       mesh.data_world()) for g in gens)
     return gens
 
 
-def clip_by_global_norm(grads, max_norm: float) -> None:
+def clip_by_global_norm(grads, max_norm: float, params=None) -> None:
     """optax ``clip_by_global_norm``, in place: ``g / ||g|| * max_norm``
-    for every gradient unless the global norm is below ``max_norm``."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    for every gradient unless the global norm is below ``max_norm``.
+    ``params`` (the gradients' parameters) count a tensor-parallel
+    shard's squares over the model group (``tp.sq_sums``)."""
+    sums = (tp.sq_sums(grads, params) if params is not None
+            else [torch.sum(g * g) for g in grads])
+    norm = torch.sqrt(sum(sums))
     trigger = norm < max_norm
     for g in grads:
         g.copy_(torch.where(trigger, g, g / norm * max_norm))
@@ -172,6 +193,15 @@ class Trainer:
                                     or 25), 1)
         self.distributed = mesh.distributed()
         self.is_main = mesh.is_main()
+        model_size = int((tcfg.get('mesh') or {}).get('model', 1) or 1)
+        if model_size != mesh.model_world():
+            raise ValueError(
+                f'trainer.mesh.model={model_size} but the process group '
+                f'has model groups of {mesh.model_world()}: launch with '
+                'torchrun and join with parallel.init_distributed(model='
+                f'{model_size}) (train.py does)')
+        if mesh.model_world() > 1 and not tp.model_spec(self.model):
+            tp.shard_module(self.model)   # built whole, as model=1
         # under a process group the gradients live in one flat buffer,
         # all-reduced once an update
         self._grads = (mesh.FlatGrads(self._params()) if self.distributed
@@ -209,26 +239,47 @@ class Trainer:
     def state_dict(self) -> dict:
         """Everything a resume needs: step, weights and BN statistics,
         optimizer state, and gradients accumulated so far in a cycle
-        (summed over the ranks: under a process group every rank calls
-        this)."""
+        (summed over the replicas: under a process group every rank
+        calls this), in the model=1 layout (tensor-parallel shards
+        gathered)."""
+        params = self._params()
         grads = None
         if self.step % self.accum != 0:
-            grads = [p.grad for p in self._params()]
+            grads = [p.grad for p in params]
             if self.distributed:
                 grads = [None if g is None else g.clone() for g in grads]
-                mesh.all_reduce_flat([g for g in grads if g is not None])
-        return {'step': self.step, 'model': self.model.state_dict(),
-                'optimizer': self.optimizer.state_dict(),
+                mesh.all_reduce_flat([g for g in grads if g is not None],
+                                     mesh.data_group())
+                idx = [i for i, g in enumerate(grads)
+                       if g is not None and tp.is_sharded(params[i])]
+                if idx:
+                    whole = tp.gather_rows([grads[i] for i in idx],
+                                           mesh.model_group())
+                    for i, g in zip(idx, whole):
+                        grads[i] = g
+        model = self.model.state_dict()
+        spec = tp.model_spec(self.model)
+        if spec:
+            model = tp.gather_state(model, spec)
+        return {'step': self.step, 'model': model,
+                'optimizer': tp.gather_optimizer_state(self.optimizer),
                 'grad_accum': grads}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s layout (any topology's); a
+        tensor-parallel rank keeps its shards of it."""
         self.step = int(state['step'])
-        self.model.load_state_dict(state['model'])
-        self.optimizer.load_state_dict(state['optimizer'])
+        spec = tp.model_spec(self.model)
+        self.model.load_state_dict(tp.shard_state(state['model'], spec)
+                                   if spec else state['model'])
+        self.optimizer.load_state_dict(
+            tp.shard_optimizer_state(self.optimizer, state['optimizer']))
         grads = state.get('grad_accum') or [None] * len(self._params())
-        if not self.is_main:   # the summed gradients count once
+        if mesh.data_rank() != 0:   # the summed gradients count once
             grads = [None] * len(grads)
         for p, g in zip(self._params(), grads):
+            if g is not None and tp.is_sharded(p):
+                g = tp.local_shard(g)
             p.grad = None if g is None else g.to(p.device)
         if self._grads is not None:
             self._grads.bind()
@@ -269,19 +320,20 @@ class Trainer:
         ids = torch.argmax(log_probs.detach(), dim=-1).to(torch.int32)
         loss = loss.detach()
         if self.distributed and reduce_loss:
-            loss = mesh.all_reduce_sum(loss.reshape(1))[0]
+            loss = mesh.all_reduce_sum(loss.reshape(1), mesh.data_group())[0]
         return loss, ids, out_lens
 
     def _update(self) -> None:
         if self._grads is not None:
-            self._grads.all_reduce()
-        grads = [p.grad for p in self._params() if p.grad is not None]
+            self._grads.all_reduce(mesh.data_group())
+        params = [p for p in self._params() if p.grad is not None]
+        grads = [p.grad for p in params]
         with torch.no_grad():
             if self.accum > 1:
                 for g in grads:
                     g.div_(self.accum)
             if self.clip:
-                clip_by_global_norm(grads, self.clip)
+                clip_by_global_norm(grads, self.clip, params)
         lr = self.schedule(self.step // self.accum - 1)
         for group in self.optimizer.param_groups:
             group['lr'] = lr
@@ -313,15 +365,15 @@ class Trainer:
         pending.clear()
 
     def _reduce_sums(self, accs: list) -> None:
-        """Sum the accumulators' numerators and denominators over the ranks
-        (float64, one collective)."""
+        """Sum the accumulators' numerators and denominators over the
+        replicas (float64, one collective over the data group)."""
         if not self.distributed:
             return
         keys = [(a, k) for a in accs for k in sorted(a.sums)]
         vec = torch.tensor([v for a, k in keys
                             for v in (a.sums[k], a.denoms[k])],
                            dtype=torch.float64, device=self.device)
-        vec = mesh.all_reduce_sum(vec).tolist()
+        vec = mesh.all_reduce_sum(vec, mesh.data_group()).tolist()
         for i, (a, k) in enumerate(keys):
             a.sums[k], a.denoms[k] = vec[2 * i], vec[2 * i + 1]
 
@@ -360,8 +412,9 @@ class Trainer:
             elif len(train_loader):
                 start_epoch = self.step // len(train_loader)
             train_loader.epoch = start_epoch
-        if self.distributed:
-            mesh.broadcast_module(self.model)
+        if self.distributed:   # each replica's shards from the first's
+            mesh.broadcast_module(self.model, src=mesh.model_rank(),
+                                  group=mesh.data_group())
 
         self._preempt_requested = False
         self.stopped_reason = None
@@ -445,7 +498,8 @@ class Trainer:
                 self._flush_metrics(pending)
         if step % self.log_every == 0 or step == 1:
             if self.distributed:   # the global batch's loss
-                loss = mesh.all_reduce_sum(loss.reshape(1))[0]
+                loss = mesh.all_reduce_sum(loss.reshape(1),
+                                           mesh.data_group())[0]
             value = float(loss)
             if not math.isfinite(value):
                 raise FloatingPointError(f'non-finite training loss at step '
@@ -454,7 +508,8 @@ class Trainer:
                     'learning_rate': self.schedule((step - 1) // self.accum)}
             if self.distributed:
                 utts = int(mesh.all_reduce_sum(torch.tensor(
-                    [utts], dtype=torch.int64, device=self.device))[0])
+                    [utts], dtype=torch.int64, device=self.device),
+                    mesh.data_group())[0])
             if utts:
                 logs['utterances_per_sec'] = utts / max(time.time() - t0,
                                                         1e-9)
@@ -491,7 +546,8 @@ class Trainer:
         if self.distributed:
             self._reduce_sums([acc])
             if losses:
-                losses = list(mesh.all_reduce_sum(torch.cat(losses)))
+                losses = list(mesh.all_reduce_sum(torch.cat(losses),
+                                                  mesh.data_group()))
         losses = [float(v) for v in losses]
         out = {'val_loss': float(np.mean(losses)) if losses else 0.0}
         out.update(acc.ratios())
