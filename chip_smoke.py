@@ -67,17 +67,19 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 15. Decoding, on the runs of phases 7 and 13 (the host library of
    ``csrc/host/`` is built by g++ in phase 2, its time printed): a 3-gram
    ARPA trained by ``ngram_train`` on the corpus transcripts; sharpened
-   random log-probs at the main shape (B=32, T=404, V=29, ragged lengths,
-   k=8) searched by the device beam search on the card and on the CPU, the
-   C++ host search and (4 utterances) the Python DP: equal strings
+   random log-probs of 8 rows and half the frames of the main shape (B=8,
+   T=202, V=29, ragged lengths, k=8) searched by the device beam search on
+   the card and on the CPU, the C++ host search and (1 utterance) the
+   Python DP: equal strings
    LM-free, LM-fused, with hotwords and with both, and the card's n-best
    scores within 1e-5 of the CPU's; ``evaluate.main --model-path
    <Wav2Letter-20 run> --average-last 2 --lm-path ... --word-timings
-   --dump-jsonl`` on the device and on the host beam backend: equal
+   --dump-jsonl`` over the corpus's first 8 utterances on the device
+   and on the host beam backend: equal
    hypotheses (a difference only where the host DP ranks both within
    1e-5), K1 and K2 launched, the loss of the same state restored by hand;
-   QuartzNet's run through the host beam on its probabilities (K4 and K6
-   launched); decode ms a batch under each decoder, evaluate() utt/s under
+   QuartzNet's run through the host beam on its probabilities over the
+   same 8 (K4 and K6 launched); decode ms a B=32 batch under each decoder, evaluate() utt/s under
    each, and the device search's ops a frame.
 16. Serving, on phase 7's Wav2Letter-20 run: ``export_serving.main``
    three times (f32 with corpus CMVN; int8 with CMVN and static
@@ -106,13 +108,14 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    equal) streamed on the card against the CPU; ``evaluate.main``
    streaming on the card (``--artifact``, its records those of
    ``--artifact --offline --offline-norm cmvn`` where the strings are
-   equal; ``--model-path --streaming`` with cumulative and CMVN
+   equal; over the first 4 utterances ``--model-path --streaming`` with
+   cumulative and CMVN
    normalisation and ``--int8``; ``--lookahead-frames`` 96 and the full
    one-sided context), K1 counted and gated around each (one a prime,
    step and finish; one a frontend chunk and a finish for the lookahead
    streamer); the full-context lookahead streamer's interior rows within
    1e-4 of the offline forward; QuartzNet's bounded lookahead (K4 once and
-   K6 76 times a window) on the card against the CPU; ``serve_tcp``'s
+   K6 76 times a window) on the card against the CPU on one utterance; ``serve_tcp``'s
    server with 16 slots and 16 concurrent clients (one s16, one at 8 kHz),
    every FINAL a dedicated session's, the 17th refused BUSY; the times:
    prime, step and finish at B=1, ``StreamMultiplexer.tick`` at 16, 64
@@ -127,7 +130,8 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    buffers; the streamed probabilities against the eval forward (K4 +
    K6) on the clips zero-padded past the lookahead, within 1e-4 of max
    |log p|, greedy strings equal but at near-ties; the streamer on the
-   card against the CPU (f32, int8 weights, int8_full; B=2); ``evaluate
+   card against the CPU (f32, int8 weights, int8_full; one clip);
+   ``evaluate
    --streaming --streaming-norm cmvn`` on the run and ``evaluate
    --artifact`` on the artifact, no offline fallback, the dumps the
    exactness check's strings, K1 and K4 counted and gated around each;
@@ -136,7 +140,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    and int8_full) with launches, busy share and peak memory, and the
    host's time by function.
 19. The data layer: ``make_offline_corpus`` writes a FLAC corpus (64 /
-   16 / 16 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
+   16 / 8 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
    prime window) and 4 utterances each at 8 and 22.05 kHz; (a) every
    file decodes through the C++ decoder to round(audio * 32767) of its
    rendered utterance, the Python decoder gives the same samples on 4
@@ -147,7 +151,8 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    are equal; (d) the 8 and 22.05 kHz manifests resampled in the loader:
    lengths ceil(n * up / down), raw features card vs CPU within 1e-5 of
    max |ref|, K1 once a batch; (e) a W2L-20 MFCC eval
-   step card vs CPU, and an MFCC artifact streamed against its offline
+   step card vs CPU, and an MFCC artifact streamed (2 utterances) against
+   its offline
    forward (1e-4 of max |logp|, K1 once a phase); (f)
    ``full_depth_run.main`` at full width for 2 epochs with the recipe's
    cache_audio, int16 and augment-map overrides: the loss falls, every
@@ -228,12 +233,26 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    train step and in a checkpoint save beside the one process's, the
    step's ms of both ((c)'s ranks run beside (a)'s and (b)'s), K6 and
    K7 a launch with the whole and a model=2 rank's pointwise weight.
-24. One ``{"kernels": [...]}`` line: per kernel its launches on the
+24. Sequence parallelism (``parallel/sp.py``): (a) and (b) of phase 23
+   at ``trainer.mesh.seq=2`` on two ranks sharing the card over gloo
+   (activations sharded over time, every conv fed by a halo exchange;
+   started beside phase 23's ranks, so both
+   phases' step times share the card and the host), against phase 23's
+   one-process runs
+   (the first step's loss, each rank's launches, peak memory and step
+   ms, printed beside the one process's) and against one process forced
+   onto the clamp / ReLU branches the SP ranks recorded (its first
+   update, at phase 23's bars; its last update and loss, resumed from
+   the SP checkpoint before it, within 1e-3 relative distance, the
+   control outside it); K1-K7 against their plain versions (K4-K7 also
+   the float64 oracle) at the SP path's shapes.
+25. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
    and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
    QuartzNet's, K4 also its lookahead and exact streams', K6 its
    lookahead stream's, each kernel's ``mesh_launches`` on phase 22's
-   paths and ``tp_launches`` on phase 23's), max error against the plain
+   paths, ``tp_launches`` on phase 23's and ``sp_launches`` on phase
+   24's), max error against the plain
    version, time, plain time, roofline bound and the time of the nearest
    PyTorch library call (timed here only). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
@@ -313,10 +332,12 @@ from wav2letter_pytorch_tpu_torch.ops.depthwise import \
 from wav2letter_pytorch_tpu_torch.ops.sep_conv import (mask_lengths, sep_bwd,
                                                        sep_bwd_reference,
                                                        sep_fwd,
-                                                       sep_fwd_reference)
+                                                       sep_fwd_reference,
+                                                       shifted_lengths)
 from wav2letter_pytorch_tpu_torch.ops.sep_conv import \
     out_length as sep_out_length
 from wav2letter_pytorch_tpu_torch.optim import constant_lr
+from wav2letter_pytorch_tpu_torch.parallel import sp
 from wav2letter_pytorch_tpu_torch.serving import (
     BoundedLookaheadStreamer, MeshInference, StreamClient, StreamingJasper,
     StreamMultiplexer, StreamingTranscriber, StreamingWav2Letter,
@@ -1976,10 +1997,12 @@ def k7_split_line(parts: dict, ops: dict) -> str:
 
 # ---------------------------------------------------------------- decoding
 
-PEAKY_SHAPE = (32, 404, 29)  # the main path's eval-step output [B, T', V]
+PEAKY_SHAPE = (8, 202, 29)   # 8 rows, half the frames, of the main path's
+#                              eval-step output
 PEAKY_K, PEAKY_ALPHA, PEAKY_BETA = 8, 0.5, 1.0
 HOTWORDS = ['the', 'would', 'people']
-PY_UTTS = 4                  # utterances the float64 Python DP checks
+PY_UTTS = 1                  # utterances the float64 Python DP checks
+DECODE_CLI_UTTS = 8          # the corpus head evaluate.main beam-decodes
 NBEST_RTOL = 1e-5            # n-best log scores, card vs CPU search
 HYP_SCORE_RTOL = 1e-5        # a device/host hypothesis difference must be
 #                              a tie of the host DP's ranked scores
@@ -2154,10 +2177,14 @@ def read_dump(path: str) -> dict:
 def phase_decoding_w2l(manifest: str, run_dir: str, lm_path: str,
                        root: str, card: str) -> dict:
     """evaluate.main --model-path <Wav2Letter-20 run> --average-last 2
-    --lm-path <arpa> --word-timings --dump-jsonl, on the device backend and
+    --lm-path <arpa> --word-timings --dump-jsonl over ``manifest`` (the
+    corpus's first DECODE_CLI_UTTS utterances), on the device backend and
     on the host backend: equal hypotheses (a difference only where the
     host DP ranks the two within HYP_SCORE_RTOL), K1 and K2 launched, and
-    the CLI's loss equal to the same state restored by hand."""
+    the CLI's loss equal to the same state restored by hand. Returns
+    (each backend's (result, evaluate() seconds), that state's (model,
+    frontend, labels))."""
+    n_utts = len(manifest_texts(manifest))
     common = ['--model-path', run_dir, '--test-manifest', manifest,
               '--device', str(DEVICE), '--batch-size', str(BATCH),
               '--average-last', '2', '--lm-path', lm_path, '--word-timings']
@@ -2174,15 +2201,16 @@ def phase_decoding_w2l(manifest: str, run_dir: str, lm_path: str,
               f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
         check(launches['stft_mel_log'] > 0 and launches['ctc_alpha'] > 0
               and 'Averaged last 2 checkpoints (through step 6)' in err
-              and sum(l.startswith('timings  :') for l in lines) == N_UTTS
-              and result['num_utterances'] == N_UTTS,
+              and sum(l.startswith('timings  :') for l in lines) == n_utts
+              and result['num_utterances'] == n_utts,
               f'{backend} backend: K1 and K2 launched, the last 2 '
-              f'checkpoints averaged through step 6, {N_UTTS} timing lines')
+              f'checkpoints averaged through step 6, {n_utts} timing lines')
     dev, host = runs['device'][-1], runs['host'][-1]
-    check(sorted(dev) == sorted(host) and len(dev) == N_UTTS,
-          f'both dumps hold the {N_UTTS} utterances')
+    check(sorted(dev) == sorted(host) and len(dev) == n_utts,
+          f'both dumps hold the {n_utts} utterances')
     diff = [p for p in host if dev[p]['hyp'] != host[p]['hyp']]
-    _, _, labels, outs, hand_loss = run_model_outputs(run_dir, manifest, 2)
+    model, fe, labels, outs, hand_loss = run_model_outputs(run_dir,
+                                                           manifest, 2)
     cli_loss = runs['device'][0]['loss']
     rel = abs(cli_loss - hand_loss) / abs(hand_loss)
     check(rel <= LOSS_SAME_RTOL and runs['host'][0]['loss'] == cli_loss,
@@ -2206,14 +2234,15 @@ def phase_decoding_w2l(manifest: str, run_dir: str, lm_path: str,
               f'{os.path.basename(p)}: the hypotheses differ only by a tie '
               f'(gate {HYP_SCORE_RTOL} relative)')
     words = sum(len(r['hyp'].split()) for r in host.values())
-    print(f'Wav2Letter-20 device vs host backend: {N_UTTS - len(diff)} of '
-          f'{N_UTTS} hypotheses equal ({words} words in all), {len(diff)} '
+    print(f'Wav2Letter-20 device vs host backend: {n_utts - len(diff)} of '
+          f'{n_utts} hypotheses equal ({words} words in all), {len(diff)} '
           'ties')
-    return {b: (runs[b][0], runs[b][4]) for b in runs}
+    return {b: (runs[b][0], runs[b][4]) for b in runs}, (model, fe, labels)
 
 
 def phase_decoding_qn(manifest: str, run_dir: str, card: str):
-    """The probabilities branch: QuartzNet-15x5's run, host beam, no LM."""
+    """The probabilities branch: QuartzNet-15x5's run, host beam, no LM,
+    over ``manifest`` (the corpus's first DECODE_CLI_UTTS utterances)."""
     result, _, err, launches, secs = run_cli(
         ['--model-path', run_dir, '--test-manifest', manifest, '--device',
          str(DEVICE), '--batch-size', str(BATCH), '--beam-search-params',
@@ -2225,7 +2254,7 @@ def phase_decoding_qn(manifest: str, run_dir: str, card: str):
           f'{result["num_utterances"] / secs:.1f} utt/s [{card}]')
     check(launches['depthwise_fwd'] > 0 and launches['sep_fwd'] > 0
           and 'Loaded checkpoint at step 6' in err
-          and result['num_utterances'] == N_UTTS
+          and result['num_utterances'] == len(manifest_texts(manifest))
           and all(math.isfinite(result[k]) for k in ('loss', 'wer', 'cer')),
           'QuartzNet-15x5 beam evaluation: K4 and K6 launched, finite '
           'loss/WER/CER')
@@ -2256,11 +2285,13 @@ def search_launches(fn, frames: int) -> tuple:
     return n, n / frames, busy
 
 
-def phase_decoding_timing(manifest: str, run_dir: str, lm_path: str,
-                          card: str, cli: dict):
+def phase_decoding_timing(manifest: str, restored_model: tuple,
+                          lm_path: str, card: str, cli: dict):
     """Decode time of one Wav2Letter-20 batch (B=32) under each decoder,
-    evaluate() end to end under each, and the device search's launches."""
-    model, fe, labels, _, _ = run_model_outputs(run_dir, manifest, 2)
+    evaluate() end to end under each, and the device search's launches,
+    on the run's --average-last 2 state (``restored_model``: (model,
+    frontend, labels), ``phase_decoding_w2l``'s)."""
+    model, fe, labels = restored_model
     loader = port_eval.make_loader(manifest, BATCH, fe, labels)
     torch.cuda.synchronize()
     batch = port_eval.to_device(next(iter(loader)), DEVICE)
@@ -2744,13 +2775,13 @@ STREAM_Q8_RTOL = 1e-5
 LOOKAHEAD_ATOL = 1e-4
 LOOKAHEAD_UTTS = 3           # utterances concatenated for that check
 # QuartzNet-15x5 bounded lookahead: a small window (128 + 64 + 96 frames)
-# on two utterances; card vs CPU probabilities, float32 both (max |d|).
+# on one utterance; card vs CPU probabilities, float32 both (max |d|).
 QN_LA_LEFT, QN_LA = 128, 96
-QN_LA_UTTS = 2
+QN_LA_UTTS = 1
 QN_LA_ATOL = 1e-3
 # evaluate.main's --model-path streaming modes run on the corpus's first
 # STREAM_CLI_UTTS utterances (--artifact on all, against --offline).
-STREAM_CLI_UTTS = 16
+STREAM_CLI_UTTS = 4
 TICK_SLOTS = (16, 64, 256)
 TICK_ITERS = 10
 TCP_SLOTS = 16
@@ -3444,7 +3475,7 @@ QN_DW_OPS = 77               # depthwise convs a phase: C1, 15 x 5, C2
 # float32 math in other orders (K6 fuses what the stream does as K4 and a
 # product); card vs CPU streams (f32, int8 weights) likewise.
 QN_STREAM_RTOL = 1e-4
-QN_CPU_CLIPS = 2
+QN_CPU_CLIPS = 1
 QN_MUX_STREAMS = 16
 QN_TICK_SLOTS = (16, 64)
 
@@ -3621,7 +3652,7 @@ def phase_qn_stream_exact(art: str, qn_run: str, utts, card: str,
 
 def phase_qn_stream_card_vs_cpu(art: str, utts):
     """(c) StreamingJasper on the card against the same class on the CPU
-    on two clips cut to one length (one B=2 session each): f32 and int8
+    on QN_CPU_CLIPS clips cut to one length (one session each): f32 and int8
     weights within QN_STREAM_RTOL of max |log p|; in every mode the greedy
     strings equal but at near-ties (int8_full: an activation at an int8
     rounding edge may quantize apart, as K1 and the plain DFT differ in
@@ -3657,7 +3688,8 @@ def phase_qn_stream_card_vs_cpu(art: str, utts):
                      f'QuartzNet streaming {weights}, card vs CPU')
         check(weights == 'int8_full' or err <= QN_STREAM_RTOL * scale,
               f'QuartzNet streaming {weights}, card vs CPU, '
-              f'{QN_CPU_CLIPS} clips of {n / 16000:.1f} s (B=2): max |d log '
+              f'{QN_CPU_CLIPS} clips of {n / 16000:.1f} s (B={QN_CPU_CLIPS}): '
+              f'max |d log '
               f'p| {err:.3e} ({err / scale:.1e} of max |log p|'
               + ('' if weights == 'int8_full' else
                  f', gate {QN_STREAM_RTOL}') + f'), argmax agreement '
@@ -3897,7 +3929,7 @@ def phase_streaming_jasper(manifest: str, qn_run: str, root: str,
 # The FLAC corpus of make_offline_corpus (seeds 0 / 1 / 2): train and val
 # as the JAX recipe writes them, the test split at least DATA_TEST_MIN_S
 # long so that streaming evaluation streams past W2L-20's 4.22 s prime.
-DATA_SPLITS = (64, 16, 16)
+DATA_SPLITS = (64, 16, 8)
 DATA_TEST_MIN_S = 4.5
 DATA_BATCH = 16              # the recipe's batch size
 DATA_EPOCHS = 2
@@ -3905,7 +3937,7 @@ DATA_PY_FILES = 4            # files the Python decoder decodes too
 DATA_RATES = (8000, 22050)   # resampled in the loader to 16 kHz
 DATA_RATE_UTTS = 4
 DATA_FEAT_RTOL = 1e-5        # card vs CPU raw features, of max |ref|
-DATA_STREAM_UTTS = 4         # MFCC streams held to the offline forward
+DATA_STREAM_UTTS = 2         # MFCC streams held to the offline forward
 
 
 def data_loader(manifest: str, shuffle=False, prefetch=0, **kw):
@@ -4764,15 +4796,98 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = old
 
 
+# Where the activations whose derivative has a branch sit: Wav2Letter's
+# clamp(0, 20) on [B, C, T], Jasper's activations on [B, T, C] (the time
+# dims along which a seq rank's masks are joined).
+BRANCH_TIME_DIM = {'w2l': 2, 'jasper': 1}
+
+
+@contextlib.contextmanager
+def branch_sites(wrap):
+    """Wav2Letter's clamp and Jasper's ReLU and hardtanh replaced by
+    ``wrap(site, fn)`` while the block runs."""
+    from wav2letter_pytorch_tpu_torch.models import jasper as jmod
+    from wav2letter_pytorch_tpu_torch.models import wav2letter as wmod
+    clamp, acts = wmod.hardtanh_0_20, dict(jmod._ACTIVATIONS)
+    wmod.hardtanh_0_20 = wrap('w2l', clamp)
+    for name in ('relu', 'hardtanh'):
+        jmod._ACTIVATIONS[name] = wrap('jasper', acts[name])
+    try:
+        yield
+    finally:
+        wmod.hardtanh_0_20 = clamp
+        jmod._ACTIVATIONS.update(acts)
+
+
+def branched(step_fn, record=None, force=None, suffix=''):
+    """``Trainer.train_step`` that, at the trainer steps ``record['steps']``
+    lists, writes every branch an activation's backward takes (site, the
+    pass-through mask, in call order) to ``record['path']`` + ``.step{n}``
+    + ``suffix``, and at trainer step ``force['step']`` makes each
+    activation's backward take the branches in ``force['path']``
+    (``BranchClamp``, ``BranchRelu``): a float32 step of one process then
+    takes the branches a run that rounded differently took."""
+    def call(self, *args, **kw):
+        step = self.step
+        if record and step in record['steps']:
+            masks = []
+
+            def wrap(site, fn):
+                def f(x):
+                    masks.append((site, x > 0 if fn is F.relu
+                                  else (x >= 0) & (x <= 20)))
+                    return fn(x)
+                return f
+            with branch_sites(wrap):
+                out = step_fn(self, *args, **kw)
+            torch.save([(site, m.cpu()) for site, m in masks],
+                       f'{record["path"]}.step{step}{suffix}')
+            return out
+        if force and step == force['step']:
+            tape = torch.load(force['path'])
+            given, sites = iter(tape), []
+
+            def wrap(site, fn):
+                def f(x):
+                    site_given, m = next(given)
+                    sites.append(site == site_given)
+                    cls = BranchRelu if fn is F.relu else BranchClamp
+                    return cls.apply(x, m.to(x.device, x.dtype))
+                return f
+            with branch_sites(wrap):
+                out = step_fn(self, *args, **kw)
+            check(len(sites) == len(tape) and all(sites),
+                  f'forced branches at step {step}: each of the '
+                  f'{len(tape)} recorded activations used once, in order, '
+                  f'at its site ({sum(sites)} of {len(sites)} calls)')
+            return out
+        return step_fn(self, *args, **kw)
+    return call
+
+
+def joined_branches(prefix: str, step: int, world: int) -> str:
+    """The seq ranks' records of trainer step ``step`` joined along each
+    site's time dim into one process's record; returns its path."""
+    ranks = [torch.load(f'{prefix}.step{step}.{r}') for r in range(world)]
+    whole = [(parts[0][0], torch.cat([m for _, m in parts],
+                                     BRANCH_TIME_DIM[parts[0][0]]))
+             for parts in zip(*ranks)]
+    path = f'{prefix}.step{step}.whole'
+    torch.save(whole, path)
+    return path
+
+
 def train_worker(spec_path: str) -> int:
-    """A training process of phases 22 and 23 (``chip_smoke.py
+    """A training process of phases 22-24 (``chip_smoke.py
     --train-worker SPEC``, or this process): ``train.main`` on each of
     ``spec['runs']`` in turn, with cuDNN's deterministic algorithms, each
     run's kernel launches written to its ``launches`` file and, for a run
     with a ``memory`` file, the trainer's state bytes (``state_bytes``),
     each train step's ms and the peak memory of a step and of a
     checkpoint save above what was allocated when the run began written
-    there. Under torchrun's environment ``train.main`` joins
+    there; a run's ``record`` / ``force`` records or forces the branches
+    of its activations at some steps (``branched``). Under torchrun's
+    environment ``train.main`` joins
     the group; with ``spec['backend']`` (gloo, for two ranks on one GPU)
     this worker joins it first and records which collectives gloo takes
     on CUDA tensors as they are."""
@@ -4830,6 +4945,10 @@ def train_worker(spec_path: str) -> int:
                 Trainer.fit = kept_fit
                 Trainer.train_step = timed('train_step', 'step_peak')
                 Trainer._save = timed('_save', 'save_peak')
+            if run.get('record') or run.get('force'):
+                Trainer.train_step = branched(
+                    Trainer.train_step, run.get('record'), run.get('force'),
+                    f'.{parallel.rank()}' if parallel.distributed() else '')
             try:
                 rc = rc or port_train.main(run['argv'])
             finally:
@@ -4889,7 +5008,7 @@ def read_ranks(path: str, world: int, here: bool = False) -> list:
 
 def run_workers(root: str, name: str, argvs: list, world: int = 1,
                 backend: str | None = None, here: bool = False,
-                record: bool = False) -> tuple:
+                record: bool = False, branches=None) -> tuple:
     """One ``train_worker`` process under ``torch.distributed.run
     --nproc-per-node 1`` (``world`` 1) running ``train.main`` on each of
     ``argvs``, or (``here``) ``train_worker`` in this process, with no
@@ -4897,7 +5016,8 @@ def run_workers(root: str, name: str, argvs: list, world: int = 1,
     environment (all on ``cuda:0``, over ``backend``). Returns (for each
     run, each rank's (kernel launches, its ``state_bytes`` with step ms
     and peak memory when ``record``, else None), wall seconds, gloo's
-    probe or None)."""
+    probe or None). ``branches``: each run's ``record`` / ``force`` dict
+    (``branched``), or None."""
     spec = os.path.join(root, f'{name}_spec.json')
     counts = [os.path.join(root, f'{name}_launches_{i}.json')
               for i in range(len(argvs))]
@@ -4905,8 +5025,10 @@ def run_workers(root: str, name: str, argvs: list, world: int = 1,
               else None for i in range(len(argvs))]
     probe = os.path.join(root, f'{name}_probe.json')
     with open(spec, 'w') as f:
-        json.dump({'runs': [{'argv': a, 'launches': c, 'memory': m}
-                            for a, c, m in zip(argvs, counts, memory)],
+        json.dump({'runs': [{'argv': a, 'launches': c, 'memory': m, **b}
+                            for a, c, m, b in zip(argvs, counts, memory,
+                                                  branches or [{}] * len(
+                                                      argvs))],
                    'probe': probe, 'backend': backend,
                    'device': str(DEVICE)}, f)
     me = [os.path.abspath(__file__), '--train-worker', spec]
@@ -5393,39 +5515,47 @@ def update_rel(prev_a: dict, a: dict, prev_b: dict, b: dict) -> dict:
 
 def tp_compare(what: str, runs: dict, steps: int, one: tuple, ranks: list,
                counters, card: str, bars_to: int = 1,
-               batch: int = TP_BATCH) -> dict:
-    """The gates of one phase-23 case, the TP run against the one
-    process's: every step's loss; the weights and BN statistics at JAX's
-    TP bars after each of the first ``bars_to`` updates; the first update
-    of each optimizer moment (from the init both share) and the last
-    update of each group of the state (against ``runs['resume']``, one
-    process resumed from the TP run's checkpoint before it) within
-    TP_UPDATE_RTOL, and the control (the TP run without its last update)
-    outside it; each rank's launches of ``counters`` equal to the one
-    process's and its conv weights and their optimizer state at most
-    TP_STATE_SHARE of the one process's. Prints each rank's state bytes
-    and peak memory (a train step's, a checkpoint save's) beside the one
+               batch: int = TP_BATCH, label: str = 'TP',
+               state_share: float | None = TP_STATE_SHARE,
+               first: str = 'one', free_losses: bool = True) -> dict:
+    """The gates of one phase-23 (``label`` TP) or phase-24 (SP) case,
+    the parallel run (``runs['tp']``) against the one process's: every
+    step's loss (``free_losses``; else the first step's and, against
+    ``runs['resume']``, the last's); the weights and BN statistics at
+    JAX's TP bars after each of the first ``bars_to`` updates and the
+    first update of each optimizer moment (from the init both share),
+    against ``runs[first]``; the last update of each group of the state
+    (against ``runs['resume']``, one process resumed from the parallel
+    run's checkpoint before it) within TP_UPDATE_RTOL, and the control
+    (the parallel run without its last update) outside it; each rank's
+    launches of ``counters`` equal to the one process's and, with
+    ``state_share``, its conv weights and their optimizer state at most
+    that share of the one process's. Prints each rank's state bytes and
+    peak memory (a train step's, a checkpoint save's) beside the one
     process's, and the ms of steps 2 on of both (host clock around each
     train step, synchronised). Returns the launches summed over the
     ranks."""
     got, want = run_metrics(runs['tp']), run_metrics(runs['one'])
-    losses = [(want['train_loss'][s], got['train_loss'].get(s))
-              for s in range(1, steps + 1)]
+    refs = ([(s, want) for s in range(1, steps + 1)] if free_losses else
+            [(1, want), (steps, run_metrics(runs['resume']))])
+    losses = [(ref['train_loss'][s], got['train_loss'].get(s))
+              for s, ref in refs]
     loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for w, g in losses)
     check(loss_rel <= TP_LOSS_RTOL,
-          f'{what}: TP on {len(ranks)} ranks over gloo vs one process, '
-          f'{steps} steps: losses {[round(w, 6) for w, _ in losses]}, max '
-          f'rel {loss_rel:.2e} (gate {TP_LOSS_RTOL:g}) [{card}]')
+          f'{what}: {label} on {len(ranks)} ranks over gloo vs one process, '
+          f'steps {[s for s, _ in refs]}: losses '
+          f'{[round(w, 6) for w, _ in losses]}, max rel {loss_rel:.2e} '
+          f'(gate {TP_LOSS_RTOL:g}) [{card}]')
 
-    def updates(label, rel):
+    def updates(name, rel):
         check(all(r <= TP_UPDATE_RTOL for r, _ in rel.values()),
-              f'{what}: {label}, TP against one process, each group within '
-              f'{TP_UPDATE_RTOL:g}: ' + '; '.join(
+              f'{what}: {name}, {label} against one process, each group '
+              f'within {TP_UPDATE_RTOL:g}: ' + '; '.join(
                   f'{g} {r:.3e} (worst tensor {t:.3e}, {k})'
                   for g, (r, (t, k)) in rel.items()))
 
     for s in range(1, bars_to + 1):
-        a, b = restored(runs['tp'], s), restored(runs['one'], s)
+        a, b = restored(runs['tp'], s), restored(runs[first], s)
         check(a['step'] == b['step'] == s
               and a['model'].keys() == b['model'].keys(),
               f'{what}: both runs saved step {s}, the same keys')
@@ -5442,17 +5572,17 @@ def tp_compare(what: str, runs: dict, steps: int, one: tuple, ranks: list,
     start = state_groups(restored(runs['tp'], steps - 1))
     a, b = restored(runs['tp']), restored(runs['resume'])
     check(a['step'] == b['step'] == steps,
-          f'{what}: the TP run and one process resumed from its step '
+          f'{what}: the {label} run and one process resumed from its step '
           f'{steps - 1} saved step {steps}')
     last = state_groups(b)
-    updates(f'update {steps} from the TP run\'s step {steps - 1}',
+    updates(f'update {steps} from the {label} run\'s step {steps - 1}',
             update_rel(start, state_groups(a), start, last))
     control = update_rel(start, start, start, last)
     moving = {g: r for g, (r, _) in control.items()
               if any(float(v.abs().max()) for v in last[g].values())}
     check(all(r > TP_UPDATE_RTOL for r in moving.values()),
-          f'{what}: control, the TP run without its update {steps}, each '
-          f'group outside {TP_UPDATE_RTOL:g}: '
+          f'{what}: control, the {label} run without its update {steps}, '
+          f'each group outside {TP_UPDATE_RTOL:g}: '
           + '; '.join(f'{g} {r:.3e}' for g, r in moving.items()))
     one_counts, one_bytes = one
     names = [fn.__name__ for fn in counters]
@@ -5465,17 +5595,21 @@ def tp_compare(what: str, runs: dict, steps: int, one: tuple, ranks: list,
     for r, (_, nbytes) in enumerate(ranks):
         share = (nbytes['conv_weights_and_state']
                  / one_bytes['conv_weights_and_state'])
-        print(f'{what} rank {r}: {memory_line(nbytes)} [{card}]')
-        check(share <= TP_STATE_SHARE,
-              f'{what} rank {r}: conv weights + their optimizer state '
-              f'{share:.4f} of the one process\'s (gate {TP_STATE_SHARE})')
+        peak = nbytes['step_peak'] / one_bytes['step_peak']
+        print(f'{what} rank {r}: {memory_line(nbytes)}; peak in a step '
+              f'{peak:.3f}x the one process\'s (cuDNN\'s deterministic '
+              f'algorithms) [{card}]')
+        if state_share is not None:
+            check(share <= state_share,
+                  f'{what} rank {r}: conv weights + their optimizer state '
+                  f'{share:.4f} of the one process\'s (gate {state_share})')
     print(f'{what} one process: {memory_line(one_bytes)} [{card}]')
     ms = {'one': one_bytes['step_ms'][1:],
           'tp': [max(r[1]['step_ms'][s] for r in ranks)
                  for s in range(1, steps)]}
     print(f'{what} train step, B={batch}, steps 2-{steps}: one process '
-          f'{", ".join(f"{t:.3f}" for t in ms["one"])} ms, TP over gloo '
-          f'{", ".join(f"{t:.3f}" for t in ms["tp"])} ms (the slowest '
+          f'{", ".join(f"{t:.3f}" for t in ms["one"])} ms, {label} over '
+          f'gloo {", ".join(f"{t:.3f}" for t in ms["tp"])} ms (the slowest '
           f'rank; host clock, synchronised) [{card}]')
     total = {}
     for counts, _ in ranks:
@@ -5512,27 +5646,36 @@ def tp_sep_timing(card: str) -> None:
               f'{half[1]:.4f} ms a launch [{card}]')
 
 
-def phase_tensor_parallel(manifest: str, root: str, card: str) -> dict:
-    """Phase 23: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
-    with trainer.mesh.model=2 on two ranks sharing the card over gloo, (c)
-    Wav2Letter-4 on four ranks, data=2 x model=2, with a gradient clip;
-    each against one process on the same global batch, all with cuDNN's
-    deterministic algorithms and dropout off; (c)'s checkpoint loaded
-    strict into one process and evaluated. Returns each kernel's launches
-    on the TP paths, summed over the ranks."""
-    t0 = time.time()
-    head8 = head_manifest(manifest, root, TP_BATCH)
-    head7 = head_manifest(manifest, root, TP4_UTTS)
+def full_width_cases(head8: str) -> dict:
+    """Phases 23's and 24's full-width cases on the ``head8`` batch:
+    {key: (what, manifest, overrides, steps)}: (a) Wav2Letter-20, (b)
+    QuartzNet-15x2 with NovoGrad, dropout off in both."""
     w2l = [f'model.mid_layers={MID_LAYERS}', *no_dropout([])]
     qn = [*QN, 'optimizer=novograd', *no_dropout(QN)] + [
         f'model.jasper_blocks.{i}.repeat={TP_QN_REPEAT}'
         for i, blk in enumerate(train_config(*QN)['model']['jasper_blocks'])
         if int(blk.get('repeat', 1)) > 1]
+    return {'a': ('(a) Wav2Letter-20', head8, w2l, TP_W2L_STEPS),
+            'b': (f'(b) QuartzNet-15x{TP_QN_REPEAT}', head8, qn,
+                  TP_QN_STEPS)}
+
+
+def phase_tensor_parallel(manifest: str, root: str, card: str) -> tuple:
+    """Phase 23: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
+    with trainer.mesh.model=2 on two ranks sharing the card over gloo, (c)
+    Wav2Letter-4 on four ranks, data=2 x model=2, with a gradient clip;
+    each against one process on the same global batch, all with cuDNN's
+    deterministic algorithms and dropout off; (c)'s checkpoint loaded
+    strict into one process and evaluated. Returns (each kernel's
+    launches on the TP paths, summed over the ranks; for (a) and (b), the
+    one-process run's directory and its (launches, state bytes), which
+    phase 24 holds its runs against)."""
+    t0 = time.time()
+    head8 = head_manifest(manifest, root, TP_BATCH)
+    head7 = head_manifest(manifest, root, TP4_UTTS)
     w2l4 = [f'model.mid_layers={TP4_LAYERS}', *no_dropout([]),
             f'trainer.gradient_clip_val={TP4_CLIP}']
-    cases = {'a': ('(a) Wav2Letter-20', head8, w2l, TP_W2L_STEPS),
-             'b': (f'(b) QuartzNet-15x{TP_QN_REPEAT}', head8, qn,
-                   TP_QN_STEPS),
+    cases = {**full_width_cases(head8),
              'c': (f'(c) Wav2Letter-{TP4_LAYERS}, data=2 x model=2, clip '
                    f'{TP4_CLIP:g}', head7, w2l4, TP4_STEPS)}
     runs = {k: {side: os.path.join(root, f'tp_{k}_{side}')
@@ -5610,7 +5753,217 @@ def phase_tensor_parallel(manifest: str, root: str, card: str) -> dict:
     tp_sep_timing(card)
     print(f'tensor-parallel phase: {time.time() - t0:.1f} s; launches '
           f'{json.dumps(launches)}')
-    return launches
+    return launches, {k: (runs[k]['one'], ones['abc'.index(k)][0])
+                      for k in 'ab'}
+
+
+SP_GRID = ['trainer.mesh.data=1', 'trainer.mesh.seq=2']   # phase 24
+SP_RANKS = 2
+SP_MAIN_MAX = 404            # frames after C1 at the corpus's 808
+
+
+def sp_kernel_checks(card: str) -> dict:
+    """K1-K7 against their plain versions (and K4-K7 against the float64
+    oracle) at the shapes phase 24's seq ranks give them, with phases
+    1-5's gates: K1 on a rank's whole rows (B=TP_BATCH, every seq rank
+    runs the frontend), K2 / K3 on the gathered log-probs, K4 / K5 on
+    QuartzNet's C1 over the second rank's haloed half (stride 2, padding
+    0, zeros past the end), K6 / K7 on each of QuartzNet's unit shapes
+    over the second rank's haloed half (padding 0, the masks' lengths
+    shifted to its ranges). Returns each kernel's max abs error."""
+    errs = {}
+    rng = np.random.default_rng(24)
+    lens = rng.integers(LEN_LO, LEN_HI + 1, size=TP_BATCH)
+    fe, padded, lens_t, nf = k1_inputs(AudioConfig(), TP_BATCH, LEN_HI,
+                                       lens, 24, DEVICE)
+    errs['stft_mel_log'] = k1_compare('SP rank rows', fe, padded, lens_t,
+                                      nf)
+    args = k2_inputs(TP_BATCH, SP_MAIN_MAX, 29, 160, 24, DEVICE, tl_lo=80,
+                     ll_lo=395)
+    errs['ctc_alpha'] = k2_compare('SP gathered log-probs', args)
+    errs['ctc_beta'] = k3_compare('SP gathered log-probs', args)
+    outs = sp.time_partition(SP_MAIN_MAX, SP_RANKS)[-1]
+    B, T, C, K, s, d = DW_MAIN
+    p = get_same_padding(K, s, d)
+    wants, _ = sp.conv_wants(T, SP_RANKS, K, s, d, p, p)
+    lo, hi = wants[-1]
+    shape = (TP_BATCH, hi - lo, C, K, s, d)
+    (x, w, g), _ = dw_inputs(*shape, 124, DEVICE)
+    x[:, T - lo:] = 0.0          # past the sequence: the halo's zeros
+    g = g[:, :outs[1] - outs[0]].contiguous()
+    got = dw_kernel(x, w, g, s, d, 0)
+    plain = dw_plain(x, w, g, s, d, 0)
+    oracle = dw_plain(x.double(), w.double(), g.double(), s, d, 0)
+    torch.cuda.synchronize()
+    r = [rel_err(a, b) for a, b in zip(got, plain)]
+    o = [rel_err(a, b) for a, b in zip(got, oracle)]
+    ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
+    errs['depthwise_fwd'], errs['depthwise_wgrad'] = max(ab[:2]), ab[2]
+    check(max(r) < SEP_DW_RTOL and max(o) < DW_ORACLE_RTOL
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f'K4/K5 SP C1, rank {SP_RANKS - 1}\'s haloed input {shape}, '
+          f'padding 0: y, dx, dw vs plain {r[0]:.2e} {r[1]:.2e} {r[2]:.2e} '
+          f'(gate {SEP_DW_RTOL}); vs float64 oracle {o[0]:.2e} {o[1]:.2e} '
+          f'{o[2]:.2e} (gate {DW_ORACLE_RTOL})')
+    errs['sep_fwd'] = errs['sep_bwd'] = 0.0
+    for i, (_, T, Cin, Cout, K, d) in enumerate(SEP_MAIN):
+        p = get_same_padding(K, 1, d)
+        (lo_o, hi_o) = sp.time_partition(T, SP_RANKS)[-1]
+        (x, wdw, wpw, g), l1, l2, _ = sep_inputs(
+            TP_BATCH, T, Cin, Cout, K, d, 140 + i, DEVICE)
+        # rank 1's haloed input: frames lo_o - p .. hi_o - p + d(K-1)
+        t_in = hi_o - lo_o + d * (K - 1)
+        xh = torch.zeros(TP_BATCH, t_in, Cin, device=DEVICE)
+        a, b = lo_o - p, min(T, hi_o - p + d * (K - 1))
+        xh[:, :b - a] = x[:, a:b]
+        l1, l2 = shifted_lengths(l1, l2, a, t_in, lo_o, hi_o - lo_o)
+        g = g[:, lo_o:hi_o].contiguous()
+        got = (sep_fwd(xh, l1, l2, wdw, wpw, d, 0),
+               *sep_bwd(xh, l1, l2, wdw, wpw, g, d, 0))
+        plain = (sep_fwd_reference(xh, l1, l2, wdw, wpw, d, 0),
+                 *sep_bwd_reference(xh, l1, l2, wdw, wpw, g, d, 0))
+        oracle = sep_plain(xh.double(), l1, l2, wdw.double(), wpw.double(),
+                           g.double(), d, 0)
+        torch.cuda.synchronize()
+        r = [rel_err(a, b) for a, b in zip(got, plain)]
+        o = [rel_err(a, b) for a, b in zip(got, oracle)]
+        ab = [(a - b).abs().max().item() for a, b in zip(got, plain)]
+        errs['sep_fwd'] = max(errs['sep_fwd'], ab[0])
+        errs['sep_bwd'] = max(errs['sep_bwd'], *ab[1:])
+        check(max(r) < SEP_DW_RTOL and max(o) < SEP_ORACLE_RTOL
+              and all(bool(torch.isfinite(t).all()) for t in got),
+              f'K6/K7 SP unit (Cin, Cout, K, d)={(Cin, Cout, K, d)}, rank '
+              f'{SP_RANKS - 1}\'s haloed input {tuple(xh.shape)}, padding 0, '
+              f'shifted masks: y, dx, dwdw, dwpw vs plain '
+              + ' '.join(f'{v:.2e}' for v in r) + f' (gate {SEP_DW_RTOL}); '
+              'vs float64 oracle ' + ' '.join(f'{v:.2e}' for v in o)
+              + f' (gate {SEP_ORACLE_RTOL}) [{card}]')
+    return errs
+
+
+def sp_launch(manifest: str, root: str) -> dict:
+    """Phase 24's SP ranks: (a) and (b) of ``full_width_cases`` at
+    SP_GRID on SP_RANKS ranks sharing the card over gloo, each rank
+    recording its activations' branches at
+    the first and last step (``branched``); under ``root/sp``, so that it
+    can run beside phase 23. Returns what ``phase_sequence_parallel``
+    reads: the cases, the runs' directories, the branch records'
+    prefixes, each run's ranks (``run_workers``), the wall seconds and
+    gloo's probe."""
+    t0 = time.time()
+    root = os.path.join(root, 'sp')
+    os.makedirs(root, exist_ok=True)
+    cases = full_width_cases(head_manifest(manifest, root, TP_BATCH))
+    runs = {k: {side: os.path.join(root, f'sp_{k}_{side}')
+                for side in ('one', 'tp', 'first', 'resume')} for k in cases}
+    tapes = {k: os.path.join(root, f'sp_{k}_branches') for k in cases}
+    ranks, wall, probe = run_workers(
+        root, 'sp2', [sp_argv(cases, runs, k, 'tp') for k in cases],
+        world=SP_RANKS, backend='gloo', record=True,
+        branches=[{'record': {'path': tapes[k], 'steps': [0, steps - 1]}}
+                  for k, (_, _, _, steps) in cases.items()])
+    print(f'[{time.time() - t0:.1f} s] phase 24: (a), (b) on {SP_RANKS} '
+          f'ranks {wall:.1f} s wall')
+    return dict(cases=cases, runs=runs, tapes=tapes, ranks=ranks,
+                wall=wall, probe=probe, root=root)
+
+
+def sp_argv(cases: dict, runs: dict, k: str, side: str) -> list:
+    """``train.main``'s argv for case ``k``'s ``side``: 'tp' the SP run,
+    'one' / 'first' one process (all steps / the first), 'resume' one
+    process resumed from the SP run's checkpoint before its last step."""
+    _, m, over, steps = cases[k]
+    return tp_argv(m, runs[k][side], over + (SP_GRID if side == 'tp'
+                                             else []),
+                   1 if side == 'first' else steps) + (
+        ['--resume'] if side == 'resume' else [])
+
+
+def phase_sequence_parallel(manifest: str, root: str, card: str,
+                            shared: dict | None = None,
+                            launched: dict | None = None) -> tuple:
+    """Phase 24: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
+    with trainer.mesh.seq=2 on two ranks sharing the card over gloo
+    (activations sharded over time, halo-exchanged convs), against one
+    process on the same head8 batch at phase 23's gates: the first step's
+    loss, each rank's launches, peak memory (printed, not a gate) and
+    step ms against phase 23's one-process run (``shared``; None: run
+    here, as ``tools/sp_check.py`` does); the state and the optimizer
+    moments after the first update against one process's first step, and
+    the last update (and its loss) against one process resumed from the
+    SP run's checkpoint before it.
+
+    The SP run rounds differently from one process (each conv over its
+    haloed half, BN statistics combined), and at this depth a float32
+    pre-activation within rounding of a clamp(0, 20) or ReLU kink then
+    takes the other branch now and then; one such unit moves a float32
+    update by ~1 % through BatchNorm (phase 9). So the two one-process
+    steps held to the updates take the SP run's branches, recorded by its
+    ranks at those steps (``branched``), as phase 9 holds the card's step
+    to a float64 step on the card's branches. All run with cuDNN's
+    deterministic algorithms, as phases 22-23 do (with the default ones
+    the comparisons pick up their run-to-run noise: NovoGrad's last
+    second-moment update read 2.4e-4 to 1.2e-3 over six runs), whose
+    workspaces at a rank's halved lengths count in its peak (up to 8.7
+    GB for QuartzNet-15x2 at 404 frames against 0.39 GB with the default
+    algorithms: ``tools/cudnn_workspace.py``; ``tools/sp_memory.py``
+    measures SP's memory with the default ones). Also K1-K7 against
+    their plain versions at the SP path's shapes. Returns (each kernel's
+    launches on the SP runs, summed over the ranks; each kernel's max abs
+    error there)."""
+    t0 = time.time()
+    if launched is None:
+        launched = sp_launch(manifest, root)
+    cases, runs, tapes = (launched[k] for k in ('cases', 'runs', 'tapes'))
+    ranks, probe, root = (launched[k] for k in ('ranks', 'probe', 'root'))
+    torch.cuda.empty_cache()
+    if shared is None:
+        ones, wall, _ = run_workers(root, 'sp_one',
+                                    [sp_argv(cases, runs, k, 'one')
+                                     for k in cases],
+                                    here=True, record=True)
+        shared = {k: (runs[k]['one'], ones[i][0])
+                  for i, k in enumerate(cases)}
+        print(f'[{time.time() - t0:.1f} s] phase 24: the one-process runs '
+              f'{wall:.1f} s wall')
+    for k in cases:
+        runs[k]['one'] = shared[k][0]
+    check(probe is not None and all(v == 'takes CUDA tensors'
+                                    for v in probe.values()),
+          f'gloo on CUDA tensors, the collectives SP uses: {probe}')
+    for k, (_, _, _, steps) in cases.items():   # the resumed runs' start
+        src = os.path.join(runs[k]['tp'], 'checkpoints')
+        dst = os.path.join(runs[k]['resume'], 'checkpoints')
+        os.makedirs(dst)
+        for f in (f'ckpt_{steps - 1}.pt', f'meta_{steps - 1}.json'):
+            os.link(os.path.join(src, f), os.path.join(dst, f))
+    torch.cuda.empty_cache()
+    sides = [(k, side) for side in ('first', 'resume') for k in cases]
+    _, wall, _ = run_workers(
+        root, 'sp_forced', [sp_argv(cases, runs, k, side)
+                            for k, side in sides], here=True,
+        branches=[{'force': {
+            'path': joined_branches(tapes[k], step, SP_RANKS), 'step': step}}
+            for k, side in sides
+            for step in [0 if side == 'first' else cases[k][3] - 1]])
+    print(f'[{time.time() - t0:.1f} s] phase 24: one process on the SP '
+          f'runs\' branches, a first step and a step resumed from the SP '
+          f'checkpoints, {wall:.1f} s wall')
+    launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
+    for i, (k, (what, _, _, steps)) in enumerate(cases.items()):
+        counters = TRAIN_COUNTERS if k == 'b' else TRAIN_COUNTERS[:3]
+        got = tp_compare(f'{what}, seq={SP_RANKS}', runs[k], steps,
+                         shared[k][1], ranks[i], counters, card,
+                         label='SP', state_share=None, first='first',
+                         free_losses=False)
+        for name, n in got.items():
+            launches[name] += n
+    for name, n in launches.items():
+        check(n > 0, f'phase 24: {name} launched on the SP runs ({n})')
+    errs = sp_kernel_checks(card)
+    print(f'sequence-parallel phase: {time.time() - t0:.1f} s; launches '
+          f'{json.dumps(launches)}')
+    return launches, errs
 
 
 def serving_t_out(layers, T: int) -> list:
@@ -5698,9 +6051,12 @@ def main() -> int:
         # Decoding: the training phases' runs, beam search and an LM
         lm_path = phase_lm(manifest, root)
         phase_decoding_peaky(lm_path)
-        cli = phase_decoding_w2l(manifest, w2l_run, lm_path, root, card)
-        phase_decoding_qn(manifest, qn_run, card)
-        phase_decoding_timing(manifest, w2l_run, lm_path, card, cli)
+        head = head_manifest(manifest, root, DECODE_CLI_UTTS)
+        cli, w2l_avg2 = phase_decoding_w2l(head, w2l_run, lm_path, root,
+                                           card)
+        phase_decoding_qn(head, qn_run, card)
+        phase_decoding_timing(manifest, w2l_avg2, lm_path, card, cli)
+        del w2l_avg2
         lap('phase 15: decoding')
         # Serving: artifacts of the Wav2Letter-20 run
         serve_k1, arts = phase_serving(manifest, w2l_run, lm_path, root,
@@ -5724,9 +6080,16 @@ def main() -> int:
         # Data parallelism: torchrun at world 1, two ranks, mesh serving
         mesh_launches = phase_data_parallel(manifest, arts, root, card)
         lap('phase 22: data parallelism')
-        # Tensor parallelism: 2 and 4 ranks sharing the card over gloo
-        tp_launches = phase_tensor_parallel(manifest, root, card)
-        lap('phase 23: tensor parallelism')
+        # Tensor parallelism: 2 and 4 ranks sharing the card over gloo;
+        # beside them phase 24's two sequence-parallel ranks, held after it
+        # against phase 23's one-process runs
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            sp_ranks = pool.submit(sp_launch, manifest, root)
+            tp_launches, shared = phase_tensor_parallel(manifest, root, card)
+            lap('phase 23: tensor parallelism (phase 24\'s ranks beside)')
+            sp_launches, sp_errs = phase_sequence_parallel(
+                manifest, root, card, shared, sp_ranks.result())
+        lap('phase 24: sequence parallelism')
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -5771,9 +6134,12 @@ def main() -> int:
     kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                     qn_stream['k4_err'])
     kernels[5]['streaming_launches'] = stream['qn']['sep_fwd']
-    for entry in kernels:       # phases 22's and 23's parallel paths
+    for entry in kernels:       # phases 22's, 23's and 24's parallel paths
         entry['mesh_launches'] = mesh_launches[entry['name']]
         entry['tp_launches'] = tp_launches[entry['name']]
+        entry['sp_launches'] = sp_launches[entry['name']]
+        entry['max_abs_err'] = max(entry['max_abs_err'],
+                                   sp_errs[entry['name']])
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

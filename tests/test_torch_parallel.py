@@ -306,19 +306,17 @@ def test_make_mesh_and_shard_rows():
         parallel.make_mesh(n + 1)
 
 
-@pytest.mark.parametrize('override,match', [
-    ('trainer.mesh.seq=2', 'mesh.seq'),
-])
-def test_tensor_and_sequence_parallelism_refused(override, match):
-    """Sequence parallelism is still refused, naming the later slice
-    (tensor parallelism is taken: the next test)."""
-    with pytest.raises(ValueError, match=match) as e:
-        load_config(['data.train_manifest=x', 'data.val_manifest=y',
-                     override])
-    assert 'later slice' in str(e.value)
-    axis = override.split('.')[2].split('=')[0]
-    with pytest.raises(ValueError, match=f'mesh {axis}=2'):
-        parallel.make_mesh(2, device='cpu', **{axis: 2})
+def test_sequence_parallelism_taken():
+    """``trainer.mesh.seq=2`` loads, and ``make_mesh(2, seq=2)`` is JAX's
+    2 x 2 data x seq grid (tests/test_torch_seq_parallel.py trains on
+    it)."""
+    cfg = load_config(['data.train_manifest=x', 'data.val_manifest=y',
+                       'trainer.mesh.seq=2'])
+    assert cfg['trainer']['mesh']['seq'] == 2
+    mesh = parallel.make_mesh(2, seq=2, device='cpu')
+    theirs = jax_make_mesh(2, seq=2)
+    assert mesh.axis_names == theirs.axis_names == ('data', 'seq')
+    assert tuple(mesh.shape.values()) == theirs.devices.shape == (2, 2)
 
 
 def test_tensor_parallelism_taken():

@@ -347,8 +347,9 @@ def test_make_mesh_2d_is_jax_grid():
     assert str(e.value) == str(f.value)
     assert parallel.make_mesh(device='cpu', model=2).shape == \
         {'data': 1, 'model': 2}
-    with pytest.raises(ValueError, match='later slice'):
-        parallel.make_mesh(2, seq=2, device='cpu')
+    grid = parallel.make_mesh(2, model=2, seq=2, device='cpu')
+    assert grid.shape == {'data': 2, 'model': 2, 'seq': 2}
+    assert grid.axis_names == jax_make_mesh(2, model=2, seq=2).axis_names
 
 
 @pytest.mark.parametrize('torch_shape,flax_shape,dtype', [

@@ -246,7 +246,6 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize('override,match', [
     ('trainer.steps_per_dispatch=2', 'steps_per_dispatch'),
     ('trainer.device_cache=true', 'device_cache'),
-    ('trainer.mesh.seq=2', 'mesh.seq'),
     ('model.compute_dtype=bf16', 'compute_dtype'),
     ('model.padding_mode=zeros', 'padding_mode'),
     ('model=conformer', 'No config'),

@@ -8,7 +8,7 @@ environment, set by hand) and holds what they write under the spec's
 ``out`` directory against one process and the JAX package. The spec
 lists scenarios, run in order in one process group; each names its
 ``model`` extent, and the world is laid out anew as ``4 // model`` data
-rows of ``model`` ranks (``parallel.set_model_parallel``) before it:
+rows of ``model`` ranks (``parallel.set_grid``) before it:
 
 * ``steps``: ``Trainer.train_step`` ``steps`` times (SGD, momentum 0.9,
   lr 1e-3, from the weights in ``init``) on this replica's rows of the
@@ -117,7 +117,7 @@ def main(spec_path):
     parallel.init_distributed('cpu')
     rank = parallel.rank()
     for case in spec['cases']:
-        parallel.set_model_parallel(int(case.get('model', 1)))
+        parallel.set_grid(int(case.get('model', 1)))
         RUNNERS[case['kind']](case, rank, spec['out'])
         parallel.barrier()
     dist.destroy_process_group()

@@ -39,7 +39,7 @@ def main() -> int:
     cs.phase_build()
     with tempfile.TemporaryDirectory() as root:
         manifest, _ = cs.write_corpus(root)
-        launches = cs.phase_tensor_parallel(manifest, root, card)
+        launches, _ = cs.phase_tensor_parallel(manifest, root, card)
     print(json.dumps({'tp_launches': launches}))
     print(f'total {time.time() - t0:.1f} s [{card}]')
     return 0

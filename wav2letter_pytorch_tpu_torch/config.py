@@ -155,14 +155,13 @@ DEFAULT_GROUPS = {'audio': 'standard_16k', 'optimizer': 'exp_lr_optimizer',
 
 # Keys the port does not act on, with the only value it accepts: the TPU
 # package's dispatch, device-cache, host-memory, PRNG and kernel-selection
-# knobs, sequence parallelism, and features not ported (yet).
+# knobs, and features not ported (yet).
 UNSUPPORTED = {
     'trainer.steps_per_dispatch': 1,
     'trainer.device_cache': False,
     'trainer.host_rss_budget_gb': None,
     'trainer.prng_impl': 'rbg',
     'trainer.ctc_impl': 'auto',
-    'trainer.mesh.seq': 1,
     'model.stft_method': 'auto',
     'model.padding_mode': 'reflect',
     'model.compute_dtype': 'f32',
@@ -426,11 +425,8 @@ def check_supported(cfg: dict) -> None:
         except KeyError:
             continue
         if value != default:
-            later = (' (sequence parallelism comes in a later slice, '
-                     'ROADMAP A.9)' if key.startswith('trainer.mesh.')
-                     else '')
             raise ValueError(f'{key}={value!r} is not supported by the '
-                             f'PyTorch port (only {default!r}){later}')
+                             f'PyTorch port (only {default!r})')
     for key, choices in CHOICES.items():
         try:
             value = get_path(cfg, key)

@@ -10,7 +10,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_gather, data_group, data_world, draw_rows
+from ..parallel import sp
+from ..parallel.mesh import (all_reduce_sum, chan_combine, draw_rows,
+                             replica_group, replica_world)
 
 
 def hardtanh_0_20(x: torch.Tensor) -> torch.Tensor:
@@ -21,7 +23,8 @@ def hardtanh_0_20(x: torch.Tensor) -> torch.Tensor:
 def same_pad_amount(t_in: int, kernel: int, stride: int,
                     dilation: int) -> tuple[int, int]:
     """SAME padding (left, right) for a 1-D conv over a length-``t_in``
-    axis: ceil(t_in / stride) output frames, the odd sample on the right."""
+    axis: ceil(t_in / stride) output frames, the odd sample on the right.
+    Under sequence parallelism ``t_in`` is the global length."""
     out_t = (t_in + stride - 1) // stride
     pad = max(0, (out_t - 1) * stride + (kernel - 1) * dilation + 1 - t_in)
     return pad // 2, pad - pad // 2
@@ -75,26 +78,49 @@ def init_conv_(weight: torch.Tensor, mode: str = 'xavier_uniform',
                                      generator=generator)
 
 
-def global_batch_stats(x: torch.Tensor):
-    """(mean, biased variance) per channel of ``x`` [B_r, C, T] over every
-    replica's B_r x T, differentiably: each rank's (count, mean, M2) are
-    gathered over the data group and combined with Chan's parallel
-    formula (not E[x^2] - mean^2, which loses digits when |mean| >>
-    std). Under tensor parallelism ``x`` is this rank's channel slice and
-    the ranks of the data group hold the same slice."""
-    count = torch.full((1,), float(x.shape[0] * x.shape[2]),
-                       dtype=x.dtype, device=x.device)
-    mean = x.mean(dim=(0, 2))
-    m2 = ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2))
-    parts = all_gather(torch.cat([count, mean, m2]),
-                       data_group())   # [W, 1 + 2C]
-    C = x.shape[1]
-    n = parts[:, :1].detach()
-    means, m2s = parts[:, 1:C + 1], parts[:, C + 1:]
-    total = n.sum()
-    g_mean = (n * means).sum(0) / total
-    g_m2 = m2s.sum(0) + (n * (means - g_mean) ** 2).sum(0)
-    return g_mean, g_m2 / total
+class CrossReplicaBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of ``x`` [B_r, C, T_r] with the statistics of
+    every rank of ``group``'s B_r x T_r: each rank's (count, mean, M2)
+    combined with Chan's formula (``chan_combine``; not E[x^2] - mean^2,
+    which loses digits when |mean| >> std). Returns (y, mean, biased
+    variance). Under tensor parallelism ``x`` is this rank's channel
+    slice and the group's ranks hold the same slice; under sequence
+    parallelism ``x`` is this rank's range of frames (the ranks' counts
+    may differ).
+
+    The backward is BatchNorm's closed form over the global batch: the
+    per-channel sums of dy and dy * xhat are summed over the group and
+    dx = w * invstd * (dy - mean(dy) - xhat * mean(dy * xhat)); the
+    weight and bias get this rank's share (the trainer sums gradients
+    over the group). So only the input and the statistics are kept for
+    it: an autograd graph through the statistics would keep several
+    activation-sized tensors a layer."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, group):
+        n = torch.full_like(x[0, :, 0], float(x.shape[0] * x.shape[2]))
+        mean = x.mean(dim=(0, 2))
+        m2 = ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2))
+        total, mean, m2 = chan_combine(n, mean, m2, group)
+        var = m2 / total
+        invstd = torch.rsqrt(var + eps)
+        ctx.group = group
+        ctx.save_for_backward(x, weight, mean, invstd, total)
+        ctx.mark_non_differentiable(mean, var)
+        y = ((x - mean[None, :, None]) * (invstd * weight)[None, :, None]
+             + bias[None, :, None])
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _, __):
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        xhat = (x - mean[None, :, None]) * invstd[None, :, None]
+        local = torch.stack([dy.sum(dim=(0, 2)),
+                             (dy * xhat).sum(dim=(0, 2))])     # [2, C]
+        sums = all_reduce_sum(local.clone(), ctx.group) / total
+        dx = (weight * invstd)[None, :, None] * (
+            dy - sums[0][None, :, None] - xhat * sums[1][None, :, None])
+        return dx, local[1], local[0], None, None
 
 
 class FlaxBatchNorm1d(nn.BatchNorm1d):
@@ -103,21 +129,21 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     the one it normalises with, goes into ``running_var``. With
     ``freeze_stats`` set (``frozen_statistics``) they stay as they are.
 
-    Under a process group of more than one replica, train mode
-    normalises with the statistics of the global batch
-    (``global_batch_stats``, over the data group), as the JAX package's
-    global-batch step does: every replica then holds the same running
-    statistics, those of one process on the whole batch. Under tensor
-    parallelism the weight, bias and running statistics are this rank's
-    channel slice (``parallel.tp``) and so is the input: BatchNorm is
-    per channel, so the model ranks need no collective."""
+    Under a process group whose replica group has more than one rank
+    (several replicas, or time slices of one), train mode normalises with
+    the statistics of the global batch (``CrossReplicaBatchNorm``), as the
+    JAX package's global-batch step does: every rank then holds the same
+    running statistics, those of one process on the whole batch. Under
+    tensor parallelism the weight, bias and running statistics are this
+    rank's channel slice (``parallel.tp``) and so is the input: BatchNorm
+    is per channel, so the model ranks need no collective."""
 
     freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if data_world() > 1:
+        if replica_world() > 1:
             return self._cross_replica(x)
         if not self.freeze_stats:
             with torch.no_grad():
@@ -130,15 +156,14 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
                             self.eps)
 
     def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = global_batch_stats(x)
+        y, mean, var = CrossReplicaBatchNorm.apply(
+            x, self.weight, self.bias, self.eps, replica_group())
         if not self.freeze_stats:
             with torch.no_grad():
-                self.running_mean.lerp_(mean.detach(), self.momentum)
-                self.running_var.lerp_(var.detach(), self.momentum)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked.add_(1)
-        y = (x - mean[None, :, None]) * torch.rsqrt(var + self.eps)[None, :,
-                                                                   None]
-        return y * self.weight[None, :, None] + self.bias[None, :, None]
+        return y
 
 
 @contextlib.contextmanager
@@ -157,12 +182,23 @@ def frozen_statistics(module: nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, time_dim: int = 1,
+            seq_len: int | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
     the kept values by ``1 / (1 - rate)``; the mask is drawn from
     ``generator`` (torch's default generator when None; a
-    ``RowGenerator``'s draw is this rank's rows of the global batch's)."""
+    ``RowGenerator``'s draw is this rank's rows of the global batch's).
+    With ``seq_len``, ``x`` is this rank's range of ``seq_len`` frames
+    along ``time_dim`` (sequence parallelism): the mask is drawn for every
+    frame and this rank keeps its range, the draws of one process."""
     keep = 1.0 - rate
-    mask = draw_rows(torch.rand, x.shape, generator, device=x.device) < keep
+    shape = list(x.shape)
+    if seq_len is not None:
+        shape[time_dim] = int(seq_len)
+    mask = draw_rows(torch.rand, tuple(shape), generator,
+                     device=x.device) < keep
+    if seq_len is not None:
+        lo, hi = sp.local_range(seq_len)
+        mask = mask.narrow(time_dim, lo, hi - lo)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))

@@ -44,6 +44,22 @@ after it, before GroupShuffle, the residual add, act and dropout (the
 model=1 draws). Remat re-runs the gathers, in the same order on every
 rank.
 
+Under sequence parallelism (``parallel.sp``) ``forward`` takes
+``seq_len``, the global length of the features of which ``x`` holds
+this rank's range. Masks compare global frame indices with the lengths,
+which stay global; a conv that reads other frames (kernel > 1 or a
+stride) computes this rank's range of its output from the input frames
+it reads (``sp.conv_input``, zeros outside the sequence) with padding 0:
+K4 / K5 for a depthwise conv (QuartzNet's strided C1), K6 / K7 for the
+fused unit with ``len1`` / ``len2`` shifted to the haloed input's and the
+output's first global frame, ``F.conv1d`` otherwise. 1x1 convs (the
+residual branches among them), act, GroupShuffle and the dropout masks
+(drawn for every frame, this rank's range kept) run on the rank's
+range; BatchNorm takes its statistics over every rank's frames
+(``FlaxBatchNorm1d``) and group, instance and layer norm theirs
+(``tp.group_norm``). The output is this rank's range of
+``out_time(seq_len)`` frames; the lengths stay global.
+
 Layout ``[B, T, C]`` throughout, as in JAX. Parameter keys are the
 reference torch layout: ``jasper_encoder.{b}.mconv.{i}.conv.weight``, the
 norm at its ``mconv`` index, parameter-less slots for act + dropout after
@@ -63,7 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.depthwise import depthwise_conv1d
 from ..ops.sep_conv import sep_conv1d
-from ..parallel import tp
+from ..parallel import sp, tp
 from .base import (FlaxBatchNorm1d, compute_new_kernel_size, dropout,
                    frozen_statistics, get_same_padding, hardtanh_0_20,
                    init_conv_)
@@ -106,10 +122,11 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                seq_len: int | None = None):
         if not self.training or self.rate == 0.0:
             return x
-        return dropout(x, self.rate, generator)
+        return dropout(x, self.rate, generator, 1, seq_len)
 
 
 class GroupShuffle(nn.Module):
@@ -198,7 +215,7 @@ class MaskedConv(nn.Module):
         whole output."""
         return self.heads == -1 and tp.is_sharded(self.conv.weight)
 
-    def _column(self, x: torch.Tensor) -> torch.Tensor:
+    def _column(self, x: torch.Tensor, padding: int) -> torch.Tensor:
         """This rank's output channels of the (grouped) conv from the whole
         input ``x`` [B, T, C]: one conv over the groups the slice covers
         whole, else one conv a group it touches, on that group's input
@@ -214,7 +231,7 @@ class MaskedConv(nn.Module):
             start = stop
         xt = x.transpose(1, 2)
         w, b = self.conv.weight, self.conv.bias
-        geometry = (self.stride, self.padding, self.dilation)
+        geometry = (self.stride, padding, self.dilation)
         if len(pieces) > 1 and all(hi - lo == opg for _, lo, hi in pieces):
             g0 = pieces[0][0]
             y = F.conv1d(xt[:, g0 * ipg:(g0 + len(pieces)) * ipg], w, b,
@@ -230,21 +247,35 @@ class MaskedConv(nn.Module):
         return (lens + 2 * self.padding
                 - self.dilation * (self.kernel_size - 1) - 1) / self.stride + 1
 
-    def forward(self, x: torch.Tensor, lens):
+    def out_time(self, t_in: int) -> int:
+        """Output frames at ``t_in`` input frames."""
+        span = self.dilation * (self.kernel_size - 1) + 1
+        return (int(t_in) + 2 * self.padding - span) // self.stride + 1
+
+    def forward(self, x: torch.Tensor, lens, seq_len: int | None = None):
+        """(y, new lengths); with ``seq_len``, ``x`` and ``y`` are this
+        rank's ranges of ``seq_len`` and ``out_time(seq_len)`` frames."""
         if self.use_mask and lens is not None:
             T = x.shape[1]
-            mask = (torch.arange(T, device=x.device)[None, :]
+            start = 0 if seq_len is None else sp.local_range(seq_len)[0]
+            mask = (torch.arange(start, start + T, device=x.device)[None, :]
                     < lens.to(torch.int32)[:, None])
             x = x * mask[:, :, None].to(x.dtype)
             lens = self.out_length(lens)
+        pad = self.padding
+        if seq_len is not None and (self.kernel_size > 1 or self.stride > 1
+                                    or pad):
+            x, _ = sp.conv_input(x, 1, seq_len, self.kernel_size,
+                                 self.stride, self.dilation, pad, pad)
+            pad = 0
         if self.uses_kernel:
             w = self.conv.weight[:, 0, :].t().contiguous()      # [K, C]
             if self.out_sharded:   # K4 on this rank's channels
                 x = tp.scatter_to_model(x, 2)
             return depthwise_conv1d(x.contiguous(), w, self.stride,
-                                    self.dilation, self.padding), lens
+                                    self.dilation, pad), lens
         if self.out_sharded:
-            return self._column(tp.copy_to_model(x)), lens
+            return self._column(tp.copy_to_model(x), pad), lens
         B, T, C = x.shape
         groups, weight = self.groups, self.conv.weight
         if self.heads != -1:
@@ -255,7 +286,7 @@ class MaskedConv(nn.Module):
             # replicated on every model rank, from the whole weight
             weight = tp.whole_param(weight, partial=False)
         y = F.conv1d(x.transpose(1, 2), weight, self.conv.bias,
-                     self.stride, self.padding, self.dilation,
+                     self.stride, pad, self.dilation,
                      groups).transpose(1, 2)
         if self.heads != -1:
             T2 = y.shape[1]
@@ -328,11 +359,20 @@ class JasperBlock(nn.Module):
         self.res = nn.ModuleList(res)
         self.out = nn.ModuleList([Activation(activation), Dropout(dropout)])
 
-    def _unit(self, slots, x, lens):
+    def out_time(self, t_in: int) -> int:
+        """Output frames at ``t_in`` input frames."""
+        for slots in self.layout:
+            for i in slots['convs']:
+                t_in = self.mconv[i].out_time(t_in)
+        return t_in
+
+    def _unit(self, slots, x, lens, seq_len):
         """One repeat's conv(s), norm and GroupShuffle. Under tensor
         parallelism each sharded conv gives this rank's output channels
         (a conv that feeds another has them gathered first) and the norm
-        gathers them after itself (``norm_gathered``)."""
+        gathers them after itself (``norm_gathered``). Under sequence
+        parallelism ``x`` is this rank's range of ``seq_len`` frames;
+        returns the output's global length with it."""
         convs = [self.mconv[i] for i in slots['convs']]
         if self.fused:
             dw, pw = convs
@@ -342,11 +382,19 @@ class JasperBlock(nn.Module):
             wdw = tp.whole_param(dw.conv.weight, partial=sliced)
             wdw = wdw[:, 0, :].t().contiguous()                 # [K, C]
             wpw = pw.conv.weight[:, :, 0].t().contiguous()      # [Cin, Cout]
+            shift = None
+            if seq_len is not None:
+                # this rank's output range from the haloed input, unpadded;
+                # the masks' lengths shifted to the two ranges' first frames
+                in_lo = sp.local_range(seq_len)[0] - self.pad
+                x, seq_len = sp.conv_input(x, 1, seq_len, self.kernel, 1,
+                                           self.dilation, self.pad, self.pad)
+                shift = (in_lo, sp.local_range(seq_len)[0])
             if sliced:
                 x = tp.copy_to_model(x)
             x = sep_conv1d(x.contiguous(), lens if self.conv_mask else None,
                            wdw, wpw, self.dilation, self.pad,
-                           use_mask=self.conv_mask)
+                           use_mask=self.conv_mask, shift=shift)
             if self.conv_mask and lens is not None:
                 # the two MaskedConv updates (depthwise, then 1x1 pointwise)
                 lens = (lens + 2 * self.pad
@@ -356,30 +404,33 @@ class JasperBlock(nn.Module):
             for conv in convs:
                 if sliced:
                     x = tp.gather_from_model(x, 2)
-                x, lens = conv(x, lens)
+                x, lens = conv(x, lens, seq_len)
+                if seq_len is not None:
+                    seq_len = conv.out_time(seq_len)
                 sliced = conv.out_sharded
         x = norm_gathered(self.mconv[slots['norm']], x, sliced)
         if 'shuffle' in slots:
             x = self.mconv[slots['shuffle']](x)
-        return x, lens
+        return x, lens, seq_len
 
-    def forward(self, panes, lens, generator: torch.Generator | None = None):
+    def forward(self, panes, lens, generator: torch.Generator | None = None,
+                seq_len: int | None = None):
         x = panes[-1]
-        lens_orig = lens
+        lens_orig, len_orig = lens, seq_len
         for slots in self.layout:
-            x, lens = self._unit(slots, x, lens)
+            x, lens, seq_len = self._unit(slots, x, lens, seq_len)
             if 'act' in slots:
                 x = self.mconv[slots['act']](x)
-                x = self.mconv[slots['act'] + 1](x, generator)
+                x = self.mconv[slots['act'] + 1](x, generator, seq_len)
         if self.residual:
             branches = panes if self.dense_residual else [panes[-1]]
             for (conv, norm), res_in in zip(self.res, branches):
-                r, _ = conv(res_in, lens_orig)
+                r, _ = conv(res_in, lens_orig, len_orig)
                 r = norm_gathered(norm, r, conv.out_sharded)
                 x = x + r if self.residual_mode == 'add' else torch.maximum(
                     x, r)
         x = self.out[0](x)
-        return self.out[1](x, generator), lens
+        return self.out[1](x, generator, seq_len), lens
 
 
 class Jasper(nn.Module):
@@ -440,29 +491,42 @@ class Jasper(nn.Module):
             nn.init.zeros_(self.final_layer[0].bias)
         self.to(device)
 
-    def _run_block(self, block, panes, lens, generator):
+    def out_time(self, t_in: int) -> int:
+        """Output frames at ``t_in`` feature frames."""
+        for block in self.jasper_encoder:
+            t_in = block.out_time(t_in)
+        return t_in
+
+    def _run_block(self, block, panes, lens, generator, seq_len):
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return block(panes, lens, generator)
+            return block(panes, lens, generator, seq_len)
         state = None if generator is None else generator.get_state()
 
         def run(panes, lens):
             # In the recomputation, replay the block's dropout draws.
             if state is not None:
                 generator.set_state(state)
-            return block(panes, lens, generator)
+            return block(panes, lens, generator, seq_len)
         return checkpoint(run, panes, lens, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               frozen_statistics(block)))
 
     def forward(self, x: torch.Tensor, input_lengths=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                seq_len: int | None = None):
         """x: [B, T, F] features. Returns (log_probs in train mode, probs in
-        eval mode, [B, T', L]; out_lengths [B] int32 or None)."""
+        eval mode, [B, T', L]; out_lengths [B] int32 or None). With
+        ``seq_len`` (sequence parallelism), ``x`` is this rank's range of
+        ``seq_len`` frames and so is the output of ``out_time(seq_len)``;
+        the lengths stay global."""
         lens = (None if input_lengths is None
                 else input_lengths.to(torch.float32))
         panes = [x]
         for block in self.jasper_encoder:
-            out, lens = self._run_block(block, panes, lens, generator)
+            out, lens = self._run_block(block, panes, lens, generator,
+                                        seq_len)
+            if seq_len is not None:
+                seq_len = block.out_time(seq_len)
             panes = panes + [out] if block.dense_residual else [out]
             x = out
         head = self.final_layer[0]

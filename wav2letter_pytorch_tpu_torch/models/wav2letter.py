@@ -19,6 +19,16 @@ input, BatchNorm on them, and gathers the channels before dropout (the
 mask of the model=1 run) and the clamp; the 29-label head stays whole on
 every rank.
 
+Under sequence parallelism (``parallel.sp``) ``forward`` takes
+``seq_len``, the global length of the features of which ``x`` holds this
+rank's range: each block computes its rank's range of its output from
+the input frames it reads (``sp.conv_input``: neighbours' frames
+fetched, reflect SAME padding by index at the global edges only) with
+an unpadded conv, then BN (statistics over every rank's frames), the
+dropout mask of the whole sequence (this rank's range of it) and the
+clamp on its range; the output is this rank's range of the log-probs
+(``out_time(seq_len)`` frames in all).
+
 The public layout is the JAX one, ``[B, T, F]`` in and ``[B, T', L]`` out;
 inside, activations are ``[B, C, T]`` for ``F.conv1d``. Parameter keys are
 the reference torch layout (``conv1ds.conv1d_{i}.conv1.*``,
@@ -34,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import tp
+from ..parallel import sp, tp
 from .base import (FlaxBatchNorm1d, dropout, hardtanh_0_20, init_conv_,
                    same_pad_amount)
 
@@ -80,16 +90,27 @@ class Conv1dBlock(nn.Module):
         self.batch_norm = (FlaxBatchNorm1d(out_channels, momentum=0.9,
                                            eps=1e-3) if use_bn else None)
 
+    def out_time(self, t_in: int) -> int:
+        """Output frames at ``t_in`` input frames (SAME: ceil(t_in /
+        stride))."""
+        return -(-int(t_in) // self.stride)
+
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                seq_len: int | None = None) -> torch.Tensor:
         # tensor parallelism (parallel.tp): a sharded conv is column-
         # parallel, its Cout slice and BN on it, then the channels gathered
         sharded = tp.is_sharded(self.conv1.weight)
         if sharded:
             x = tp.copy_to_model(x)
-        left, right = same_pad_amount(x.shape[-1], self.kernel_size,
+        left, right = same_pad_amount(x.shape[-1] if seq_len is None
+                                      else seq_len, self.kernel_size,
                                       self.stride, self.dilation)
-        if left or right:
+        if seq_len is not None:   # this rank's output range, padded by index
+            x, _ = sp.conv_input(x, 2, seq_len, self.kernel_size,
+                                 self.stride, self.dilation, left, right,
+                                 'reflect')
+        elif left or right:
             x = F.pad(x, (left, right), mode='reflect')
         x = self.conv1(x)
         if self.batch_norm is not None:
@@ -97,7 +118,8 @@ class Conv1dBlock(nn.Module):
         if sharded:
             x = tp.gather_from_model(x, 1)
         if self.training and self.dropout != -1 and self.dropout > 0:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, 2,
+                        None if seq_len is None else self.out_time(seq_len))
         if self.use_activation:
             x = hardtanh_0_20(x)
         return x
@@ -141,14 +163,25 @@ class Wav2Letter(nn.Module):
                 nn.init.zeros_(block.conv1.bias)
         self.to(device)
 
+    def out_time(self, t_in: int) -> int:
+        """Output frames at ``t_in`` feature frames."""
+        for block in self.conv1ds:
+            t_in = block.out_time(t_in)
+        return t_in
+
     def forward(self, x: torch.Tensor, input_lengths=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                seq_len: int | None = None):
         """x: [B, T, F] features. Returns (log_probs [B, T', L],
         out_lengths [B] int32 or None). ``generator`` feeds dropout in
-        train mode."""
+        train mode. With ``seq_len`` (sequence parallelism), ``x`` is this
+        rank's range of ``seq_len`` frames and so is ``log_probs`` of
+        ``out_time(seq_len)``; the lengths stay global."""
         y = x.transpose(1, 2)
         for block in self.conv1ds:
-            y = block(y, generator)
+            y = block(y, generator, seq_len)
+            if seq_len is not None:
+                seq_len = block.out_time(seq_len)
         log_probs = F.log_softmax(y.transpose(1, 2).contiguous(), dim=-1)
         if input_lengths is None:
             return log_probs, None

@@ -335,16 +335,41 @@ class SepConv1d(torch.autograd.Function):
         return dx, None, None, dwdw, dwpw, None, None
 
 
+def shifted_lengths(len1, len2, in_lo: int, t_in: int, out_lo: int,
+                    t_out: int) -> tuple:
+    """``mask_lengths``' global (len1, len2) for a unit run on a range of
+    the sequence (sequence parallelism): the input holds global frames
+    from ``in_lo`` (negative in the left padding), ``t_in`` of them, the
+    output from ``out_lo``, ``t_out``; each length becomes the count of
+    the range's frames below it, in [0, frames]."""
+    return (torch.clamp(len1 - in_lo, 0, t_in).to(torch.int32).contiguous(),
+            torch.clamp(len2 - out_lo, 0, t_out).to(torch.int32).contiguous())
+
+
 def sep_conv1d(x: torch.Tensor, lens, wdw: torch.Tensor, wpw: torch.Tensor,
                dilation: int = 1, padding: int = 0,
-               use_mask: bool = True) -> torch.Tensor:
+               use_mask: bool = True, shift=None) -> torch.Tensor:
     """Fused masked separable conv unit, differentiable in x, wdw and wpw:
     x [B, T, Cin], float ``lens`` [B] (or None), wdw [K, Cin], wpw
     [Cin, Cout] -> y [B, T_out, Cout] f32, T_out = T + 2p - d(K-1). The
-    counterpart of the JAX package's ``sep_conv1d``."""
+    counterpart of the JAX package's ``sep_conv1d``.
+
+    ``shift=(in_lo, out_lo)``: ``x`` is already padded, the global input
+    frames from ``in_lo`` that a range of the output starting at global
+    frame ``out_lo`` reads (sequence parallelism); the kernel then runs
+    with padding 0, T_out = T - d(K-1), and the masks' lengths
+    (``padding`` the unit's own) are shifted to the two ranges."""
+    K = wdw.shape[0]
     if use_mask and lens is not None:
-        len1, len2 = mask_lengths(lens, wdw.shape[0], dilation, padding)
+        len1, len2 = mask_lengths(lens, K, dilation, padding)
     else:
         len1 = len2 = None
+    if shift is not None:
+        padding = 0
+        if len1 is not None:
+            t_in = x.shape[1]
+            len1, len2 = shifted_lengths(
+                len1, len2, int(shift[0]), t_in, int(shift[1]),
+                out_length(t_in, K, dilation, 0))
     return SepConv1d.apply(x, len1, len2, wdw, wpw, int(dilation),
                            int(padding))

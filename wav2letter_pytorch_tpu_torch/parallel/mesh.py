@@ -1,6 +1,6 @@
 """Data parallelism over several devices, and the process groups of
-tensor parallelism: a device list for serving, process groups for
-training.
+tensor and sequence parallelism: a device list for serving, process
+groups for training.
 
 The counterpart of ``wav2letter_pytorch_tpu.parallel.mesh``. There, one
 SPMD program runs over a ``data`` (and ``model``) mesh axis and XLA
@@ -18,13 +18,18 @@ has one form for each use:
   update of the global batch. BatchNorm takes its statistics over the
   global batch (``models/base.py::FlaxBatchNorm1d``), as the JAX step,
   written against the global batch, does.
-* With ``model=m`` > 1 (tensor parallelism, ``parallel/tp.py``) the
-  world is a data x model grid: rank ``r`` is data index ``r // m`` and
-  model index ``r % m`` (the model index is the fast one, as JAX lays
-  adjacent devices on the trailing axis). The ``m`` ranks of one data
-  index hold one replica's channel shards and the same rows; the ranks
-  of one model index hold the same shards of different rows. Every
-  collective helper takes the ``group`` it runs over (None: the world).
+* With ``model=m`` > 1 (tensor parallelism, ``parallel/tp.py``) and / or
+  ``seq=q`` > 1 (sequence parallelism, ``parallel/sp.py``) the world is a
+  data x model x seq grid in JAX's device order: rank ``(d*m + j)*q + s``
+  is data index ``d``, model index ``j`` and seq index ``s`` (adjacent
+  ranks on the trailing axes, as JAX lays adjacent devices). The groups
+  (``set_grid``): a **model** group (same d and s) holds one replica's
+  channel shards; a **seq** group (same d and j) the time slices of one
+  replica's activations; a **data** group (same j and s) one rank a data
+  index, over which row counts, losses and metric sums are reduced; a
+  **replica** group (same j, every d and s), over which gradients and
+  BatchNorm statistics are reduced. Every collective helper takes the
+  ``group`` it runs over (None: the world).
 
 The collective helpers run on NCCL, or on gloo (the CPU; several ranks
 sharing one GPU), which takes CUDA tensors for the collectives used here
@@ -40,36 +45,40 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-NEXT_SLICE = ('is not ported: sequence parallelism comes in a later slice '
-              '(ROADMAP A.9); trainer.mesh.data and trainer.mesh.model are '
-              'taken')
 # torchrun's environment, read by init_distributed
 ENV_KEYS = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR', 'MASTER_PORT')
-# the tensor-parallel grid of the process group (init_distributed)
-_GRID = {'model': 1, 'data_group': None, 'model_group': None}
+# the data x model x seq grid of the process group (set_grid)
+_NO_GRID = {'model': 1, 'seq': 1, 'data_group': None, 'model_group': None,
+            'seq_group': None, 'replica_group': None}
+_GRID = dict(_NO_GRID)
 
 
 class Mesh:
-    """A ``data`` mesh, or a ``data`` x ``model`` grid: the devices in
-    order, the model index the fast one (entry ``(d, j)`` is
-    ``devices[d * model + j]``)."""
+    """A ``data`` mesh, or a ``data`` x ``model`` x ``seq`` grid (an axis
+    of extent 1 left out, as JAX's ``make_mesh`` names them): the devices
+    in order, the trailing axes the fast ones (entry ``(d, j, s)`` is
+    ``devices[(d * model + j) * seq + s]``)."""
 
-    def __init__(self, devices, model: int = 1):
+    def __init__(self, devices, model: int = 1, seq: int = 1):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError('a mesh needs at least one device')
         self.size = len(self.devices)
-        model = int(model or 1)
-        if self.size % model:
+        model, seq = int(model or 1), int(seq or 1)
+        if self.size % (model * seq):
             raise ValueError(f'{self.size} devices do not form rows of '
-                             f'model={model}')
-        self.model = model
-        self.shape = ({'data': self.size // model, 'model': model}
-                      if model > 1 else {'data': self.size})
+                             f'model={model} x seq={seq}')
+        self.model, self.seq = model, seq
+        self.shape = {'data': self.size // (model * seq)}
+        if model > 1:
+            self.shape['model'] = model
+        if seq > 1:
+            self.shape['seq'] = seq
         self.axis_names = tuple(self.shape)
 
     def __repr__(self):
-        grid = '' if self.model == 1 else f', model={self.model}'
+        grid = ''.join(f', {k}={v}' for k, v in (('model', self.model),
+                                                 ('seq', self.seq)) if v > 1)
         return f'Mesh({[str(d) for d in self.devices]}{grid})'
 
 
@@ -80,20 +89,19 @@ def data_extent(num_devices, model: int = 1, seq: int = 1,
     JAX package's text when more than ``visible`` devices are asked for
     (``visible`` None: no limit)."""
     model, seq = int(model or 1), int(seq or 1)
-    if seq > 1:
-        raise ValueError(f'mesh seq={seq} {NEXT_SLICE}')
+    extra = model * seq
     if num_devices in (None, -1):
-        n = (visible or model) // model
+        n = (visible or extra) // extra
     else:
         n = int(num_devices)
-    if model == 1:
+    if extra == 1:
         if visible is not None and n > visible:
             raise ValueError(f'Requested {n} devices, only {visible} '
                              'visible')
         if n < 1:
             raise ValueError(f'Requested {n} devices')
         return n
-    if n < 1 or (visible is not None and n * model > visible):
+    if n < 1 or (visible is not None and n * extra > visible):
         raise ValueError(f'Requested {n}x{model}x{seq} (data x model x seq) '
                          f'devices, only {visible} visible')
     return n
@@ -101,29 +109,28 @@ def data_extent(num_devices, model: int = 1, seq: int = 1,
 
 def make_mesh(num_devices: int | None = None, axis: str = 'data',
               model: int = 1, seq: int = 1, device='cuda') -> Mesh:
-    """The first ``num_devices`` x ``model`` CUDA devices as a ``data``
-    (x ``model``) mesh; ``num_devices`` None / -1 takes every visible
-    one (``visible // model`` rows).
+    """The first ``num_devices`` x ``model`` x ``seq`` CUDA devices as a
+    ``data`` (x ``model``) (x ``seq``) mesh; ``num_devices`` None / -1
+    takes every visible one (``visible // (model * seq)`` rows).
 
     ``device='cpu'`` gives a mesh of entries of the one CPU device (one
     row for None / -1), which stands in for the JAX package's virtual CPU
-    devices in tests; nothing falls back to it. ``seq`` above 1 raises:
-    sequence parallelism is not ported.
+    devices in tests; nothing falls back to it.
     """
     if axis != 'data':
         raise ValueError(f'the mesh axis is {"data"!r}, got {axis!r}')
-    model = int(model or 1)
+    model, seq = int(model or 1), int(seq or 1)
     kind = torch.device(device).type
     if kind == 'cpu':
         n = data_extent(num_devices, model, seq)
-        return Mesh([torch.device('cpu')] * (n * model), model=model)
+        return Mesh([torch.device('cpu')] * (n * model * seq), model, seq)
     if kind != 'cuda':
         raise ValueError(f'no mesh over {kind!r} devices')
     from ..runtime import resolve_device
     resolve_device('cuda')   # raises without a card
     n = data_extent(num_devices, model, seq, torch.cuda.device_count())
-    return Mesh([torch.device('cuda', i) for i in range(n * model)],
-                model=model)
+    return Mesh([torch.device('cuda', i) for i in range(n * model * seq)],
+                model, seq)
 
 
 def device_mesh(device='cuda') -> Mesh:
@@ -169,16 +176,16 @@ def canonical(device) -> torch.device:
 # ----------------------------------------------------------- training
 
 def init_distributed(device='cuda', backend: str | None = None,
-                     model: int = 1):
+                     model: int = 1, seq: int = 1):
     """Join the process group torchrun describes (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and
     return this rank's device: ``cuda:LOCAL_RANK`` on ``cuda`` (pinned as
     the current device), the CPU on ``cpu``. ``backend`` defaults to
     NCCL on ``cuda`` and gloo on ``cpu``; NCCL is never swapped for gloo
     unless asked (several ranks on one GPU need ``backend='gloo'``).
-    ``model`` > 1 lays the world out as a data x model grid and builds
-    its groups (``set_model_parallel``); a second call with another
-    ``model`` builds them anew (every rank must make it)."""
+    ``model`` / ``seq`` > 1 lay the world out as a data x model x seq
+    grid and build its groups (``set_grid``); a second call with other
+    extents builds them anew (every rank must make it)."""
     from ..runtime import resolve_device
     missing = [k for k in ENV_KEYS if k not in os.environ]
     if missing:
@@ -194,47 +201,69 @@ def init_distributed(device='cuda', backend: str | None = None,
     if backend is None:
         backend = 'nccl' if dev.type == 'cuda' else 'gloo'
     if not dist.is_initialized():
-        _GRID.update(model=1, data_group=None, model_group=None)
+        _GRID.update(_NO_GRID)
         kw = {'device_id': dev} if backend == 'nccl' else {}
         dist.init_process_group(
             backend, init_method='env://',
             world_size=int(os.environ['WORLD_SIZE']),
             rank=int(os.environ['RANK']),
             timeout=datetime.timedelta(minutes=10), **kw)
-    set_model_parallel(model)
+    set_grid(model, seq)
     return dev
 
 
-def set_model_parallel(model: int = 1) -> None:
-    """Lay the process group out as ``world // model`` data rows of
-    ``model`` ranks and build the groups: one model group a data index
-    (ranks ``d*m .. d*m + m - 1``), one data group a model index (ranks
-    ``j, j + m, ...``), created on every rank in the same order. With
-    ``model`` 1 the data group is the world and there is no model
-    group."""
-    model = int(model or 1)
-    if model == _GRID['model'] and (model == 1
-                                    or _GRID['model_group'] is not None):
+def grid_ranks(world_size: int, model: int, seq: int) -> dict:
+    """Every group of the data x model x seq grid of ``world_size`` ranks,
+    by kind, each a list of its global ranks in order (rank ``(d*model +
+    j)*seq + s``): 'model' (same d and s), 'seq' (same d and j), 'data'
+    (same j and s) and 'replica' (same j, every d and s)."""
+    data = world_size // (model * seq)
+
+    def r(d, j, s):
+        return (d * model + j) * seq + s
+    return {
+        'model': [[r(d, j, s) for j in range(model)]
+                  for d in range(data) for s in range(seq)],
+        'seq': [[r(d, j, s) for s in range(seq)]
+                for d in range(data) for j in range(model)],
+        'data': [[r(d, j, s) for d in range(data)]
+                 for j in range(model) for s in range(seq)],
+        'replica': [[r(d, j, s) for d in range(data) for s in range(seq)]
+                    for j in range(model)],
+    }
+
+
+def set_grid(model: int = 1, seq: int = 1) -> None:
+    """Lay the process group out as ``world // (model * seq)`` data rows
+    of ``model`` x ``seq`` ranks (``grid_ranks``) and build the groups,
+    created on every rank in the same order. An axis of extent 1 has no
+    group; the replica group is the data group when ``seq`` is 1 and the
+    world (None) when ``model`` is 1, as both groups are with ``model``
+    and ``seq`` both 1."""
+    model, seq = int(model or 1), int(seq or 1)
+    if ((model, seq) == (_GRID['model'], _GRID['seq'])
+            and (model * seq == 1 or _GRID['data_group'] is not None)):
         return
-    w, r = dist.get_world_size(), dist.get_rank()
-    if w % model:
-        raise ValueError(f'trainer.mesh.model={model} does not divide the '
-                         f'world size {w}')
-    _GRID.update(model=1, data_group=None, model_group=None)
-    if model == 1:
+    w, me = dist.get_world_size(), dist.get_rank()
+    if w % (model * seq):
+        raise ValueError(f'trainer.mesh.model={model} x trainer.mesh.seq='
+                         f'{seq} does not divide the world size {w}')
+    _GRID.update(_NO_GRID)
+    if model * seq == 1:
         return
+    skip = {'model': model == 1, 'seq': seq == 1,
+            'replica': seq == 1 or model == 1}
     mine = {}
-    for d in range(w // model):
-        ranks = list(range(d * model, (d + 1) * model))
-        g = dist.new_group(ranks)
-        if r in ranks:
-            mine['model_group'] = g
-    for j in range(model):
-        ranks = list(range(j, w, model))
-        g = dist.new_group(ranks)
-        if r in ranks:
-            mine['data_group'] = g
-    _GRID.update(model=model, **mine)
+    for kind, groups in grid_ranks(w, model, seq).items():
+        if skip.get(kind):
+            continue
+        for ranks in groups:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine[f'{kind}_group'] = g
+    if seq == 1:
+        mine['replica_group'] = mine['data_group']
+    _GRID.update(model=model, seq=seq, **mine)
 
 
 def distributed() -> bool:
@@ -260,25 +289,39 @@ def model_world() -> int:
     return _GRID['model'] if distributed() else 1
 
 
+def seq_world() -> int:
+    """Ranks that share one replica's activations as time slices (1
+    without sequence parallelism)."""
+    return _GRID['seq'] if distributed() else 1
+
+
 def model_rank() -> int:
     """This rank's index in its model group: which channel shard it
     holds."""
-    return rank() % model_world()
+    return (rank() // seq_world()) % model_world()
+
+
+def seq_rank() -> int:
+    """This rank's index in its seq group: which time slice of its
+    replica's activations it holds."""
+    return rank() % seq_world()
 
 
 def data_world() -> int:
-    """Replicas, each a model group, that split the global batch."""
-    return world() // model_world()
+    """Replicas, each a model x seq block of ranks, that split the global
+    batch."""
+    return world() // (model_world() * seq_world())
 
 
 def data_rank() -> int:
     """This rank's replica: which rows of the global batch it holds."""
-    return rank() // model_world()
+    return rank() // (model_world() * seq_world())
 
 
 def data_group():
-    """The group over which gradients, row counts and BatchNorm
-    statistics are reduced (None: the world)."""
+    """The group of one rank a data index (same model and seq index),
+    over which row counts, losses and metric sums are reduced (None: the
+    world)."""
     return _GRID['data_group']
 
 
@@ -286,6 +329,30 @@ def model_group():
     """The group of this replica's channel shards (None without tensor
     parallelism)."""
     return _GRID['model_group']
+
+
+def seq_group():
+    """The group of this replica's time slices (None without sequence
+    parallelism)."""
+    return _GRID['seq_group']
+
+
+def replica_group():
+    """The group over which gradients and BatchNorm statistics are
+    reduced: every rank that holds this rank's channel shard, of any
+    rows and any time slice (None: the world)."""
+    return _GRID['replica_group']
+
+
+def replica_world() -> int:
+    """Ranks of the replica group."""
+    return data_world() * seq_world()
+
+
+def replica_root() -> int:
+    """The global rank of data index 0 and seq index 0 of this rank's
+    model index: the replica group's source of a broadcast."""
+    return model_rank() * seq_world()
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -397,6 +464,21 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Differentiable all-gather over ``group`` (the world):
     ``[W, *t.shape]``, rank order."""
     return _AllGather.apply(t, group)
+
+
+def chan_combine(n, mean, m2, group):
+    """(count, mean, M2) of the union of every rank of ``group``'s sets,
+    each given by its ``n`` (count, no gradient), ``mean`` and ``m2``
+    (same shapes): an all-gather and Chan's parallel formula (not
+    E[x^2] - mean^2, which loses digits when |mean| >> std),
+    differentiably. A rank's set may be empty (``n`` 0, ``mean`` and
+    ``m2`` finite)."""
+    parts = all_gather(torch.stack([n, mean, m2]), group)   # [W, 3, ...]
+    ns, means, m2s = parts[:, 0].detach(), parts[:, 1], parts[:, 2]
+    total = ns.sum(0)
+    g_mean = (ns * means).sum(0) / total
+    g_m2 = m2s.sum(0) + (ns * (means - g_mean) ** 2).sum(0)
+    return total, g_mean, g_m2
 
 
 class RowGenerator:

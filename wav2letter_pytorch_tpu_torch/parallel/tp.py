@@ -35,8 +35,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .mesh import all_gather, all_reduce_sum, model_group, model_rank, \
-    model_world
+from . import sp
+from .mesh import (all_reduce_sum, chan_combine, model_group, model_rank,
+                   model_world, seq_group)
 
 MODEL_AXIS = 'model'
 MIN_SHARD = 8   # channels a shard keeps at least (JAX's lane-width rule)
@@ -336,32 +337,41 @@ def whole_param(w: torch.Tensor, partial: bool) -> torch.Tensor:
 
 def group_norm(x: torch.Tensor, norm) -> torch.Tensor:
     """``norm`` (an ``nn.GroupNorm``: group, instance or layer norm) on
-    ``x`` [B, C_r, T], this rank's channel slice when ``norm``'s
-    parameters are sharded. Shards that hold whole groups normalise
-    alone; otherwise each group's (count, mean, M2) over the rank's
-    channels of it are gathered over the model group and combined with
-    Chan's formula, as cross-replica BatchNorm combines rows."""
+    ``x`` [B, C_r, T_r]: this rank's channel slice when ``norm``'s
+    parameters are sharded, this rank's range of frames under sequence
+    parallelism (``parallel.sp``). Shards that hold whole groups and every
+    frame normalise alone; otherwise each group's (count, mean, M2) over
+    the rank's channels and frames of it are combined with Chan's
+    formula (as cross-replica BatchNorm combines rows): over the model
+    group when a group straddles the channel shards, then over the seq
+    group."""
     sl = shard_slice(norm.weight)
-    if sl is None:
+    seq = sp.active()
+    if sl is None and not seq:
         return norm(x)
     cpg = norm.num_channels // norm.num_groups
-    if sl.start % cpg == 0 and (sl.stop - sl.start) % cpg == 0:
+    if sl is None:
+        sl = slice(0, norm.num_channels)
+    straddles = sl.start % cpg != 0 or (sl.stop - sl.start) % cpg != 0
+    if not straddles and not seq:
         return F.group_norm(x, (sl.stop - sl.start) // cpg, norm.weight,
                             norm.bias, norm.eps)
     B, _, T = x.shape
-    gid = torch.arange(sl.start, sl.stop, device=x.device) // cpg
-    onehot = F.one_hot(gid, norm.num_groups).to(x.dtype)       # [C_r, G]
+    # the groups in play: every group when the shards are combined, else
+    # those of this rank's channels (each then has frames somewhere)
+    g0 = 0 if straddles else sl.start // cpg
+    g1 = norm.num_groups if straddles else (sl.stop - 1) // cpg + 1
+    gid = torch.arange(sl.start, sl.stop, device=x.device) // cpg - g0
+    onehot = F.one_hot(gid, g1 - g0).to(x.dtype)               # [C_r, G]
     n = onehot.sum(0) * T                                      # [G]
-    safe = torch.clamp(n, min=1.0)
-    mean = torch.einsum('bct,cg->bg', x, onehot) / safe
+    mean = torch.einsum('bct,cg->bg', x, onehot) / torch.clamp(n, min=1.0)
     dev = x - (mean @ onehot.t())[:, :, None]
     m2 = torch.einsum('bct,cg->bg', dev * dev, onehot)
-    parts = all_gather(torch.stack([n.expand(B, -1), mean, m2]),
-                       model_group())                          # [m,3,B,G]
-    ns, means, m2s = parts[:, 0].detach(), parts[:, 1], parts[:, 2]
-    total = ns.sum(0)
-    g_mean = (ns * means).sum(0) / total
-    g_var = (m2s.sum(0) + (ns * (means - g_mean) ** 2).sum(0)) / total
-    mean_c, var_c = g_mean[:, gid], g_var[:, gid]              # [B, C_r]
+    n = n.expand(B, -1)
+    if straddles:
+        n, mean, m2 = chan_combine(n, mean, m2, model_group())
+    if seq:
+        n, mean, m2 = chan_combine(n, mean, m2, seq_group())
+    mean_c, var_c = mean[:, gid], (m2 / n)[:, gid]             # [B, C_r]
     y = (x - mean_c[:, :, None]) * torch.rsqrt(var_c + norm.eps)[:, :, None]
     return y * norm.weight[None, :, None] + norm.bias[None, :, None]

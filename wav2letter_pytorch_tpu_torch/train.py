@@ -11,6 +11,9 @@
     torchrun --nproc-per-node N*M -m wav2letter_pytorch_tpu_torch.train \
         ... trainer.mesh.data=N trainer.mesh.model=M   # and tensor parallel
 
+    torchrun --nproc-per-node N*M*Q -m wav2letter_pytorch_tpu_torch.train \
+        ... trainer.mesh.data=N trainer.mesh.model=M trainer.mesh.seq=Q
+
 The counterpart of the JAX package's ``train.py``: dotted ``key=value``
 overrides and group swaps (``config.py``), WAV or FLAC manifests (CSV or
 JSON lines; ``data.cache_audio``, ``data.audio_dtype`` and
@@ -33,6 +36,12 @@ the world is ``data x model`` ranks (data -1 means ``WORLD_SIZE //
 model``), M ranks share each replica's channel shards and its rows of the
 global batch, and the checkpoints keep the model=1 layout. It needs
 torchrun: without a process group it stops rather than train unsharded.
+
+``trainer.mesh.seq=Q`` > 1 adds sequence parallelism (``parallel/sp.py``):
+the world is ``data x model x seq`` ranks (data -1 means ``WORLD_SIZE //
+(model * seq)``), the Q ranks of a replica's seq group hold its rows and
+each its range of every activation's frames. Like ``mesh.model`` it
+needs torchrun.
 """
 
 from __future__ import annotations
@@ -78,26 +87,29 @@ def get_data_loaders(labels, data_cfg, seed: int = 0, row_shard=(0, 1)):
     return train, val
 
 
-def data_world(mesh_data, mesh_model=1) -> int:
-    """The data extent ``trainer.mesh.data`` x ``trainer.mesh.model`` asks
-    for, checked against torchrun's ``WORLD_SIZE`` (1 without
-    torchrun): ``WORLD_SIZE`` must be data x model; data -1 means
-    ``WORLD_SIZE // model``."""
+def data_world(mesh_data, mesh_model=1, mesh_seq=1) -> int:
+    """The data extent ``trainer.mesh.data`` x ``trainer.mesh.model`` x
+    ``trainer.mesh.seq`` asks for, checked against torchrun's
+    ``WORLD_SIZE`` (1 without torchrun): ``WORLD_SIZE`` must be data x
+    model x seq; data -1 means ``WORLD_SIZE // (model * seq)``. A grid
+    that does not fill the world stops with the JAX package's text."""
     launched = int(os.environ.get('WORLD_SIZE', '1'))
-    model = int(mesh_model or 1)
+    model, seq = int(mesh_model or 1), int(mesh_seq or 1)
     want = int(mesh_data if mesh_data is not None else -1)
-    data = launched // model if want == -1 else want
+    data = launched // (model * seq) if want == -1 else want
     if 'WORLD_SIZE' not in os.environ and (want not in (-1, 1)
-                                           or model > 1):
+                                           or model * seq > 1):
         raise SystemExit(
-            f'trainer.mesh.data={want} trainer.mesh.model={model}: launch '
-            f'one process a device with torchrun --nproc-per-node '
-            f'{max(data, 1) * model} -m wav2letter_pytorch_tpu_torch.train '
-            '...')
-    if data < 1 or data * model != launched:
-        raise SystemExit(f'trainer.mesh.data={want} x trainer.mesh.model='
-                         f'{model} but torchrun started WORLD_SIZE='
-                         f'{launched} processes')
+            f'trainer.mesh.data={want} trainer.mesh.model={model} '
+            f'trainer.mesh.seq={seq}: launch one process a device with '
+            f'torchrun --nproc-per-node {max(data, 1) * model * seq} -m '
+            'wav2letter_pytorch_tpu_torch.train ...')
+    if data < 1 or data * model * seq != launched:
+        raise SystemExit(
+            f'trainer.mesh.data={want} x trainer.mesh.model={model} x '
+            f'trainer.mesh.seq={seq} but torchrun started WORLD_SIZE='
+            f'{launched} processes: Requested {data}x{model}x{seq} (data x '
+            f'model x seq) devices, only {launched} visible')
     return data
 
 
@@ -126,9 +138,11 @@ def main(argv=None) -> int:
 
     mesh_cfg = cfg['trainer'].get('mesh', {})
     model_size = int(mesh_cfg.get('model', 1) or 1)
-    world = data_world(mesh_cfg.get('data'), model_size)
+    seq_size = int(mesh_cfg.get('seq', 1) or 1)
+    world = data_world(mesh_cfg.get('data'), model_size, seq_size)
     if 'WORLD_SIZE' in os.environ:
-        dev = parallel.init_distributed(device, model=model_size)
+        dev = parallel.init_distributed(device, model=model_size,
+                                        seq=seq_size)
     else:
         dev = resolve_device(device)
     labels = build_labels(cfg['model'])

@@ -62,8 +62,22 @@ count m times). The global gradient norm of
 a sharded leaf over the model group and count a replicated leaf once
 (``tp.sq_sums``). Checkpoints gather every sharded leaf (parameters,
 BatchNorm statistics, optimizer moments, accumulated gradients, the last
-reduced over the data group first), so rank 0 writes the model=1 layout
+reduced over the replica group first), so rank 0 writes the model=1 layout
 and any topology restores it (a restore slices).
+
+Sequence parallelism (``trainer.mesh.seq`` = q > 1, ``parallel/sp.py``):
+each replica's q ranks (its seq group) hold the same rows; the frontend
+(K1) and SpecAugment run whole on each of them with the same draws, then
+each keeps its range of the frames (``sp.shard_time``, JAX's
+``P('data', 'seq')`` constraint) and the model computes its range of
+every activation from halo-exchanged inputs. The log-probs are gathered
+whole (``sp.gather_time``, JAX's reshard to ``P('data')``) before the
+loss (K2/K3) and the argmax, so every seq rank computes the same loss.
+Each rank's weight gradients then hold its frames' share: they are
+summed over the replica group (every data and seq index of a model
+index), as BatchNorm's statistics are combined over it; the row counts,
+losses and metric sums stay on the data group (one rank a data index),
+or each row would count q times.
 """
 
 from __future__ import annotations
@@ -80,7 +94,7 @@ import torch
 
 from ..data.augmentations import build_augment_fn
 from ..ops.ctc_kernel import ctc_loss_kernel
-from ..parallel import mesh, tp
+from ..parallel import mesh, sp, tp
 from ..runtime import resolve_device
 from .checkpoint import Checkpointer
 from .logging import MetricLogger
@@ -123,7 +137,7 @@ def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
     if output not in ('ids', 'model'):
         raise ValueError(f"output must be 'ids' or 'model', got {output!r}")
     feats, flens = frontend(batch['audio'], batch['audio_lengths'])
-    out, out_lens = model(feats, flens)
+    out, out_lens = seq_forward(model, feats, flens)
     log_probs = (torch.log(torch.clamp(out, min=1e-30))
                  if getattr(model, 'eval_emits_probs', False) else out)
     loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
@@ -132,6 +146,18 @@ def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
     if output == 'ids':
         out = torch.argmax(out, dim=-1).to(torch.int32)
     return loss, out, out_lens
+
+
+def seq_forward(model, feats, flens, generator=None):
+    """``model(feats, flens, generator=...)``; under sequence parallelism
+    on this rank's range of the frames, with the output gathered whole
+    (every seq rank holds the same features)."""
+    if not sp.active():
+        return model(feats, flens, generator=generator)
+    T = feats.shape[1]
+    out, out_lens = model(sp.shard_time(feats, 1), flens,
+                          generator=generator, seq_len=T)
+    return sp.gather_time(out, 1, model.out_time(T)), out_lens
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -193,13 +219,17 @@ class Trainer:
                                     or 25), 1)
         self.distributed = mesh.distributed()
         self.is_main = mesh.is_main()
-        model_size = int((tcfg.get('mesh') or {}).get('model', 1) or 1)
-        if model_size != mesh.model_world():
+        mesh_cfg = tcfg.get('mesh') or {}
+        model_size = int(mesh_cfg.get('model', 1) or 1)
+        seq_size = int(mesh_cfg.get('seq', 1) or 1)
+        if (model_size, seq_size) != (mesh.model_world(), mesh.seq_world()):
             raise ValueError(
-                f'trainer.mesh.model={model_size} but the process group '
-                f'has model groups of {mesh.model_world()}: launch with '
-                'torchrun and join with parallel.init_distributed(model='
-                f'{model_size}) (train.py does)')
+                f'trainer.mesh.model={model_size} trainer.mesh.seq='
+                f'{seq_size} but the process group has model groups of '
+                f'{mesh.model_world()} and seq groups of '
+                f'{mesh.seq_world()}: launch with torchrun and join with '
+                f'parallel.init_distributed(model={model_size}, seq='
+                f'{seq_size}) (train.py does)')
         if mesh.model_world() > 1 and not tp.model_spec(self.model):
             tp.shard_module(self.model)   # built whole, as model=1
         # under a process group the gradients live in one flat buffer,
@@ -239,7 +269,7 @@ class Trainer:
     def state_dict(self) -> dict:
         """Everything a resume needs: step, weights and BN statistics,
         optimizer state, and gradients accumulated so far in a cycle
-        (summed over the replicas: under a process group every rank
+        (summed over the replica group: under a process group every rank
         calls this), in the model=1 layout (tensor-parallel shards
         gathered)."""
         params = self._params()
@@ -249,7 +279,7 @@ class Trainer:
             if self.distributed:
                 grads = [None if g is None else g.clone() for g in grads]
                 mesh.all_reduce_flat([g for g in grads if g is not None],
-                                     mesh.data_group())
+                                     mesh.replica_group())
                 idx = [i for i, g in enumerate(grads)
                        if g is not None and tp.is_sharded(params[i])]
                 if idx:
@@ -275,7 +305,7 @@ class Trainer:
         self.optimizer.load_state_dict(
             tp.shard_optimizer_state(self.optimizer, state['optimizer']))
         grads = state.get('grad_accum') or [None] * len(self._params())
-        if mesh.data_rank() != 0:   # the summed gradients count once
+        if mesh.data_rank() or mesh.seq_rank():   # the sum counts once
             grads = [None] * len(grads)
         for p, g in zip(self._params(), grads):
             if g is not None and tp.is_sharded(p):
@@ -309,7 +339,7 @@ class Trainer:
             if self.augment_fn is not None:
                 feats = self.augment_fn(g_aug, feats)
         self.model.train()
-        log_probs, out_lens = self.model(feats, flens, generator=g_drop)
+        log_probs, out_lens = seq_forward(self.model, feats, flens, g_drop)
         loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
                                batch['target_lengths'], batch['batch_mask'],
                                global_mask_sum(batch['batch_mask']))
@@ -325,7 +355,7 @@ class Trainer:
 
     def _update(self) -> None:
         if self._grads is not None:
-            self._grads.all_reduce(mesh.data_group())
+            self._grads.all_reduce(mesh.replica_group())
         params = [p for p in self._params() if p.grad is not None]
         grads = [p.grad for p in params]
         with torch.no_grad():
@@ -412,9 +442,9 @@ class Trainer:
             elif len(train_loader):
                 start_epoch = self.step // len(train_loader)
             train_loader.epoch = start_epoch
-        if self.distributed:   # each replica's shards from the first's
-            mesh.broadcast_module(self.model, src=mesh.model_rank(),
-                                  group=mesh.data_group())
+        if self.distributed:   # each rank's shards from the first's
+            mesh.broadcast_module(self.model, src=mesh.replica_root(),
+                                  group=mesh.replica_group())
 
         self._preempt_requested = False
         self.stopped_reason = None
