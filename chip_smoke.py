@@ -74,13 +74,14 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    LM-free, LM-fused, with hotwords and with both, and the card's n-best
    scores within 1e-5 of the CPU's; ``evaluate.main --model-path
    <Wav2Letter-20 run> --average-last 2 --lm-path ... --word-timings
-   --dump-jsonl`` over the corpus's first 8 utterances on the device
+   --dump-jsonl`` over the corpus's first 2 utterances on the device
    and on the host beam backend: equal
    hypotheses (a difference only where the host DP ranks both within
    1e-5), K1 and K2 launched, the loss of the same state restored by hand;
    QuartzNet's run through the host beam on its probabilities over the
-   same 8 (K4 and K6 launched); decode ms a B=32 batch under each decoder, evaluate() utt/s under
-   each, and the device search's ops a frame.
+   same 2 (K4 and K6 launched); decode ms a B=32 batch under each
+   decoder, evaluate() utt/s under each, and the device search's ops a
+   frame (profiled over an eighth of the batch's frames).
 16. Serving, on phase 7's Wav2Letter-20 run: ``export_serving.main``
    three times (f32 with corpus CMVN; int8 with CMVN and static
    activation scales; f32 with the 3-gram LM bundled); the BN fold on the
@@ -106,9 +107,10 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    max |logp|, every greedy string equal but at near-ties; int8 weights
    (1e-4) and int8_full with dynamic and static scales (1e-5, argmax
    equal) streamed on the card against the CPU; ``evaluate.main``
-   streaming on the card (``--artifact``, its records those of
-   ``--artifact --offline --offline-norm cmvn`` where the strings are
-   equal; over the first 4 utterances ``--model-path --streaming`` with
+   streaming on the card (``--artifact`` over the first 16 utterances,
+   its records those of ``--artifact --offline --offline-norm cmvn``
+   where the strings are equal; over the first 4 ``--model-path
+   --streaming`` with
    cumulative and CMVN
    normalisation and ``--int8``; ``--lookahead-frames`` 96 and the full
    one-sided context), K1 counted and gated around each (one a prime,
@@ -118,9 +120,9 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    K6 76 times a window) on the card against the CPU on one utterance; ``serve_tcp``'s
    server with 16 slots and 16 concurrent clients (one s16, one at 8 kHz),
    every FINAL a dedicated session's, the 17th refused BUSY; the times:
-   prime, step and finish at B=1, ``StreamMultiplexer.tick`` at 16, 64
-   and 256 slots per weights mode with the real-time factor, launches,
-   busy share, K1's share and peak memory.
+   prime, step and finish at B=1, ``StreamMultiplexer.tick`` at 16 and
+   64 slots per weights mode with the real-time factor, launches, busy
+   share, K1's share and peak memory.
 18. Exact QuartzNet-15x5 streaming (``StreamingJasper``: K1 once a
    prime, step and finish, K4 on each of the 77 depthwise convs a phase),
    on phase 13's run and its f32 artifact with CMVN, over 4 clips of 6
@@ -136,11 +138,11 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    --artifact`` on the artifact, no offline fallback, the dumps the
    exactness check's strings, K1 and K4 counted and gated around each;
    ``StreamMultiplexer`` over 16 streams against dedicated sessions; the
-   times: prime, step and finish at B=1, a tick at 16 and 64 slots (f32
-   and int8_full) with launches, busy share and peak memory, and the
-   host's time by function.
+   times: prime, step and finish at B=1, a tick at 16 slots (f32 and
+   int8_full) with launches, busy share and peak memory, and the host's
+   time by function.
 19. The data layer: ``make_offline_corpus`` writes a FLAC corpus (64 /
-   16 / 8 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
+   16 / 2 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
    prime window) and 4 utterances each at 8 and 22.05 kHz; (a) every
    file decodes through the C++ decoder to round(audio * 32767) of its
    rendered utterance, the Python decoder gives the same samples on 4
@@ -188,7 +190,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    ``evaluate --dump-jsonl`` of the val split, its WER the eval's.
 22. Data parallelism (``parallel/mesh.py``): (a) ``train.main`` under
    ``python -m torch.distributed.run --nproc-per-node 1`` (NCCL, world
-   1) on Wav2Letter-20 at full width, B=32, 4 steps, dropout off, against
+   1) on Wav2Letter-20 at full width, B=32, 2 steps, dropout off, against
    the ungrouped ``train.main``, each a fresh process (``chip_smoke.py
    --train-worker``) with cuDNN's deterministic algorithms: losses and
    weights within 1e-6 relative, K1-K3's launches equal, the step's ms in
@@ -246,15 +248,28 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    the SP checkpoint before it, within 1e-3 relative distance, the
    control outside it); K1-K7 against their plain versions (K4-K7 also
    the float64 oracle) at the SP path's shapes.
-25. One ``{"kernels": [...]}`` line: per kernel its launches on the
+25. bf16 compute (``model.compute_dtype=bf16``): K4-K7 on bf16 x against
+   their plain versions and a float64 oracle on the same bf16 values
+   (phase 11's shapes and phase 24's SP shapes; a bf16 output within one
+   ulp of the reference rounded to bf16, or within the float32 gate where
+   its float32 sum cancels; float32 outputs at phase 11's gates; the
+   same bits twice); Wav2Letter-20 and QuartzNet-15x5 at full width in
+   bf16: ``train.main`` (2 steps) and ``evaluate.main --model-path`` on
+   the run, 6 AdamW steps on one repeated B=32 batch with the loss
+   falling (K4-K7's bf16 launches pinned over these), the bf16 and f32
+   train and eval steps' ms, peak memory and conv TFLOP/s, bf16 vs f32
+   log-probs (at full depth and at 2 layers / blocks), and the card's
+   bf16 eval and train steps against the CPU's.
+26. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
    and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
    QuartzNet's, K4 also its lookahead and exact streams', K6 its
    lookahead stream's, each kernel's ``mesh_launches`` on phase 22's
    paths, ``tp_launches`` on phase 23's and ``sp_launches`` on phase
-   24's), max error against the plain
-   version, time, plain time, roofline bound and the time of the nearest
-   PyTorch library call (timed here only). K2 and K3 are also timed at the long
+   24's; K4-K7's ``bf16_launches`` on phase 25's), max error against the
+   plain version, time, plain time, roofline bound and the time of the
+   nearest PyTorch library call (timed here only); then a row for each of
+   K4-K7 on bf16 x (``<name>_bf16``). K2 and K3 are also timed at the long
    shape, and each prints its ns a dependent step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -316,7 +331,8 @@ from wav2letter_pytorch_tpu_torch.decoding.decoder import (
     DEFAULT_BEAM_ALPHA, DEFAULT_BEAM_BETA, DEFAULT_BEAM_K, DEFAULT_BEAM_PRUNE,
     PrefixBeamSearchLMDecoder, prefix_beam_search)
 from wav2letter_pytorch_tpu_torch.decoding.ngram_train import train_arpa
-from wav2letter_pytorch_tpu_torch.models.base import get_same_padding
+from wav2letter_pytorch_tpu_torch.models.base import (frozen_statistics,
+                                                      get_same_padding)
 from wav2letter_pytorch_tpu_torch.models.jasper import Activation
 from wav2letter_pytorch_tpu_torch.ops.ctc import (ctc_beta_reference,
                                                   ctc_loss, reduce_ctc)
@@ -1790,15 +1806,18 @@ def ctc_bound_ms(nbytes, ops):
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
 
 
-def k4_numbers():
-    """K4 at QuartzNet's C1 (B=32, 808 frames, 64 mels, K=33, stride 2);
-    the library yardstick is cuDNN's depthwise conv (groups = C)."""
+def k4_numbers(dtype=torch.float32):
+    """K4 at QuartzNet's C1 (B=32, 808 frames, 64 mels, K=33, stride 2),
+    x and w in ``dtype``; the library yardstick is cuDNN's depthwise conv
+    (groups = C) in the same dtype."""
     B, T, C, K, s, d = DW_MAIN
     (x, w, g), p = dw_inputs(*DW_MAIN, 30, DEVICE)
+    x, w = x.to(dtype), w.to(dtype)
+    es = x.element_size()
     t_out = g.shape[1]
     ms = cuda_ms(lambda: depthwise_fwd(x, w, s, d, p))
     b2b = cuda_ms(lambda: depthwise_fwd(x, w, s, d, p), queued=False)
-    print(f'K4 {ms:.4f} ms queued, {b2b:.4f} ms back to back')
+    print(f'K4 ({dtype}) {ms:.4f} ms queued, {b2b:.4f} ms back to back')
     plain_ms = cuda_ms(lambda: depthwise_fwd_reference(x, w, s, d, p),
                        iters=5)
     xt, wt = x.transpose(1, 2), w.t().unsqueeze(1).contiguous()
@@ -1806,26 +1825,30 @@ def k4_numbers():
     def library():
         return torch.nn.functional.conv1d(xt, wt, stride=s, padding=p,
                                           dilation=d, groups=C)
-    lib_err = (library().transpose(1, 2)
-               - depthwise_fwd(x, w, s, d, p)).abs().max().item()
+    lib_err = (library().transpose(1, 2).float()
+               - depthwise_fwd(x, w, s, d, p).float()).abs().max().item()
     library_ms = cuda_ms(library)
-    nbytes = 4 * (B * T * C + K * C + B * t_out * C)
+    nbytes = es * (B * T * C + K * C + B * t_out * C)
     ops = 2 * B * t_out * C * K
-    print(f'K4 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
-          f'cuDNN agrees to {lib_err:.2e}; {fwd_plan(t_out, K, s, d)}')
+    print(f'K4 ({dtype}) at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, '
+          f'{nbytes / 1e6:.2f} MB; cuDNN agrees to {lib_err:.2e}; '
+          f'{fwd_plan(t_out, K, s, d, es)}')
     return ms, plain_ms, library_ms, nbytes, ops
 
 
-def k5_numbers():
-    """K5 at C1's shape; the yardstick is cuDNN's weight gradient
-    (torch.nn.grad.conv1d_weight, one convolution_backward call)."""
+def k5_numbers(dtype=torch.float32):
+    """K5 at C1's shape, x and g in ``dtype`` (dw float32); the yardstick
+    is cuDNN's weight gradient (torch.nn.grad.conv1d_weight, one
+    convolution_backward call) in the same dtype."""
     B, T, C, K, s, d = DW_MAIN
     (x, w, g), p = dw_inputs(*DW_MAIN, 31, DEVICE)
+    x, g = x.to(dtype), g.to(dtype)
+    es = x.element_size()
     t_out = g.shape[1]
     ms = cuda_ms(lambda: depthwise_wgrad(x, g, K, s, d, p))
     b2b = cuda_ms(lambda: depthwise_wgrad(x, g, K, s, d, p), queued=False)
-    print(f'K5 {ms:.4f} ms queued (both launches), {b2b:.4f} ms back to '
-          'back')
+    print(f'K5 ({dtype}) {ms:.4f} ms queued (both launches), {b2b:.4f} ms '
+          'back to back')
     plain_ms = cuda_ms(lambda: depthwise_wgrad_reference(x, g, K, s, d, p),
                        iters=5)
     xt, gt = x.transpose(1, 2), g.transpose(1, 2)
@@ -1836,11 +1859,11 @@ def k5_numbers():
     lib_err = rel_err(library()[:, 0, :].t(),
                       depthwise_wgrad(x, g, K, s, d, p))
     library_ms = cuda_ms(library)
-    nbytes = 4 * (B * T * C + B * t_out * C + K * C)
+    nbytes = es * (B * T * C + B * t_out * C) + 4 * K * C
     ops = 2 * B * t_out * C * K
-    print(f'K5 at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; '
-          f'cuDNN agrees to {lib_err:.2e} (relative); '
-          f'{wgrad_plan(B, t_out, K, s, d)}')
+    print(f'K5 ({dtype}) at {DW_MAIN}: {ops / 1e9:.3f} GFLOP, '
+          f'{nbytes / 1e6:.2f} MB; cuDNN agrees to {lib_err:.2e} (relative); '
+          f'{wgrad_plan(B, t_out, K, s, d, es)}')
     return ms, plain_ms, library_ms, nbytes, ops
 
 
@@ -1853,29 +1876,32 @@ def sep_library(x, wdw, wpw, d, p):
     return torch.nn.functional.conv1d(h, wpw.t().unsqueeze(2).contiguous())
 
 
-def k6_k7_numbers():
+def k6_k7_numbers(dtype=torch.float32):
     """K6 and K7 at each of QuartzNet's unit shapes (B=32, 404 frames,
-    ragged lengths), averaged over the 76 launches of a forward: per
-    launch ms, plain ms, library ms (cuDNN: the depthwise and 1x1 convs;
-    for K7 their backward, forward + backward minus forward), bytes and
-    operations."""
+    ragged lengths; x in ``dtype``), averaged over the 76 launches of a
+    forward: per launch ms, plain ms, library ms (cuDNN: the depthwise and
+    1x1 convs, in ``dtype``; for K7 their backward, forward + backward
+    minus forward), bytes and operations."""
     B, T = BATCH, 404
     tot6 = np.zeros(5)
     tot7 = np.zeros(5)
     for i, ((cin, cout, K, d), count) in enumerate(SEP_PATH_UNITS.items()):
         (x, wdw, wpw, g), l1, l2, p = sep_inputs(B, T, cin, cout, K, d,
                                                  60 + i, DEVICE)
+        x = x.to(dtype)
+        es = x.element_size()
         t_out = g.shape[1]
         ms6 = cuda_ms(lambda: sep_fwd(x, l1, l2, wdw, wpw, d, p), iters=10)
         plain6 = cuda_ms(lambda: sep_fwd_reference(x, l1, l2, wdw, wpw, d,
                                                    p), iters=3, warmup=1)
-        lib6 = cuda_ms(lambda: sep_library(x, wdw, wpw, d, p), iters=10)
+        lib6 = cuda_ms(lambda: sep_library(x, wdw.to(dtype), wpw.to(dtype),
+                                           d, p), iters=10)
         ms7 = cuda_ms(lambda: sep_bwd(x, l1, l2, wdw, wpw, g, d, p),
                       iters=10)
         plain7 = cuda_ms(lambda: sep_bwd_reference(x, l1, l2, wdw, wpw, g, d,
                                                    p), iters=3, warmup=1)
-        ins = [t.detach().requires_grad_() for t in (x, wdw, wpw)]
-        gt = g.transpose(1, 2)
+        ins = [t.detach().to(dtype).requires_grad_() for t in (x, wdw, wpw)]
+        gt = g.transpose(1, 2).to(dtype)
 
         def lib_fwd():
             return sep_library(*ins, d, p)
@@ -1885,23 +1911,25 @@ def k6_k7_numbers():
         lib7 = max(cuda_ms(lib_fwd_bwd, iters=10) - cuda_ms(lib_fwd,
                                                             iters=10), 0.0)
         ops6 = 2 * B * t_out * cin * (K + cout)
-        bytes6 = 4 * (B * T * cin + K * cin + cin * cout + B * t_out * cout
-                      + 2 * B)
+        bytes6 = es * B * T * cin + 4 * (K * cin + cin * cout
+                                         + B * t_out * cout + 2 * B)
         ops7 = sum(k7_part_ops(x, l1, l2, wdw, wpw, g).values())
-        bytes7 = 4 * (2 * B * T * cin + B * t_out * cout + 2 * K * cin
-                      + 2 * cin * cout + 2 * B)
+        bytes7 = es * 2 * B * T * cin + 4 * (B * t_out * cout + 2 * K * cin
+                                             + 2 * cin * cout + 2 * B)
         tot6 += count * np.array([ms6, plain6, lib6, bytes6, ops6])
         tot7 += count * np.array([ms7, plain7, lib7, bytes7, ops7])
-        print(f'K6/K7 at (Cin, Cout, K, d)=({cin}, {cout}, {K}, {d}) x{count}'
-              f': K6 {ms6:.4f} ms ({ops6 / ms6 / 1e9:.1f} TFLOP/s; plain '
+        print(f'K6/K7 ({dtype}) at (Cin, Cout, K, d)=({cin}, {cout}, {K}, '
+              f'{d}) x{count}: K6 {ms6:.4f} ms ({ops6 / ms6 / 1e9:.1f} '
+              f'TFLOP/s; plain '
               f'{plain6:.3f}, cuDNN {lib6:.4f}), K7 {ms7:.4f} ms '
               f'({ops7 / ms7 / 1e9:.1f} TFLOP/s; plain {plain7:.3f}, cuDNN '
               f'backward {lib7:.4f})')
     n = sum(SEP_PATH_UNITS.values())
-    print(f'K6 per forward: {tot6[0]:.3f} ms over {n} launches '
+    print(f'K6 ({dtype}) per forward: {tot6[0]:.3f} ms over {n} launches '
           f'({tot6[4] / 1e12:.3f} TFLOP); K7 per backward: {tot7[0]:.3f} ms '
           f'({tot7[4] / 1e12:.3f} TFLOP)')
-    k7_split_per_backward()
+    if dtype == torch.float32:
+        k7_split_per_backward()
     return tuple(tot6 / n), tuple(tot7 / n)
 
 
@@ -2002,7 +2030,10 @@ PEAKY_SHAPE = (8, 202, 29)   # 8 rows, half the frames, of the main path's
 PEAKY_K, PEAKY_ALPHA, PEAKY_BETA = 8, 0.5, 1.0
 HOTWORDS = ['the', 'would', 'people']
 PY_UTTS = 1                  # utterances the float64 Python DP checks
-DECODE_CLI_UTTS = 8          # the corpus head evaluate.main beam-decodes
+DECODE_CLI_UTTS = 2          # the corpus head evaluate.main beam-decodes
+# The device search's ops are profiled over this share of a batch's frames
+# (its ops a frame do not depend on the frame count)
+PROFILE_FRAME_SHARE = 8
 NBEST_RTOL = 1e-5            # n-best log scores, card vs CPU search
 HYP_SCORE_RTOL = 1e-5        # a device/host hypothesis difference must be
 #                              a tie of the host DP's ranked scores
@@ -2317,12 +2348,15 @@ def phase_decoding_timing(manifest: str, restored_model: tuple,
         ms = host_ms(fn, reps, warmup=reps > 1)
         print(f"decode a batch, Wav2Letter-20 B={B} T'={T}, "
               f'k={DEFAULT_BEAM_K}: {what}: {ms:.2f} ms [{card}]')
+    t_prof = T // PROFILE_FRAME_SHARE
+    lp_prof = lp[:, :t_prof].contiguous()
+    lens_prof = torch.clamp(lens, max=t_prof)
     for what, dec in (('LM-free', dev_free), ('+ LM, fused', dev_lm)):
         n, per_frame, busy = search_launches(
-            lambda: dec.decode_log_probs(lp, lens), T)
-        print(f'device beam {what}, one batch of {T} frames: {n} device '
-              f'ops, kernels and copies ({per_frame:.1f} a frame), device '
-              f'busy {busy:.2f} ms (profiler) [{card}]')
+            lambda: dec.decode_log_probs(lp_prof, lens_prof), t_prof)
+        print(f'device beam {what}, one batch of its first {t_prof} frames: '
+              f'{n} device ops, kernels and copies ({per_frame:.1f} a '
+              f'frame), device busy {busy:.2f} ms (profiler) [{card}]')
     for what, dec in (('greedy', greedy), ('device beam, LM-free',
                                            dev_free)):
         t0 = time.perf_counter()
@@ -2782,7 +2816,8 @@ QN_LA_ATOL = 1e-3
 # evaluate.main's --model-path streaming modes run on the corpus's first
 # STREAM_CLI_UTTS utterances (--artifact on all, against --offline).
 STREAM_CLI_UTTS = 4
-TICK_SLOTS = (16, 64, 256)
+STREAM_ARTIFACT_UTTS = 16    # the corpus head evaluate --artifact streams
+TICK_SLOTS = (16, 64)
 TICK_ITERS = 10
 TCP_SLOTS = 16
 TCP_PIECE_S = 0.1            # each client sends 100 ms pieces, unpaced
@@ -2990,9 +3025,10 @@ def phase_streaming_card_vs_cpu(manifest: str, arts: dict):
 def phase_streaming_cli(manifest: str, arts: dict, run_dir: str, root: str,
                         card: str, strings: dict, k1: dict):
     """evaluate.main's streaming modes on the card, K1 counted and gated
-    around each: --artifact over the corpus (its strings those of the
-    exact check, its records those of --artifact --offline --offline-norm
-    cmvn where the strings are equal); over its first STREAM_CLI_UTTS
+    around each: --artifact over the corpus's first STREAM_ARTIFACT_UTTS
+    utterances (its strings those of the exact check, its records those
+    of --artifact --offline --offline-norm cmvn where the strings are
+    equal); over its first STREAM_CLI_UTTS
     utterances --model-path --streaming with cumulative and CMVN
     normalisation (the CMVN over the whole corpus) and with --int8,
     --lookahead-frames 96 and the full one-sided context."""
@@ -3004,6 +3040,7 @@ def phase_streaming_cli(manifest: str, arts: dict, run_dir: str, root: str,
         f.write('\n'.join(rows[:STREAM_CLI_UTTS]) + '\n')
     lens = [len(a) for _, a in corpus_audio(manifest, labels)]
     sub = lens[:STREAM_CLI_UTTS]
+    head = head_manifest(manifest, root, STREAM_ARTIFACT_UTTS)
     sw, _, _ = streaming_from_artifact(arts['f32'],
                                        chunk_frames=STREAM_CHUNK,
                                        device=DEVICE)
@@ -3013,8 +3050,9 @@ def phase_streaming_cli(manifest: str, arts: dict, run_dir: str, root: str,
     dumps, results = {}, {}
     for name, argv, want, n_utts in (
             ('--artifact', ['--artifact', arts['f32'], '--test-manifest',
-                            manifest],
-             sum(stream_steps(sw, n) for n in lens), N_UTTS),
+                            head],
+             sum(stream_steps(sw, n) for n in lens[:STREAM_ARTIFACT_UTTS]),
+             STREAM_ARTIFACT_UTTS),
             ('--streaming', run, n_stream, STREAM_CLI_UTTS),
             ('--streaming --streaming-norm cmvn',
              [*run, '--streaming-norm', 'cmvn', '--streaming-cmvn-manifest',
@@ -3046,7 +3084,7 @@ def phase_streaming_cli(manifest: str, arts: dict, run_dir: str, root: str,
     dump = os.path.join(root, 'offline_cmvn.jsonl')
     lines, _, _ = run_quiet(port_eval.main, [
         '--artifact', arts['f32'], '--offline', '--offline-norm', 'cmvn',
-        *serving_common(manifest), '--dump-jsonl', dump])
+        *serving_common(head), '--dump-jsonl', dump])
     off, offline = read_dump(dump), json.loads(lines[-1])
     same = [p for p in art if art[p]['hyp'] == off[p]['hyp']]
     streamed = results['--artifact']
@@ -3304,11 +3342,11 @@ def profile_ticks(mux, n: int) -> tuple:
     return (sum(e.count for e in events) / n, busy / window, k1 / busy)
 
 
-def time_ticks(sw, slots: int, labels, rng, profiled: bool = True):
+def time_ticks(sw, slots: int, labels, rng):
     """A StreamMultiplexer of ``slots`` streams, each attached and primed
     (B=1), then TICK_ITERS ticks timed (chained: each returns the host's
     text, so it ends synchronised) after two warm-up ticks: (ms a tick,
-    peak GiB, profile_ticks over three more, or None)."""
+    peak GiB, profile_ticks over three more)."""
     mux = StreamMultiplexer(sw, slots=slots, labels=labels)
     n = sw.prime_samples + (TICK_ITERS + 5) * sw.chunk_samples
     audio = (0.1 * rng.standard_normal((slots, n))).astype(np.float32)
@@ -3324,7 +3362,7 @@ def time_ticks(sw, slots: int, labels, rng, profiled: bool = True):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TICK_ITERS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = profile_ticks(mux, 3) if profiled else None
+    prof = profile_ticks(mux, 3)
     del mux
     torch.cuda.empty_cache()
     return ms, peak, prof
@@ -3335,10 +3373,7 @@ def phase_streaming_timing(arts: dict, card: str):
     TICK_SLOTS slots for f32, int8 weights and int8_full (static scales),
     the real-time factor (tick / chunk), the streams a card keeps at real
     time at that batch, peak memory; launches, busy share and K1's share
-    of a tick (profiler). Then the f32 step at B=1 and ticks again with
-    cuDNN's autotuner on (``torch.backends.cudnn.benchmark``), which the
-    port leaves off, to see what cuDNN's algorithm choice costs at these
-    small shapes."""
+    of a tick (profiler)."""
     meta, folded_f, stats = load_serving(arts['f32'])
     meta_q, folded_q, _ = load_serving(arts['int8'])
     labels = meta['labels']
@@ -3398,13 +3433,10 @@ def phase_streaming_timing(arts: dict, card: str):
               f'{gemm_ms:.3f} ms (agrees to {agree:.1e}); bound {bound:.4f} '
               f'ms [{card}]')
     chunk_ms = sw.chunk_samples / sw.sample_rate * 1e3
-    f32_ms = {}
     for mode in ('f32', 'int8', 'int8_full'):
         sw_mode = sw if mode == 'f32' else streamer(mode)
         for slots in TICK_SLOTS:
             ms, peak, prof = time_ticks(sw_mode, slots, labels, rng)
-            if mode == 'f32':
-                f32_ms[slots] = ms
             prof_text = 'profiler: no device time (not measured)' \
                 if prof is None else (
                     f'{prof[0]:.0f} launches a tick, device busy '
@@ -3415,18 +3447,6 @@ def phase_streaming_timing(arts: dict, card: str):
                   f'factor {rtf:.4f}, {int(slots / rtf)} streams at real '
                   f'time at this batch; peak memory {peak:.3f} GiB; '
                   f'{prof_text} [{card}]')
-    before = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
-        step_ms = cuda_ms(phases['step'], iters=10, warmup=3)
-        ticks = {s: time_ticks(sw, s, labels, rng, profiled=False)[0]
-                 for s in TICK_SLOTS}
-    finally:
-        torch.backends.cudnn.benchmark = before
-    print(f'f32 with cuDNN autotuning on (not the port\'s setting): step at '
-          f'B=1 {step_ms:.3f} ms device; ticks ' + ', '.join(
-              f'{s} slots {ticks[s]:.3f} ms (off: {f32_ms[s]:.3f})'
-              for s in TICK_SLOTS) + f' [{card}]')
 
 
 def phase_streaming(manifest: str, w2l_run: str, qn_run: str, arts: dict,
@@ -3477,7 +3497,7 @@ QN_DW_OPS = 77               # depthwise convs a phase: C1, 15 x 5, C2
 QN_STREAM_RTOL = 1e-4
 QN_CPU_CLIPS = 1
 QN_MUX_STREAMS = 16
-QN_TICK_SLOTS = (16, 64)
+QN_TICK_SLOTS = (16,)
 
 
 def log_probs(p: np.ndarray) -> np.ndarray:
@@ -3929,7 +3949,7 @@ def phase_streaming_jasper(manifest: str, qn_run: str, root: str,
 # The FLAC corpus of make_offline_corpus (seeds 0 / 1 / 2): train and val
 # as the JAX recipe writes them, the test split at least DATA_TEST_MIN_S
 # long so that streaming evaluation streams past W2L-20's 4.22 s prime.
-DATA_SPLITS = (64, 16, 8)
+DATA_SPLITS = (64, 16, 2)
 DATA_TEST_MIN_S = 4.5
 DATA_BATCH = 16              # the recipe's batch size
 DATA_EPOCHS = 2
@@ -4751,7 +4771,7 @@ def phase_tools(root: str, card: str) -> dict:
 
 # ------------------------------------------------------ data parallelism
 
-DP_EPOCHS = 2                # (a) Wav2Letter-20: 4 steps under world 1
+DP_EPOCHS = 1                # (a) Wav2Letter-20: 2 steps under world 1
 DP_QN_EPOCHS = 1             # (b) QuartzNet-15x5: 2 steps
 DP_WORLD1_RTOL = 1e-6        # world 1 vs ungrouped: losses and weights
 DP2_LAYERS = 4               # (c) Wav2Letter depth on two ranks
@@ -5762,6 +5782,41 @@ SP_RANKS = 2
 SP_MAIN_MAX = 404            # frames after C1 at the corpus's 808
 
 
+def sp_dw_case() -> tuple:
+    """K4 / K5 at phase 24's C1 shape: QuartzNet's C1 over the second
+    rank's haloed half (stride 2, padding 0, zeros past the end): the
+    shape (B, T, C, K, s, d) and (x, w, g)."""
+    outs = sp.time_partition(SP_MAIN_MAX, SP_RANKS)[-1]
+    B, T, C, K, s, d = DW_MAIN
+    p = get_same_padding(K, s, d)
+    wants, _ = sp.conv_wants(T, SP_RANKS, K, s, d, p, p)
+    lo, hi = wants[-1]
+    shape = (TP_BATCH, hi - lo, C, K, s, d)
+    (x, w, g), _ = dw_inputs(*shape, 124, DEVICE)
+    x[:, T - lo:] = 0.0          # past the sequence: the halo's zeros
+    return shape, (x, w, g[:, :outs[1] - outs[0]].contiguous())
+
+
+def sp_sep_cases():
+    """K6 / K7 at phase 24's shapes: each of QuartzNet's unit shapes over
+    the second rank's haloed half (padding 0, the masks' lengths shifted
+    to its ranges); yields ((Cin, Cout, K, d), (x, len1, len2, wdw, wpw,
+    g))."""
+    for i, (_, T, Cin, Cout, K, d) in enumerate(SEP_MAIN):
+        p = get_same_padding(K, 1, d)
+        (lo_o, hi_o) = sp.time_partition(T, SP_RANKS)[-1]
+        (x, wdw, wpw, g), l1, l2, _ = sep_inputs(
+            TP_BATCH, T, Cin, Cout, K, d, 140 + i, DEVICE)
+        # rank 1's haloed input: frames lo_o - p .. hi_o - p + d(K-1)
+        t_in = hi_o - lo_o + d * (K - 1)
+        xh = torch.zeros(TP_BATCH, t_in, Cin, device=DEVICE)
+        a, b = lo_o - p, min(T, hi_o - p + d * (K - 1))
+        xh[:, :b - a] = x[:, a:b]
+        l1, l2 = shifted_lengths(l1, l2, a, t_in, lo_o, hi_o - lo_o)
+        yield (Cin, Cout, K, d), (xh, l1, l2, wdw, wpw,
+                                  g[:, lo_o:hi_o].contiguous())
+
+
 def sp_kernel_checks(card: str) -> dict:
     """K1-K7 against their plain versions (and K4-K7 against the float64
     oracle) at the shapes phase 24's seq ranks give them, with phases
@@ -5782,15 +5837,8 @@ def sp_kernel_checks(card: str) -> dict:
                      ll_lo=395)
     errs['ctc_alpha'] = k2_compare('SP gathered log-probs', args)
     errs['ctc_beta'] = k3_compare('SP gathered log-probs', args)
-    outs = sp.time_partition(SP_MAIN_MAX, SP_RANKS)[-1]
-    B, T, C, K, s, d = DW_MAIN
-    p = get_same_padding(K, s, d)
-    wants, _ = sp.conv_wants(T, SP_RANKS, K, s, d, p, p)
-    lo, hi = wants[-1]
-    shape = (TP_BATCH, hi - lo, C, K, s, d)
-    (x, w, g), _ = dw_inputs(*shape, 124, DEVICE)
-    x[:, T - lo:] = 0.0          # past the sequence: the halo's zeros
-    g = g[:, :outs[1] - outs[0]].contiguous()
+    shape, (x, w, g) = sp_dw_case()
+    s, d = shape[4:]
     got = dw_kernel(x, w, g, s, d, 0)
     plain = dw_plain(x, w, g, s, d, 0)
     oracle = dw_plain(x.double(), w.double(), g.double(), s, d, 0)
@@ -5806,18 +5854,7 @@ def sp_kernel_checks(card: str) -> dict:
           f'(gate {SEP_DW_RTOL}); vs float64 oracle {o[0]:.2e} {o[1]:.2e} '
           f'{o[2]:.2e} (gate {DW_ORACLE_RTOL})')
     errs['sep_fwd'] = errs['sep_bwd'] = 0.0
-    for i, (_, T, Cin, Cout, K, d) in enumerate(SEP_MAIN):
-        p = get_same_padding(K, 1, d)
-        (lo_o, hi_o) = sp.time_partition(T, SP_RANKS)[-1]
-        (x, wdw, wpw, g), l1, l2, _ = sep_inputs(
-            TP_BATCH, T, Cin, Cout, K, d, 140 + i, DEVICE)
-        # rank 1's haloed input: frames lo_o - p .. hi_o - p + d(K-1)
-        t_in = hi_o - lo_o + d * (K - 1)
-        xh = torch.zeros(TP_BATCH, t_in, Cin, device=DEVICE)
-        a, b = lo_o - p, min(T, hi_o - p + d * (K - 1))
-        xh[:, :b - a] = x[:, a:b]
-        l1, l2 = shifted_lengths(l1, l2, a, t_in, lo_o, hi_o - lo_o)
-        g = g[:, lo_o:hi_o].contiguous()
+    for (Cin, Cout, K, d), (xh, l1, l2, wdw, wpw, g) in sp_sep_cases():
         got = (sep_fwd(xh, l1, l2, wdw, wpw, d, 0),
                *sep_bwd(xh, l1, l2, wdw, wpw, g, d, 0))
         plain = (sep_fwd_reference(xh, l1, l2, wdw, wpw, d, 0),
@@ -5966,6 +6003,510 @@ def phase_sequence_parallel(manifest: str, root: str, card: str,
     return launches, errs
 
 
+# ------------------------------------------------------------ phase 25
+
+BF16 = torch.bfloat16
+BF16_STEPS = 6               # repeated-batch bf16 train steps: the loss falls
+# Card vs CPU bf16 step on phase_cpu_reference's two utterances, at the
+# bars tests/test_torch_bf16.py holds the port to JAX with on the CPU:
+# losses, the update's relative distance (pre-BN conv biases, whose
+# gradient is rounding noise, left out), the outputs.
+BF16_LOSS_RTOL = 1e-3
+BF16_UPDATE_RTOL = 2e-2
+BF16_OUT_ATOL = 2e-2
+# bf16 against f32 log-probs from the same weights on the card. bf16's
+# drift from f32 grows with depth: at tests/test_bf16.py's depth (2
+# layers, or 2 blocks) JAX's bar is a max of 0.15; at full depth JAX's
+# own bf16 drifts from its f32 by a mean of 0.149 (Wav2Letter-20) and
+# 0.766 (QuartzNet-15x5), maxima 0.81 and 4.1 (tests/test_torch_bf16.py,
+# at 1/8 width), so the full-depth gate is twice that mean.
+BF16_VS_F32_ATOL = 0.15
+BF16_DRIFT_MEAN = {'Wav2Letter-20': 0.3, 'QuartzNet-15x5': 1.5}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bfloat16 ulps, elementwise, of two bf16 tensors."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_gate(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> tuple:
+    """A bf16 output against ``ref`` (the float64 oracle or the plain
+    version): (its elements more than one bf16 ulp from ``ref`` rounded to
+    bf16 and farther from ``ref`` than the float32 gate's rtol * max|ref|,
+    the most ulps of any element). An output is its float32 sum rounded
+    once; where that sum cancels to near zero, the float32 error is more
+    than a bf16 ulp of the result, and the float32 gate covers it."""
+    ref = ref.detach()
+    ulps = bf16_ulps(got, ref.to(BF16))
+    far = ((got.double() - ref.double()).abs()
+           > rtol * ref.double().abs().max())
+    return int(((ulps > 1) & far).sum()), int(ulps.max())
+
+
+def bf16_dw_check(name: str, shape, x, w, g, s, d, p) -> tuple:
+    """K4 (y, dx: bf16) and K5 (dw: float32) on the bf16 roundings of
+    x, w and g against their plain versions and the float64 oracle on the
+    same bf16 values. Returns the max abs errors against the plain
+    version (K4, K5)."""
+    x, w, g = (t.to(BF16) for t in (x, w, g))
+    got = dw_kernel(x, w, g, s, d, p)
+    y, dx, _ = dw_plain(x, w, g, s, d, p)
+    plain = (y, dx, depthwise_wgrad_reference(x, g, w.shape[0], s, d, p))
+    oracle = dw_plain(x.double(), w.double(), g.double(), s, d, p)
+    torch.cuda.synchronize()
+    gates = [bf16_gate(got[i], plain[i], SEP_DW_RTOL) for i in (0, 1)]
+    gates += [bf16_gate(got[i], oracle[i], DW_ORACLE_RTOL) for i in (0, 1)]
+    r, o = rel_err(got[2], plain[2]), rel_err(got[2], oracle[2])
+    check(got[0].dtype == got[1].dtype == BF16
+          and got[2].dtype == torch.float32
+          and all(bad == 0 for bad, _ in gates)
+          and r < SEP_DW_RTOL and o < DW_ORACLE_RTOL
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f'bf16 K4/K5 {name} (B,T,C,K,s,d)={shape}: y, dx (bf16) more '
+          'than 1 ulp from plain / float64 oracle and past their f32 gates: '
+          + ' '.join(str(bad) for bad, _ in gates) + ' (most ulps '
+          + ' '.join(str(u) for _, u in gates) + f'); dw (f32) vs plain '
+          f'{r:.2e} (gate {SEP_DW_RTOL}), vs oracle {o:.2e} (gate '
+          f'{DW_ORACLE_RTOL})')
+    ab = [(a.float() - b.float()).abs().max().item()
+          for a, b in zip(got, plain)]
+    return max(ab[:2]), ab[2]
+
+
+def bf16_sep_check(name: str, shape, x, l1, l2, wdw, wpw, g, d, p) -> tuple:
+    """K6 (y: float32) and K7 (dx: bf16; dwdw, dwpw: float32) on the bf16
+    rounding of x against their plain versions and the float64 oracle on
+    the same bf16 values. Returns the max abs errors against the plain
+    version (K6, K7)."""
+    x = x.to(BF16)
+    got = (sep_fwd(x, l1, l2, wdw, wpw, d, p),
+           *sep_bwd(x, l1, l2, wdw, wpw, g, d, p))
+    plain = (sep_fwd_reference(x, l1, l2, wdw, wpw, d, p),
+             *sep_bwd_reference(x, l1, l2, wdw, wpw, g, d, p))
+    oracle = sep_plain(x.double(), l1, l2, wdw.double(), wpw.double(),
+                       g.double(), d, p)
+    torch.cuda.synchronize()
+    gates = [bf16_gate(got[1], plain[1], SEP_DW_RTOL),
+             bf16_gate(got[1], oracle[1], SEP_ORACLE_RTOL)]
+    f32 = (0, 2, 3)
+    r = [rel_err(got[i], plain[i]) for i in f32]
+    o = [rel_err(got[i], oracle[i]) for i in f32]
+    check(got[1].dtype == BF16
+          and all(got[i].dtype == torch.float32 for i in f32)
+          and all(bad == 0 for bad, _ in gates)
+          and max(r) < SEP_DW_RTOL and max(o) < SEP_ORACLE_RTOL
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f'bf16 K6/K7 {name} (B,T,Cin,Cout,K,d)={shape} masks '
+          f'{"off" if l1 is None else "on"}: dx (bf16) more than 1 ulp from '
+          'plain / float64 oracle and past their f32 gates: '
+          + ' '.join(str(bad) for bad, _ in gates) + ' (most ulps '
+          + ' '.join(str(u) for _, u in gates) + '); y, dwdw, dwpw (f32) vs '
+          'plain ' + ' '.join(f'{v:.2e}' for v in r) + f' (gate '
+          f'{SEP_DW_RTOL}), vs oracle ' + ' '.join(f'{v:.2e}' for v in o)
+          + f' (gate {SEP_ORACLE_RTOL})')
+    ab = [(a.float() - b.float()).abs().max().item()
+          for a, b in zip(got, plain)]
+    return ab[0], max(ab[1:])
+
+
+def bf16_kernel_checks(card: str) -> dict:
+    """K4-K7 on bf16 x at phases 4-5's (11's) shapes and phase 24's SP
+    shapes, against their plain versions and the float64 oracle; the same
+    bits from two calls. Returns each kernel's max abs error against its
+    plain version."""
+    errs = dict.fromkeys(('depthwise_fwd', 'depthwise_wgrad', 'sep_fwd',
+                          'sep_bwd'), 0.0)
+
+    def keep(k4, k5, names=('depthwise_fwd', 'depthwise_wgrad')):
+        for n, v in zip(names, (k4, k5)):
+            errs[n] = max(errs[n], v)
+    for i, shape in enumerate(DW_GRID + [DW_MAIN] + DW_EDGE):
+        B, T, C, K, s, d = shape
+        (x, w, g), p = dw_inputs(*shape, 220 + i, DEVICE)
+        name = ('main path' if shape == DW_MAIN else
+                'edge' if shape in DW_EDGE else f'grid{i}')
+        keep(*bf16_dw_check(name, shape, x, w, g, s, d, p))
+    shape, (x, w, g) = sp_dw_case()
+    keep(*bf16_dw_check('SP C1', shape, x, w, g, *shape[4:], 0))
+    cases = ([(sh, m) for sh in SEP_GRID for m in (True, False)]
+             + [(sh, True) for sh in SEP_MAIN + SEP_EDGE + SEP_BWD_EDGE])
+    sep = ('sep_fwd', 'sep_bwd')
+    for i, (shape, masked) in enumerate(cases):
+        (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 240 + i, DEVICE,
+                                                 masked)
+        name = ('main path' if shape in SEP_MAIN else
+                'edge' if shape in SEP_EDGE else
+                'K7 edge' if shape in SEP_BWD_EDGE else f'grid{i // 2}')
+        keep(*bf16_sep_check(name, shape, x, l1, l2, wdw, wpw, g, shape[5],
+                             p), names=sep)
+    for unit, (xh, l1, l2, wdw, wpw, g) in sp_sep_cases():
+        keep(*bf16_sep_check('SP unit', (TP_BATCH, xh.shape[1], *unit), xh,
+                             l1, l2, wdw, wpw, g, unit[3], 0), names=sep)
+    # No float atomics: two calls give the same bits.
+    B, T, C, K, s, d = DW_MAIN
+    (x, w, g), p = dw_inputs(*DW_MAIN, 298, DEVICE)
+    x, w, g = (t.to(BF16) for t in (x, w, g))
+    shape = SEP_MAIN[2]
+    (xs, wdw, wpw, gs), l1, l2, ps = sep_inputs(*shape, 299, DEVICE)
+    xs = xs.to(BF16)
+
+    def calls():
+        return (depthwise_fwd(x, w, s, d, p),
+                depthwise_dgrad(g, w, T, s, d, p),
+                depthwise_wgrad(x, g, K, s, d, p),
+                sep_fwd(xs, l1, l2, wdw, wpw, shape[5], ps),
+                *sep_bwd(xs, l1, l2, wdw, wpw, gs, shape[5], ps))
+    first, again = calls(), calls()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f'bf16 K4, K5 at {DW_MAIN} and K6, K7 at {shape}: two calls give '
+          f'the same bits [{card}]')
+    return errs
+
+
+def conv_flops(model, B: int, T: int) -> int:
+    """Operations of the convs of one forward at B x T feature frames
+    (2 a multiply-add): Wav2Letter's blocks and head, or every Jasper
+    conv (depthwise, pointwise, residual, the head)."""
+    total = 0
+    if hasattr(model, 'conv1ds'):
+        for block in model.conv1ds:
+            w = block.conv1.weight
+            T = block.out_time(T)
+            total += 2 * B * T * w.numel()
+        return total
+    for block in model.jasper_encoder:
+        t_block = T
+        for slots in block.layout:
+            for i in slots['convs']:
+                conv = block.mconv[i]
+                T = conv.out_time(T)
+                total += 2 * B * T * conv.conv.weight.numel()
+        for conv, _ in block.res:
+            total += 2 * B * conv.out_time(t_block) * conv.conv.weight.numel()
+    return total + 2 * B * T * model.final_layer[0].weight.numel()
+
+
+def bf16_corpus_batch(manifest: str, overrides) -> dict:
+    """The corpus's first training batch (B=32 of ~8 s), on the card."""
+    cfg = train_config(f'data.train_manifest={manifest}',
+                       f'data.val_manifest={manifest}',
+                       f'data.batch_size={BATCH}', *overrides)
+    loader, _ = port_train.get_data_loaders(build_labels(cfg['model']),
+                                            cfg['data'])
+    return port_eval.to_device(next(iter(loader)), DEVICE)
+
+
+def bf16_entry_points(manifest: str, root: str, overrides, what: str):
+    """train.main on a model.compute_dtype=bf16 run (1 epoch, 2 steps, a
+    validation), then evaluate.main --model-path on it: both return 0, the
+    losses are finite, the checkpoint holds float32 tensors only."""
+    run_dir = os.path.join(root, f'bf16_run_{len(os.listdir(root))}')
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_train.main([
+            f'data.train_manifest={manifest}',
+            f'data.val_manifest={manifest}', f'data.batch_size={BATCH}',
+            *depth_overrides(overrides), *overrides,
+            'model.compute_dtype=bf16', 'trainer.log_every_n_steps=1',
+            'trainer.max_epochs=1', 'trainer.max_steps=2',
+            f'trainer.default_root_dir={run_dir}', '--device', str(DEVICE)])
+    torch.cuda.synchronize()
+    losses = read_losses(run_dir)
+    state = Checkpointer(os.path.join(run_dir, 'checkpoints')).restore()
+    check(rc == 0 and sorted(losses) == [1, 2]
+          and all(math.isfinite(v) for v in losses.values())
+          and all(v.dtype in (torch.float32, torch.int64)
+                  for v in state['model'].values()),
+          f'train.main ({what}, compute_dtype=bf16): 2 steps, losses '
+          f'{losses}, a float32 checkpoint at step {state["step"]}')
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_eval.main(['--model-path', run_dir, '--test-manifest',
+                             manifest, '--device', str(DEVICE),
+                             '--batch-size', str(BATCH)])
+    torch.cuda.synchronize()
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and result['num_utterances'] == N_UTTS
+          and all(math.isfinite(result[k]) for k in ('loss', 'cer', 'wer')),
+          f'evaluate.main --model-path on the bf16 {what} run: {result}')
+    return run_dir
+
+
+def bf16_drift(batch: dict, overrides) -> tuple:
+    """(max, mean) |bf16 - f32| of the log-probs of ``batch``'s valid
+    frames, from the same seeded weights (train mode on the batch's
+    statistics, frozen; dropout off)."""
+    logp = {}
+    for dtype in ('bf16', 'f32'):
+        extra = ['model.compute_dtype=bf16'] if dtype == 'bf16' else []
+        cfg = train_config(*overrides, *extra, no_dropout=True)
+        model = build_model(cfg['model'], len(build_labels(cfg['model'])),
+                            seed=0).to(DEVICE)
+        fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE)
+        model.train()
+        with torch.no_grad(), frozen_statistics(model):
+            logp[dtype], lens = model(*fe(batch['audio'],
+                                          batch['audio_lengths']))
+        del model
+    valid = (torch.arange(logp['f32'].shape[1], device=DEVICE)[None, :]
+             < lens[:, None])
+    diff = (logp['bf16'] - logp['f32']).abs()[valid]
+    torch.cuda.empty_cache()
+    return float(diff.max()), float(diff.mean())
+
+
+def bf16_steps(batch: dict, root: str, overrides, what: str, lr: float,
+               card: str) -> dict:
+    """From the same seeded weights, in bf16 then float32: AdamW train
+    steps on one repeated B=32 batch (dropout and dither off); bf16's
+    first BF16_STEPS must lower the loss (the counted main path). Then
+    each dtype's train and eval step ms (3 steps after the warm-up), peak
+    memory and conv TFLOP/s (the convs' operations over the step's
+    time). Returns the bf16 launches of K4-K7 in those BF16_STEPS."""
+    for dtype in ('bf16', 'f32'):
+        extra = ['model.compute_dtype=bf16'] if dtype == 'bf16' else []
+        cfg = train_config(*overrides, *extra, no_dropout=True)
+        tr = make_trainer(cfg, os.path.join(root, f'bf16_{what}_{dtype}'),
+                          DEVICE, dither=0.0,
+                          optimizer=lambda p: torch.optim.AdamW(
+                              p, lr=lr, weight_decay=0.0))
+        model, fe = tr.model, tr.frontend
+        frames = fe(batch['audio'], batch['audio_lengths'])[0].shape[1]
+        if dtype == 'bf16':
+            counters = (depthwise_fwd, depthwise_wgrad, sep_fwd, sep_bwd)
+            for fn in counters:
+                fn.bf16_launches = 0
+            losses = [float(tr.train_step(batch)[0])
+                      for _ in range(BF16_STEPS)]
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.bf16_launches for fn in counters}
+            print(f'{what} bf16 losses, AdamW lr {lr}: '
+                  + ' '.join(f'{v:.4f}' for v in losses))
+            check(all(math.isfinite(v) for v in losses)
+                  and losses[-1] < losses[0],
+                  f'{what} trains in bf16: loss {losses[0]:.4f} -> '
+                  f'{losses[-1]:.4f} over {BF16_STEPS} steps on one B={BATCH}'
+                  f' batch')
+        else:
+            tr.train_step(batch)   # warm-up (cuDNN plans, allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loss = tr.train_step(batch)[0]
+        float(loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.eval()
+        port_eval.eval_step(model, fe, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = port_eval.eval_step(model, fe, batch)[1]
+        out.cpu()
+        eval_ms = (time.perf_counter() - t0) / 3 * 1e3
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flops = conv_flops(model, BATCH, frames)
+        print(f'{what} {dtype}: train step {step_ms:.3f} ms, peak '
+              f'{train_peak:.3f} GiB, convs {3 * flops / step_ms / 1e9:.1f} '
+              f'TFLOP/s over the step; eval step {eval_ms:.3f} ms, peak '
+              f'{eval_peak:.3f} GiB, convs {flops / eval_ms / 1e9:.1f} '
+              f'TFLOP/s over the step ({flops / 1e12:.3f} TFLOP a forward; '
+              f'B={BATCH}, {tuple(batch["audio"].shape)} audio) [{card}]')
+        del tr, model
+        torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def activation_branches(model, branches: dict, force: bool):
+    """Wav2Letter's clamps (block index -> mask of 0 <= z <= 20 on the
+    BatchNorm output z) or Jasper's ReLUs (module name -> mask of input >
+    0): record each one's branch into ``branches``, or with ``force`` take
+    the recorded branches in the backward (the gradient passes where the
+    mask says)."""
+    from wav2letter_pytorch_tpu_torch.models import wav2letter as w2l
+    hooks, plain_clamp = [], w2l.hardtanh_0_20
+    if hasattr(model, 'conv1ds'):
+        if force:
+            masks = iter([branches[i] for i in sorted(branches)])
+            w2l.hardtanh_0_20 = lambda x: BranchClamp.apply(
+                x, next(masks).to(x.device, x.dtype))
+        else:
+            def record(i):
+                def hook(module, inputs, z):
+                    branches[i] = ((z >= 0) & (z <= 20)).cpu()
+                return hook
+            hooks = [blk.batch_norm.register_forward_hook(record(i))
+                     for i, blk in enumerate(model.conv1ds)
+                     if blk.batch_norm is not None and blk.use_activation]
+    else:
+        def hook_for(name):
+            def hook(module, inputs, out):
+                if force:
+                    x = inputs[0]
+                    return BranchRelu.apply(
+                        x, branches[name].to(x.device, x.dtype))
+                branches[name] = (inputs[0] > 0).cpu()
+            return hook
+        hooks = [m.register_forward_hook(hook_for(n))
+                 for n, m in activations(model).items()]
+    try:
+        yield branches
+    finally:
+        w2l.hardtanh_0_20 = plain_clamp
+        for h in hooks:
+            h.remove()
+
+
+def bf16_card_vs_cpu(root: str, overrides, train: bool = True) -> tuple:
+    """One bf16 eval step and one bf16 train step (the model's optimizer;
+    dither and dropout off) at full width on the card and on the CPU,
+    phase_cpu_reference's two utterances, from the same weights, the CPU's
+    train step on the card's clamp / ReLU branches (a pre-activation at
+    0 takes either branch under another rounding, and through BatchNorm a
+    flip moves the gradients of the blocks below by ~1 %; phase 8): (eval
+    loss rel, outputs max abs, and with ``train`` the train losses, the
+    update's relative distance over the parameters but the pre-BN conv
+    biases and the branches the CPU took otherwise)."""
+    cfg = train_config(*overrides, 'model.compute_dtype=bf16',
+                       no_dropout=True)
+    rng = np.random.default_rng(5)
+    T = 16000
+    audio = (0.1 * rng.standard_normal((2, T))).astype(np.float32)
+    batch = dict(audio=audio, audio_lengths=np.array([T, 12000], np.int32),
+                 targets=rng.integers(1, 29, (2, 16)).astype(np.int32),
+                 target_lengths=np.array([16, 9], np.int32),
+                 batch_mask=np.ones(2, np.float32))
+    res, card_branches, flips = {}, {}, 0
+    for dev in (DEVICE, torch.device('cpu')):
+        tr = make_trainer(cfg, os.path.join(root, f'bf16_cpu_{dev.type}'),
+                          dev, dither=0.0)
+        b = port_eval.to_device(batch, dev)
+        tr.model.eval()
+        eloss, out, _ = port_eval.eval_step(tr.model, tr.frontend, b,
+                                            output='model')
+        res[dev.type] = (float(eloss), out.float().cpu())
+        if not train:
+            continue
+        before = {k: v.detach().cpu().clone()
+                  for k, v in tr.model.state_dict().items()}
+        tr.model.train()
+        if dev == DEVICE:
+            with activation_branches(tr.model, card_branches, False):
+                loss = tr.train_step(b)[0]
+        else:
+            own = {}
+            with activation_branches(tr.model, own, False):
+                with torch.no_grad():   # the CPU's own branches, counted
+                    tr.model(*tr.frontend(b['audio'], b['audio_lengths']))
+            flips = sum(int((own[k] != card_branches[k]).sum())
+                        for k in own)
+            tr.model.load_state_dict(before)   # the statistics moved
+            with activation_branches(tr.model, card_branches, True):
+                loss = tr.train_step(b)[0]
+        after = {k: v.detach().cpu().clone()
+                 for k, v in tr.model.state_dict().items()}
+        res[dev.type] += (float(loss), before, after)
+        del tr
+    (ec, oc, *card), (er, or_, *cpu) = res[DEVICE.type], res['cpu']
+    evals = (abs(ec - er) / abs(er), float((oc - or_).abs().max()))
+    if not train:
+        return evals
+    (lc, bc, ac), (lr_, br, ar) = card, cpu
+    pre_bn = {k for k in ac if k.endswith('conv1.bias')
+              and k.replace('conv1.bias', 'batch_norm.weight') in ac}
+    params = [k for k in ac if k.endswith(('.weight', '.bias'))
+              and k not in pre_bn]
+    num = sum(float(((ac[k] - bc[k] - ar[k] + br[k]).double() ** 2).sum())
+              for k in params)
+    den = sum(float(((ar[k] - br[k]).double() ** 2).sum()) for k in params)
+    return (*evals, (lc, lr_), math.sqrt(num / den), flips)
+
+
+def bf16_cpu_reference(root: str, overrides, what: str, shallow: str):
+    """The card's bf16 eval and train steps against the CPU's
+    (``bf16_card_vs_cpu``) at tests/test_torch_bf16.py's bars: at full
+    depth the eval step's loss and outputs; the train step's loss and
+    update at the depth of those tests (``shallow``, a model.mid_layers
+    override). In train mode, at full depth, a bf16 conv output that
+    rounds the other way on the card (another float32 summation order)
+    grows through the blocks' BatchNorms as bf16's own drift from float32
+    does (phase 25's drift gates; PERF.md, PR 20)."""
+    erel, err = bf16_card_vs_cpu(root, overrides, train=False)
+    check(erel < BF16_LOSS_RTOL and err < BF16_OUT_ATOL,
+          f'{what} bf16, full width, B=2 x 1 s, card vs CPU eval step: loss '
+          f'rel {erel:.2e}, outputs max {err:.2e} (gates {BF16_LOSS_RTOL}, '
+          f'{BF16_OUT_ATOL})')
+    erel, err, (lc, lr_), update, flips = bf16_card_vs_cpu(
+        root, [*overrides, shallow])
+    lrel = abs(lc - lr_) / abs(lr_)
+    check(erel < BF16_LOSS_RTOL and lrel < BF16_LOSS_RTOL
+          and err < BF16_OUT_ATOL and update < BF16_UPDATE_RTOL,
+          f'{what} bf16 at {shallow}, full width, B=2 x 1 s, card vs CPU: '
+          f'eval loss rel {erel:.2e}, outputs max {err:.2e}, train loss rel '
+          f'{lrel:.2e}, update rel distance on the card\'s branches '
+          f'{update:.2e} ({flips} flipped) (gates {BF16_LOSS_RTOL}, '
+          f'{BF16_OUT_ATOL}, {BF16_LOSS_RTOL}, {BF16_UPDATE_RTOL})')
+
+
+def phase_bf16(manifest: str, root: str, card: str) -> tuple:
+    """Phase 25: model.compute_dtype=bf16. K4-K7 on bf16 x against their
+    plain versions and the float64 oracle; then Wav2Letter-20 and
+    QuartzNet-15x5 at full width in bf16: train.main and evaluate.main on
+    a bf16 run and BF16_STEPS steps on a repeated batch (the counted main
+    path: K4-K7's bf16 launches pinned), the steps' ms, memory and conv
+    rates beside float32's, bf16 vs f32 log-probs, the card's bf16 steps
+    against the CPU's. Returns (bf16 launches, max abs errors)."""
+    errs = bf16_kernel_checks(card)
+    counters = (depthwise_fwd, depthwise_wgrad, sep_fwd, sep_bwd)
+    launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    for overrides, what, lr, shallow in (
+            ([], 'Wav2Letter-20', OVERFIT_LR, 'model.mid_layers=3'),
+            (QN + ['optimizer=novograd'], 'QuartzNet-15x5', 1e-3,
+             'model.mid_layers=2')):
+        for fn in counters:
+            fn.bf16_launches = 0
+        bf16_entry_points(manifest, root, overrides, what)
+        counted = {fn.__name__: fn.bf16_launches for fn in counters}
+        batch = bf16_corpus_batch(manifest, overrides)
+        top, mean = bf16_drift(batch, overrides)
+        check(mean < BF16_DRIFT_MEAN[what],
+              f'{what} bf16 vs f32 log-probs, same weights, B={BATCH}: mean '
+              f'{mean:.4f} (gate {BF16_DRIFT_MEAN[what]}), max {top:.4f}')
+        # at tests/test_bf16.py's depth: 2 layers, or 2 blocks
+        top, mean = bf16_drift(batch, [*overrides, 'model.mid_layers=2'])
+        check(top < BF16_VS_F32_ATOL,
+              f'{what} at model.mid_layers=2 (full width) bf16 vs f32 '
+              f'log-probs, same weights, B={BATCH}: max {top:.4f} (gate '
+              f'{BF16_VS_F32_ATOL}), mean {mean:.2e}')
+        steps = bf16_steps(batch, root, overrides, what, lr, card)
+        counted = {k: counted[k] + steps[k] for k in counted}
+        n_batches = N_UTTS // BATCH
+        # train.main: 2 steps and a validation of n_batches; evaluate.main:
+        # n_batches; then BF16_STEPS steps. A QuartzNet forward launches K4
+        # once and K6 QN_UNITS times, a backward K5 once and K7 QN_UNITS
+        # times (the features need no gradient: no K4 input gradient).
+        fwd = 2 + 2 * n_batches + BF16_STEPS
+        bwd = 2 + BF16_STEPS
+        want = ({'depthwise_fwd': fwd, 'depthwise_wgrad': bwd,
+                 'sep_fwd': QN_UNITS * fwd, 'sep_bwd': QN_UNITS * bwd}
+                if overrides else dict.fromkeys(counted, 0))
+        check(counted == want,
+              f'{what} bf16 path: K4-K7 bf16 launches {counted} (want '
+              f'{want})')
+        for k in launches:
+            launches[k] += counted[k]
+        bf16_cpu_reference(root, overrides, what, shallow)
+        torch.cuda.empty_cache()
+    return launches, errs
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -6090,6 +6631,9 @@ def main() -> int:
             sp_launches, sp_errs = phase_sequence_parallel(
                 manifest, root, card, shared, sp_ranks.result())
         lap('phase 24: sequence parallelism')
+        # bf16 compute: K4-K7 on bf16 x, both models trained in bf16
+        bf16_launches, bf16_errs = phase_bf16(manifest, root, card)
+        lap('phase 25: bf16 compute')
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -6140,6 +6684,16 @@ def main() -> int:
         entry['sp_launches'] = sp_launches[entry['name']]
         entry['max_abs_err'] = max(entry['max_abs_err'],
                                    sp_errs[entry['name']])
+    # K4-K7 on bf16 x: their launches on phase 25's path, and a row each
+    bf16_numbers = {'depthwise_fwd': k4_numbers(BF16),
+                    'depthwise_wgrad': k5_numbers(BF16)}
+    bf16_numbers['sep_fwd'], bf16_numbers['sep_bwd'] = k6_k7_numbers(BF16)
+    for entry in kernels[3:7]:
+        name = entry['name']
+        entry['bf16_launches'] = bf16_launches[name]
+        kernels.append(kernel_entry(
+            name + '_bf16', entry['source'], entry['replaces'],
+            bf16_launches[name], bf16_errs[name], bf16_numbers[name]))
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)

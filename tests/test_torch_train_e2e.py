@@ -246,8 +246,8 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize('override,match', [
     ('trainer.steps_per_dispatch=2', 'steps_per_dispatch'),
     ('trainer.device_cache=true', 'device_cache'),
-    ('model.compute_dtype=bf16', 'compute_dtype'),
-    ('model.padding_mode=zeros', 'padding_mode'),
+    ('model.compute_dtype=fp16', 'compute_dtype'),
+    ('model.padding_mode=circular', 'padding_mode'),
     ('model=conformer', 'No config'),
     ('data.audio_dtype=float16', 'audio_dtype'),
     ('trainer.no_such_key=1', 'does not exist'),

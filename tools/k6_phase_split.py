@@ -34,12 +34,13 @@ OUT_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), 'k6_phase_split')
 # (anchor in sep_conv.cu, text put before it): each guard returns early or
 # skips a call when its macro is defined.
 GUARDS = {
-    'SKIP_DW': ('    fwd_depthwise<TN>(smem + (ch % F_STAGES) * stage',
+    'SKIP_DW': ('    fwd_depthwise<TN, XT>(st, dw_s',
                 '#ifndef SKIP_DW\n', ';\n', '#endif\n'),
     'SKIP_WPW': ('  constexpr int PER_W = TN / STRIDE;',
                  '#ifdef SKIP_WPW\n  if (c0 >= 0) return;\n#endif\n', None,
                  None),
-    'SKIP_LOAD': ('    float* st = smem + (chunk % F_STAGES) * stage;',
+    'SKIP_LOAD': ('    unsigned char* st = smem_raw + (chunk % F_STAGES) '
+                  '* stage;',
                   '#ifdef SKIP_LOAD\n    if (chunk >= 0) return;\n#endif\n',
                   None, None),
 }

@@ -163,14 +163,14 @@ UNSUPPORTED = {
     'trainer.prng_impl': 'rbg',
     'trainer.ctc_impl': 'auto',
     'model.stft_method': 'auto',
-    'model.padding_mode': 'reflect',
-    'model.compute_dtype': 'f32',
 }
 # Keys the port acts on whose values are checked as the JAX package checks
-# them (there, where the dataset and the frontend are built).
+# them (there, where the dataset, the frontend and the model are built).
 CHOICES = {
     'data.audio_dtype': ('float32', 'int16'),
     'model.feature_type': ('logmel', 'mfcc'),
+    'model.compute_dtype': ('f32', 'float32', 'bf16', 'bfloat16'),
+    'model.padding_mode': ('reflect', 'zeros'),
 }
 SUPPORTED_DECODERS = ('wav2letter_pytorch_tpu.decoding.GreedyDecoder',
                       'decoder.GreedyDecoder')
@@ -435,6 +435,15 @@ def check_supported(cfg: dict) -> None:
         if value not in choices:
             raise ValueError(f'{key} must be one of {choices}, got '
                              f'{value!r}')
+    if cfg.get('model', {}).get('compute_dtype') in ('bf16', 'bfloat16'):
+        mesh = cfg.get('trainer', {}).get('mesh') or {}
+        for axis in ('model', 'seq'):
+            if int(mesh.get(axis) or 1) > 1:
+                raise ValueError(
+                    f'model.compute_dtype=bf16 with trainer.mesh.{axis}='
+                    f'{mesh[axis]} is not ported: tensor- and sequence-'
+                    'parallel convs carry float32 (train bf16 with '
+                    'trainer.mesh.model=1 trainer.mesh.seq=1)')
     n_mfcc = cfg.get('model', {}).get('n_mfcc')
     if n_mfcc is not None and (isinstance(n_mfcc, bool)
                                or not isinstance(n_mfcc, int)

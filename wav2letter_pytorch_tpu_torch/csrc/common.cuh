@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA kernels (plain C interface, ctypes).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Every library exports this so the Python wrapper can name a failed
@@ -35,19 +36,62 @@ struct SmemLimit {
 };
 
 // cp.async copies from device to shared memory: 16 bytes (cache-global) or
-// 4 bytes; `valid` false zero-fills the destination (source size 0).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// 4 bytes, of any element type; `valid` false zero-fills the destination
+// (source size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Elements: float32, or bfloat16 (model.compute_dtype=bf16) read into
+// float32 arithmetic and written rounded to nearest even (as XLA's
+// astype). load2 reads two neighbouring elements as a float2.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Elements a copy_to_shared moves: 16 bytes' worth with VEC, else one.
+template <typename E, bool VEC>
+__host__ __device__ constexpr int copy_elems() {
+  return VEC ? 16 / (int)sizeof(E) : 1;
+}
+
+// Device to shared memory, zero where !valid: 16 bytes by cp.async (VEC),
+// else one element, a float by a 4-byte cp.async and a bfloat16 (below
+// cp.async's least size) by a plain load and store. A __syncthreads after
+// cp_async_wait makes either visible.
+template <typename E, bool VEC>
+__device__ __forceinline__ void copy_to_shared(E* dst, const E* src,
+                                               bool valid) {
+  if constexpr (VEC) {
+    cp_async16(dst, src, valid);
+  } else if constexpr (sizeof(E) == 4) {
+    cp_async4(dst, src, valid);
+  } else if (valid) {
+    *dst = *src;
+  } else {
+    store(dst, 0.f);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -3,10 +3,16 @@
 // Replaces the Pallas TPU kernels of wav2letter_pytorch_tpu/ops/
 // depthwise_pallas.py: K4 is _dw_pallas -> _dw_fma_kernel,
 //     y[b, t, c] = sum_k w[k, c] * x_pad[b, t*s + k*d, c],
-// x [B, T, C] f32, w [K, C] f32, stride s, dilation d, symmetric zero
-// padding p, y [B, T_out, C], T_out = (T + 2p - d(K-1) - 1) / s + 1; K5 is
+// x [B, T, C], w [K, C], stride s, dilation d, symmetric zero padding p,
+// y [B, T_out, C], T_out = (T + 2p - d(K-1) - 1) / s + 1; K5 is
 // _dw_pallas_wgrad -> _dw_wgrad_kernel,
 //     dw[k, c] = sum_{b, t} x_pad[b, t*s + k*d, c] * g[b, t, c].
+// Elements are float32, or bfloat16 (model.compute_dtype=bf16; the TPU
+// kernel's "bf16 in -> bf16 out, f32 accumulate"): every kernel is a
+// template on the element type E, staged in shared memory as E (half the
+// bytes at bf16), summed in float32 and, for K4, written as E rounded to
+// nearest even; K5's partials and dw are float32 either way (the wrapper
+// rounds a bf16 dw, as _dw_op_bwd's dw.astype(w.dtype)).
 // The input gradient is K4 again (stride 1, flipped w, on the zero-stuffed
 // cotangent), as in _dw_op_bwd; the wrapper (ops/depthwise.py) arranges it.
 //
@@ -24,12 +30,13 @@
 // plane (k d) mod s at row t + (k d) div s, one row a frame. With
 // g = gcd(s, d), s' = s/g and d' = d/g, the taps k = kr, kr + s', kr + 2s',
 // ... (a class, kr < s') share a plane and sit d' rows apart. Copies are
-// cp.async, 16 bytes where C % 4 == 0 (and the bases are aligned), else 4.
+// cp.async, 16 bytes where C is a multiple of 16 bytes' elements (4 f32, 8
+// bf16) and the bases are aligned, else one element (bf16: a plain load).
 // A shared row holds a block's CT = 32 channels. A lane owns two of them
-// (float2: with one 32-bit shared load per R FMAs the loads' issue rate,
-// not the FMAs', was the limit, and a 64-bit load moves twice the bytes
-// for one issue), so a half-warp reads a whole row and each half-warp
-// works on an item of its own.
+// (a float2 or a bf16 pair: with one 32-bit shared load per R FMAs the
+// loads' issue rate, not the FMAs', was the limit, and a 64-bit load moves
+// twice the bytes for one issue), so a half-warp reads a whole row and
+// each half-warp works on an item of its own.
 //
 // K4: a block per (time tile, 32 channels, batch row). A thread computes R
 // outputs of its channels, frames f0 + i d' (i < R). For the taps of one
@@ -91,11 +98,12 @@ __device__ __forceinline__ int gcd_int(int a, int b) {
 
 // Stage `rows` rows of each of the s phase planes [s][L][CT]: plane r row i
 // = x row u0 + i*s + r of this batch row, zero outside [0, T) and past C.
-template <int STRIDE>
-__device__ __forceinline__ void stage_planes(float* planes,
-                                             const float* __restrict__ xb,
+template <typename E, bool VEC>
+__device__ __forceinline__ void stage_planes(E* planes,
+                                             const E* __restrict__ xb,
                                              int u0, int rows, int L, int s,
                                              int T, int C, int c0) {
+  constexpr int STRIDE = copy_elems<E, VEC>();
   constexpr int PER_ROW = CT / STRIDE;
   for (int r = 0; r < s; ++r) {
     for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
@@ -103,35 +111,27 @@ __device__ __forceinline__ void stage_planes(float* planes,
       const int row = i / PER_ROW;
       const int t = u0 + row * s + r;
       const bool ok = t >= 0 && t < T && c0 + cq < C;
-      const float* src = ok ? xb + (size_t)t * C + c0 + cq : xb;
-      float* dst = planes + ((size_t)r * L + row) * CT + cq;
-      if constexpr (STRIDE == 4) {
-        cp_async16(dst, src, ok);
-      } else {
-        cp_async4(dst, src, ok);
-      }
+      const E* src = ok ? xb + (size_t)t * C + c0 + cq : xb;
+      copy_to_shared<E, VEC>(planes + ((size_t)r * L + row) * CT + cq, src,
+                             ok);
     }
   }
 }
 
 // Stage rows t0 .. t0 + rows - 1 of a [n_rows, C] array into [rows][CT],
 // zero past n_rows and past C.
-template <int STRIDE>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src0,
+template <typename E, bool VEC>
+__device__ __forceinline__ void stage_rows(E* dst, const E* __restrict__ src0,
                                            int t0, int rows, int n_rows,
                                            int C, int c0) {
+  constexpr int STRIDE = copy_elems<E, VEC>();
   constexpr int PER_ROW = CT / STRIDE;
   for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
     const int cq = (i % PER_ROW) * STRIDE;
     const int r = i / PER_ROW;
     const bool ok = t0 + r < n_rows && c0 + cq < C;
-    const float* src = ok ? src0 + (size_t)(t0 + r) * C + c0 + cq : src0;
-    if constexpr (STRIDE == 4) {
-      cp_async16(dst + r * CT + cq, src, ok);
-    } else {
-      cp_async4(dst + r * CT + cq, src, ok);
-    }
+    const E* src = ok ? src0 + (size_t)(t0 + r) * C + c0 + cq : src0;
+    copy_to_shared<E, VEC>(dst + r * CT + cq, src, ok);
   }
 }
 
@@ -145,15 +145,15 @@ __device__ __forceinline__ void fma2(float2& acc, float2 x, float2 w) {
 // s. Lane l owns channels c0 + 2 (l % 16) and the next; half-warp
 // h = l / 16 of warp w computes the items 2w + h, 2w + h + 2 warps, ...;
 // item it: R outputs at frames f0 + i d', f0 = (it / d') R d' + it % d'.
-template <int STRIDE>
+template <typename E, bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
-dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              float* __restrict__ y, int T, int C, int K, int s, int d, int p,
+dw_fwd_kernel(const E* __restrict__ x, const E* __restrict__ w,
+              E* __restrict__ y, int T, int C, int K, int s, int d, int p,
               int T_out, int TT, int L) {
   constexpr int R = FWD_R;
-  extern __shared__ __align__(16) float smem[];
-  float* planes = smem;                      // [s][L][CT]
-  float* w_s = planes + (size_t)s * L * CT;  // [K][CT]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* planes = reinterpret_cast<E*>(smem_raw);  // [s][L][CT]
+  E* w_s = planes + (size_t)s * L * CT;        // [K][CT]
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4, hl = lane & 15;
   const int slot = 2 * (threadIdx.x >> 5) + half;
@@ -163,9 +163,9 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int c = c0 + 2 * hl;
   const int b = blockIdx.z;
   wait_prior_grid();
-  stage_planes<STRIDE>(planes, x + (size_t)b * T * C, t0 * s - p, L, L, s, T,
+  stage_planes<E, VEC>(planes, x + (size_t)b * T * C, t0 * s - p, L, L, s, T,
                        C, c0);
-  stage_rows<STRIDE>(w_s, w, 0, K, K, C, c0);
+  stage_rows<E, VEC>(w_s, w, 0, K, K, C, c0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -175,9 +175,9 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int sp = s / g, dp = d / g;
   const int n_t = min(TT, T_out - t0);
   const int items = TT / R;  // TT / (R d') groups of d' items
-  const int xstep = dp * CT / 2;  // in float2
-  const int wstep = sp * CT / 2;
-  float* yb = y + ((size_t)b * T_out + t0) * C + c;
+  const int xstep = dp * CT;  // in elements
+  const int wstep = sp * CT;
+  E* yb = y + ((size_t)b * T_out + t0) * C + c;
   for (int it = slot; it < items; it += slots) {
     const int f0 = (it / dp) * R * dp + it % dp;
     if (f0 >= n_t) continue;
@@ -186,13 +186,13 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < R; ++i) acc[i] = make_float2(0.f, 0.f);
     for (int kr = 0; kr < sp && kr < K; ++kr) {
       const int n = (K - kr + sp - 1) / sp;  // taps kr, kr + s', ...
-      const float2* xr = reinterpret_cast<const float2*>(
-          planes + ((size_t)((kr * d) % s) * L + f0 + (kr * d) / s) * CT) +
-          hl;
-      const float2* wr = reinterpret_cast<const float2*>(w_s + kr * CT) + hl;
+      const E* xr =
+          planes + ((size_t)((kr * d) % s) * L + f0 + (kr * d) / s) * CT +
+          2 * hl;
+      const E* wr = w_s + kr * CT + 2 * hl;
       float2 win[R];  // V[m] in slot m % R
 #pragma unroll
-      for (int i = 0; i + 1 < R; ++i) win[i] = xr[i * xstep];
+      for (int i = 0; i + 1 < R; ++i) win[i] = load2(xr + i * xstep);
       xr += (R - 1) * xstep;
       // Tap j + jj reads V[j + jj .. j + jj + R - 1]: whole runs of R taps
       // unguarded (so their loads can issue ahead), then the rest.
@@ -200,8 +200,8 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (; j + R <= n; j += R) {
 #pragma unroll
         for (int jj = 0; jj < R; ++jj) {
-          win[(jj + R - 1) % R] = xr[jj * xstep];
-          const float2 wk = wr[jj * wstep];
+          win[(jj + R - 1) % R] = load2(xr + jj * xstep);
+          const float2 wk = load2(wr + jj * wstep);
 #pragma unroll
           for (int i = 0; i < R; ++i) fma2(acc[i], win[(jj + i) % R], wk);
         }
@@ -211,8 +211,8 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int jj = 0; jj + 1 < R; ++jj) {
         if (j + jj < n) {
-          win[(jj + R - 1) % R] = xr[jj * xstep];
-          const float2 wk = wr[jj * wstep];
+          win[(jj + R - 1) % R] = load2(xr + jj * xstep);
+          const float2 wk = load2(wr + jj * wstep);
 #pragma unroll
           for (int i = 0; i < R; ++i) fma2(acc[i], win[(jj + i) % R], wk);
         }
@@ -222,8 +222,8 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < R; ++i) {
       const int f = f0 + i * dp;
       if (f < n_t) {
-        yb[(size_t)f * C] = acc[i].x;
-        if (c + 1 < C) yb[(size_t)f * C + 1] = acc[i].y;
+        store(yb + (size_t)f * C, acc[i].x);
+        if (c + 1 < C) store(yb + (size_t)f * C + 1, acc[i].y);
       }
     }
   }
@@ -236,15 +236,16 @@ dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // for the last group's taps past its class too: their sums are dropped)
 // and the time slices `slices`. Item (group, slice, u) covers frames
 // slice*ceil(TC/slices) + u + m d'. Lanes and half-warps as in K4.
-template <int R, int STRIDE>
+template <typename E, int R, bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
-dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+dw_wgrad_kernel(const E* __restrict__ x, const E* __restrict__ g,
                 float* __restrict__ part, int T, int C, int K, int s, int d,
                 int p, int T_out, int TC, int staged, int L, int slices) {
-  extern __shared__ __align__(16) float smem[];
-  float* planes = smem;                       // [s][L][CT]
-  float* g_s = planes + (size_t)s * L * CT;   // [TC][CT]
-  float* acc_s = g_s + (size_t)TC * CT;       // [slices * d'][K][CT]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* planes = reinterpret_cast<E*>(smem_raw);  // [s][L][CT]
+  E* g_s = planes + (size_t)s * L * CT;        // [TC][CT]
+  float* acc_s =                               // [slices * d'][K][CT]
+      reinterpret_cast<float*>(g_s + (size_t)TC * CT);
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4, hl = lane & 15;
   const int slot = 2 * (threadIdx.x >> 5) + half;
@@ -258,9 +259,9 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int subs = slices * dp;
   for (int i = threadIdx.x; i < subs * K * CT; i += blockDim.x) acc_s[i] = 0.f;
   wait_prior_grid();
-  stage_planes<STRIDE>(planes, x + (size_t)b * T * C, t0 * s - p, staged, L,
+  stage_planes<E, VEC>(planes, x + (size_t)b * T * C, t0 * s - p, staged, L,
                        s, T, C, c0);
-  stage_rows<STRIDE>(g_s, g + (size_t)b * T_out * C, t0, TC, T_out, C, c0);
+  stage_rows<E, VEC>(g_s, g + (size_t)b * T_out * C, t0, TC, T_out, C, c0);
   cp_async_commit();
   int groups = 0;
   for (int kr = 0; kr < sp && kr < K; ++kr) {
@@ -268,7 +269,7 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
   const int items = groups * subs;
   const int slice = (TC + slices - 1) / slices;
-  const int xstep = dp * CT / 2;  // in float2
+  const int xstep = dp * CT;  // in elements
   cp_async_wait<0>();
   __syncthreads();  // the row landed (and acc_s is zero)
 
@@ -294,13 +295,13 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int j = 0; j < R; ++j) acc[j] = make_float2(0.f, 0.f);
     // V[m] = plane row fa + (kr d) div s + (j0 + m) d': frame step m', tap
     // j0 + j reads V[m' + j].
-    const float2* xr = reinterpret_cast<const float2*>(
+    const E* xr =
         planes + ((size_t)((kr * d) % s) * L + fa + (kr * d) / s + j0 * dp) *
-                     CT) + hl;
-    const float2* gr = reinterpret_cast<const float2*>(g_s + fa * CT) + hl;
+                     CT + 2 * hl;
+    const E* gr = g_s + fa * CT + 2 * hl;
     float2 win[R];  // V[m] in slot m % R
 #pragma unroll
-    for (int i = 0; i + 1 < R; ++i) win[i] = xr[i * xstep];
+    for (int i = 0; i + 1 < R; ++i) win[i] = load2(xr + i * xstep);
     xr += (R - 1) * xstep;
     // Frame step m + mm: whole runs of R steps unguarded (so their loads
     // can issue ahead), then the rest.
@@ -308,8 +309,8 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (; m + R <= steps; m += R) {
 #pragma unroll
       for (int mm = 0; mm < R; ++mm) {
-        win[(mm + R - 1) % R] = xr[mm * xstep];
-        const float2 gv = gr[mm * xstep];
+        win[(mm + R - 1) % R] = load2(xr + mm * xstep);
+        const float2 gv = load2(gr + mm * xstep);
 #pragma unroll
         for (int j = 0; j < R; ++j) fma2(acc[j], win[(mm + j) % R], gv);
       }
@@ -319,8 +320,8 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
     for (int mm = 0; mm + 1 < R; ++mm) {
       if (m + mm < steps) {
-        win[(mm + R - 1) % R] = xr[mm * xstep];
-        const float2 gv = gr[mm * xstep];
+        win[(mm + R - 1) % R] = load2(xr + mm * xstep);
+        const float2 gv = load2(gr + mm * xstep);
 #pragma unroll
         for (int j = 0; j < R; ++j) fma2(acc[j], win[(mm + j) % R], gv);
       }
@@ -346,75 +347,59 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   allow_next_grid();
 }
 
-int launch_fwd(const float* x, const float* w, float* y, int B, int T, int C,
-               int K, int s, int d, int p, int T_out, int TT, int L,
-               int warps, int vec, size_t smem, cudaStream_t st) {
-  static SmemLimit limit4, limit1;
+template <typename E>
+int launch_fwd(const E* x, const E* w, E* y, int B, int T, int C, int K,
+               int s, int d, int p, int T_out, int TT, int L, int warps,
+               int vec, size_t smem, cudaStream_t st) {
+  if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
+  static SmemLimit limit_vec, limit_one;
   const dim3 grid((T_out + TT - 1) / TT, (C + CT - 1) / CT, B);
   int err;
   if (vec) {
-    err = limit4.raise_to(dw_fwd_kernel<4>, smem);
+    err = limit_vec.raise_to(dw_fwd_kernel<E, true>, smem);
     if (err) return err;
-    return launch_pdl(dw_fwd_kernel<4>, grid, 32 * warps, smem, st, x, w, y,
-                      T, C, K, s, d, p, T_out, TT, L);
+    return launch_pdl(dw_fwd_kernel<E, true>, grid, 32 * warps, smem, st, x,
+                      w, y, T, C, K, s, d, p, T_out, TT, L);
   }
-  err = limit1.raise_to(dw_fwd_kernel<1>, smem);
+  err = limit_one.raise_to(dw_fwd_kernel<E, false>, smem);
   if (err) return err;
-  return launch_pdl(dw_fwd_kernel<1>, grid, 32 * warps, smem, st, x, w, y, T,
-                    C, K, s, d, p, T_out, TT, L);
+  return launch_pdl(dw_fwd_kernel<E, false>, grid, 32 * warps, smem, st, x,
+                    w, y, T, C, K, s, d, p, T_out, TT, L);
 }
 
-template <int R>
-int launch_wgrad(const float* x, const float* g, float* part, int B, int T,
-                 int C, int K, int s, int d, int p, int T_out, int TC,
-                 int staged, int L, int slices, int warps, int vec,
-                 size_t smem, cudaStream_t st) {
-  static SmemLimit limit4, limit1;
+template <typename E, int R>
+int launch_wgrad(const E* x, const E* g, float* part, int B, int T, int C,
+                 int K, int s, int d, int p, int T_out, int TC, int staged,
+                 int L, int slices, int warps, int vec, size_t smem,
+                 cudaStream_t st) {
+  static SmemLimit limit_vec, limit_one;
   const dim3 grid((C + CT - 1) / CT, (T_out + TC - 1) / TC, B);
   int err;
   if (vec) {
-    err = limit4.raise_to(dw_wgrad_kernel<R, 4>, smem);
+    err = limit_vec.raise_to(dw_wgrad_kernel<E, R, true>, smem);
     if (err) return err;
-    return launch_pdl(dw_wgrad_kernel<R, 4>, grid, 32 * warps, smem, st, x,
-                      g, part, T, C, K, s, d, p, T_out, TC, staged, L,
+    return launch_pdl(dw_wgrad_kernel<E, R, true>, grid, 32 * warps, smem,
+                      st, x, g, part, T, C, K, s, d, p, T_out, TC, staged, L,
                       slices);
   }
-  err = limit1.raise_to(dw_wgrad_kernel<R, 1>, smem);
+  err = limit_one.raise_to(dw_wgrad_kernel<E, R, false>, smem);
   if (err) return err;
-  return launch_pdl(dw_wgrad_kernel<R, 1>, grid, 32 * warps, smem, st, x, g,
-                    part, T, C, K, s, d, p, T_out, TC, staged, L, slices);
+  return launch_pdl(dw_wgrad_kernel<E, R, false>, grid, 32 * warps, smem, st,
+                    x, g, part, T, C, K, s, d, p, T_out, TC, staged, L,
+                    slices);
 }
 
-}  // namespace
-
-// K4 on `stream`: y [B, T_out, C] from x [B, T, C] and w [K, C], with the
-// wrapper's plan (tile TT, a multiple of DW_FWD_R d'; plane rows L; warps;
-// `vec` for 16-byte copies; shared bytes). Returns a cudaError_t (0 on
-// success).
-extern "C" int dw_fwd_launch(const float* x, const float* w, float* y, int B,
-                             int T, int C, int K, int s, int d, int p,
-                             int T_out, int TT, int L, int warps, int vec,
-                             long long smem, void* stream) {
+// K5's two launches, R of 4, 8, 16.
+template <typename E>
+int wgrad_entry(const E* x, const E* g, float* part, float* dw, int B, int T,
+                int C, int K, int s, int d, int p, int T_out, int R, int TC,
+                int staged, int L, int slices, int warps, int vec,
+                long long smem, cudaStream_t st) {
   if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
-  return launch_fwd(x, w, y, B, T, C, K, s, d, p, T_out, TT, L, warps, vec,
-                    smem, static_cast<cudaStream_t>(stream));
-}
-
-// K5 on `stream`: dw [K, C] from x [B, T, C] and g [B, T_out, C], with the
-// wrapper's plan (R of 4, 8, 16; chunk TC; staged and plane rows; slices;
-// warps; `vec`; shared bytes), through `part` [B * chunks, K, C]
-// (scratch): two launches, the partials, then their sum in index order.
-extern "C" int dw_wgrad_launch(const float* x, const float* g, float* part,
-                               float* dw, int B, int T, int C, int K, int s,
-                               int d, int p, int T_out, int R, int TC,
-                               int staged, int L, int slices, int warps,
-                               int vec, long long smem, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (warps < 1 || warps > MAX_WARPS) return cudaErrorInvalidValue;
-#define DW_WGRAD_CASE(RR)                                                  \
-  case RR: err = launch_wgrad<RR>(x, g, part, B, T, C, K, s, d, p, T_out, \
-                                  TC, staged, L, slices, warps, vec, smem, \
-                                  st);                                     \
+#define DW_WGRAD_CASE(RR)                                                   \
+  case RR: err = launch_wgrad<E, RR>(x, g, part, B, T, C, K, s, d, p, T_out, \
+                                     TC, staged, L, slices, warps, vec, smem, \
+                                     st);                                   \
     break;
   int err;
   switch (R) {
@@ -427,4 +412,54 @@ extern "C" int dw_wgrad_launch(const float* x, const float* g, float* part,
   if (err) return err;
   const int parts = ((T_out + TC - 1) / TC) * B;
   return launch_sum_partials(part, parts, (long long)K * C, dw, st);
+}
+
+}  // namespace
+
+// K4 on `stream`: y [B, T_out, C] from x [B, T, C] and w [K, C], with the
+// wrapper's plan (tile TT, a multiple of DW_FWD_R d'; plane rows L; warps;
+// `vec` for 16-byte copies; shared bytes). Returns a cudaError_t (0 on
+// success). dw_fwd_launch_bf16: the same on bfloat16 x, w and y.
+extern "C" int dw_fwd_launch(const float* x, const float* w, float* y, int B,
+                             int T, int C, int K, int s, int d, int p,
+                             int T_out, int TT, int L, int warps, int vec,
+                             long long smem, void* stream) {
+  return launch_fwd(x, w, y, B, T, C, K, s, d, p, T_out, TT, L, warps, vec,
+                    smem, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dw_fwd_launch_bf16(const __nv_bfloat16* x,
+                                  const __nv_bfloat16* w, __nv_bfloat16* y,
+                                  int B, int T, int C, int K, int s, int d,
+                                  int p, int T_out, int TT, int L, int warps,
+                                  int vec, long long smem, void* stream) {
+  return launch_fwd(x, w, y, B, T, C, K, s, d, p, T_out, TT, L, warps, vec,
+                    smem, static_cast<cudaStream_t>(stream));
+}
+
+// K5 on `stream`: dw [K, C] from x [B, T, C] and g [B, T_out, C], with the
+// wrapper's plan (R of 4, 8, 16; chunk TC; staged and plane rows; slices;
+// warps; `vec`; shared bytes), through `part` [B * chunks, K, C]
+// (scratch): two launches, the partials, then their sum in index order.
+// dw_wgrad_launch_bf16: the same on bfloat16 x and g (part and dw float32).
+extern "C" int dw_wgrad_launch(const float* x, const float* g, float* part,
+                               float* dw, int B, int T, int C, int K, int s,
+                               int d, int p, int T_out, int R, int TC,
+                               int staged, int L, int slices, int warps,
+                               int vec, long long smem, void* stream) {
+  return wgrad_entry(x, g, part, dw, B, T, C, K, s, d, p, T_out, R, TC,
+                     staged, L, slices, warps, vec, smem,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dw_wgrad_launch_bf16(const __nv_bfloat16* x,
+                                    const __nv_bfloat16* g, float* part,
+                                    float* dw, int B, int T, int C, int K,
+                                    int s, int d, int p, int T_out, int R,
+                                    int TC, int staged, int L, int slices,
+                                    int warps, int vec, long long smem,
+                                    void* stream) {
+  return wgrad_entry(x, g, part, dw, B, T, C, K, s, d, p, T_out, R, TC,
+                     staged, L, slices, warps, vec, smem,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,12 @@
 // sep_conv_pallas.py: K6 is _sep_fwd -> _sep_fwd_kernel, K7 is
 // _sep_op_bwd -> _sep_bwd_kernel. x [B, T, Cin], wdw [K, Cin] (depthwise,
 // dilation d, symmetric zero padding p, stride 1), wpw [Cin, Cout]
-// (pointwise), y [B, T_out, Cout] f32, T_out = T + 2p - d(K-1). Masks, as
+// (pointwise), y [B, T_out, Cout] f32, T_out = T + 2p - d(K-1). x is
+// float32 or, under model.compute_dtype=bf16, bfloat16 (the TPU kernels'
+// contract: bf16 x only, read into float32; the weights, the depthwise
+// intermediate, the product and y float32; K7's dx in x's type, rounded to
+// nearest even, dwdw and dwpw float32): the x-reading kernels are
+// templates on x's element type XT, which stage x as XT. Masks, as
 // _masks makes them: m1[b, t] = t < len1[b] on the input, m2[b, t] =
 // t < len2[b] on the depthwise output, with len1 = int(lens) and len2 =
 // int(lens + 2p - d(K-1)) computed by the wrapper (ops/sep_conv.py); null
@@ -174,7 +179,6 @@ constexpr int FM = 64;        // output frames per block
 constexpr int FC = 16;        // input channels per chunk
 constexpr int F_STAGES = 3;   // cp.async ring depth
 constexpr int FMP = FM + 4;   // padded row of a depthwise tile [FC][FMP]
-constexpr int FXS = FC + 4;   // padded row of the x span [rows][FXS]
 
 template <int TN>
 struct FwdShape {
@@ -182,58 +186,70 @@ struct FwdShape {
   static constexpr int FPT = FC * FM / THREADS;  // depthwise frames a thread
 };
 
+// Padded row of the x span [rows][FXS] in elements of XT: FC + 4 floats
+// (80 bytes), FC + 8 bfloat16s (48 bytes), rows 16-byte aligned.
+template <typename XT>
+__host__ __device__ constexpr int fxs() {
+  return sizeof(XT) == 4 ? FC + 4 : FC + 8;
+}
+
 __host__ __device__ inline int fwd_rows(int K, int d) {
   return FM + d * (K - 1);
 }
 
-template <int TN>
-__host__ __device__ inline size_t fwd_stage_floats(int K, int d) {
-  return (size_t)fwd_rows(K, d) * FXS + (size_t)K * FC + (size_t)FC * TN;
+// A stage: x's span [rows][FXS] as XT, then wdw [K][FC] and wpw's [FC][TN]
+// slice as float.
+template <typename XT>
+__host__ __device__ inline size_t fwd_x_bytes(int K, int d) {
+  return (size_t)fwd_rows(K, d) * fxs<XT>() * sizeof(XT);
 }
 
-template <int TN>
+template <int TN, typename XT>
+__host__ __device__ inline size_t fwd_stage_bytes(int K, int d) {
+  return fwd_x_bytes<XT>(K, d) +
+         ((size_t)K * FC + (size_t)FC * TN) * sizeof(float);
+}
+
+template <int TN, typename XT>
 inline size_t fwd_smem(int K, int d) {
-  return (F_STAGES * fwd_stage_floats<TN>(K, d) + (size_t)FC * FMP) *
-         sizeof(float);
+  return F_STAGES * fwd_stage_bytes<TN, XT>(K, d) +
+         (size_t)FC * FMP * sizeof(float);
 }
 
 // Stage chunk c0 of x's span (rows t0 - p ..., masked by m1, zero outside
 // [0, T)), of wdw and of wpw's [FC, TN] slice; zero-filled past Cin and
-// Cout. STRIDE 4: 16-byte copies (Cin and Cout multiples of 4, aligned
-// bases); STRIDE 1: 4-byte copies.
-template <int TN, int STRIDE>
+// Cout. VEC: 16-byte copies (Cin a multiple of 16 bytes of x, Cin and Cout
+// multiples of 4, aligned bases); else one element a copy.
+template <int TN, typename XT, bool VEC>
 __device__ __forceinline__ void fwd_load_stage(
-    float* st, const float* __restrict__ xb, const float* __restrict__ wdw,
-    const float* __restrict__ wpw, int c0, int t0, int o0, int l1, int Cin,
-    int Cout, int K, int p, int rows) {
+    unsigned char* st, const XT* __restrict__ xb,
+    const float* __restrict__ wdw, const float* __restrict__ wpw, int c0,
+    int t0, int o0, int l1, int Cin, int Cout, int K, int p, int rows) {
   constexpr int THREADS = FwdShape<TN>::THREADS;
-  float* x_s = st;
-  float* wdw_s = x_s + rows * FXS;
+  constexpr int FXS = fxs<XT>();
+  XT* x_s = reinterpret_cast<XT*>(st);
+  float* wdw_s = reinterpret_cast<float*>(st + (size_t)rows * FXS *
+                                                   sizeof(XT));
   float* wpw_s = wdw_s + K * FC;
   const int tid = threadIdx.x;
-  constexpr int PER_ROW = FC / STRIDE;
-  for (int i = tid; i < rows * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int cq = (i % PER_ROW) * STRIDE;
+  constexpr int XSTRIDE = copy_elems<XT, VEC>();
+  constexpr int X_PER_ROW = FC / XSTRIDE;
+  for (int i = tid; i < rows * X_PER_ROW; i += THREADS) {
+    const int r = i / X_PER_ROW;
+    const int cq = (i % X_PER_ROW) * XSTRIDE;
     const int t = t0 - p + r;
     const bool ok = t >= 0 && t < l1 && c0 + cq < Cin;
-    const float* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
-    if constexpr (STRIDE == 4) {
-      cp_async16(x_s + r * FXS + cq, src, ok);
-    } else {
-      cp_async4(x_s + r * FXS + cq, src, ok);
-    }
+    const XT* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
+    copy_to_shared<XT, VEC>(x_s + r * FXS + cq, src, ok);
   }
+  constexpr int STRIDE = copy_elems<float, VEC>();
+  constexpr int PER_ROW = FC / STRIDE;
   for (int i = tid; i < K * PER_ROW; i += THREADS) {
     const int k = i / PER_ROW;
     const int cq = (i % PER_ROW) * STRIDE;
     const bool ok = c0 + cq < Cin;
     const float* src = ok ? wdw + (size_t)k * Cin + c0 + cq : wdw;
-    if constexpr (STRIDE == 4) {
-      cp_async16(wdw_s + k * FC + cq, src, ok);
-    } else {
-      cp_async4(wdw_s + k * FC + cq, src, ok);
-    }
+    copy_to_shared<float, VEC>(wdw_s + k * FC + cq, src, ok);
   }
   constexpr int PER_W = TN / STRIDE;
   for (int i = tid; i < FC * PER_W; i += THREADS) {
@@ -241,31 +257,28 @@ __device__ __forceinline__ void fwd_load_stage(
     const int oq = (i % PER_W) * STRIDE;
     const bool ok = c0 + cc < Cin && o0 + oq < Cout;
     const float* src = ok ? wpw + (size_t)(c0 + cc) * Cout + o0 + oq : wpw;
-    if constexpr (STRIDE == 4) {
-      cp_async16(wpw_s + cc * TN + oq, src, ok);
-    } else {
-      cp_async4(wpw_s + cc * TN + oq, src, ok);
-    }
+    copy_to_shared<float, VEC>(wpw_s + cc * TN + oq, src, ok);
   }
 }
 
 // The depthwise loop of K6 and K7 (ii): FPT consecutive frames of one
 // channel, a[i] += sum_k xc[(i + k d) * ROW] * wc[k * WSTEP], with FPT
-// independent accumulators; at d = 1 a sliding register window over x, so
-// one shared load feeds FPT taps. A negative WSTEP runs the taps flipped.
-template <int FPT, int ROW, int WSTEP>
-__device__ __forceinline__ void depthwise_frames(const float* xc,
+// independent accumulators (x read into float32 from its type XT); at
+// d = 1 a sliding register window over x, so one shared load feeds FPT
+// taps. A negative WSTEP runs the taps flipped.
+template <int FPT, int ROW, int WSTEP, typename XT>
+__device__ __forceinline__ void depthwise_frames(const XT* xc,
                                                  const float* wc, int K,
                                                  int d, float (&a)[FPT]) {
   if (d == 1) {
     float win[FPT];
 #pragma unroll
-    for (int i = 0; i + 1 < FPT; ++i) win[i + 1] = xc[i * ROW];
+    for (int i = 0; i + 1 < FPT; ++i) win[i + 1] = to_f32(xc[i * ROW]);
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i + 1 < FPT; ++i) win[i] = win[i + 1];
-      win[FPT - 1] = xc[(k + FPT - 1) * ROW];
+      win[FPT - 1] = to_f32(xc[(k + FPT - 1) * ROW]);
       const float w = wc[k * WSTEP];
 #pragma unroll
       for (int i = 0; i < FPT; ++i) a[i] = fmaf(win[i], w, a[i]);
@@ -274,25 +287,31 @@ __device__ __forceinline__ void depthwise_frames(const float* xc,
 #pragma unroll 2
     for (int k = 0; k < K; ++k) {
       const float w = wc[k * WSTEP];
-      const float* xk = xc + k * d * ROW;
+      const XT* xk = xc + k * d * ROW;
 #pragma unroll
-      for (int i = 0; i < FPT; ++i) a[i] = fmaf(xk[i * ROW], w, a[i]);
+      for (int i = 0; i < FPT; ++i) {
+        a[i] = fmaf(to_f32(xk[i * ROW]), w, a[i]);
+      }
     }
   }
 }
 
 // Depthwise of one staged chunk, masked by m2, into the tile dw [FC][FMP]:
 // this thread's channel dc, frames dr..dr+FPT-1.
-template <int TN>
-__device__ __forceinline__ void fwd_depthwise(const float* st, float* dw,
-                                              int rows, int K, int d, int dc,
-                                              int dr, int t0, int l2) {
+template <int TN, typename XT>
+__device__ __forceinline__ void fwd_depthwise(const unsigned char* st,
+                                              float* dw, int rows, int K,
+                                              int d, int dc, int dr, int t0,
+                                              int l2) {
   constexpr int FPT = FwdShape<TN>::FPT;
+  constexpr int FXS = fxs<XT>();
+  const XT* x_s = reinterpret_cast<const XT*>(st);
+  const float* wdw_s = reinterpret_cast<const float*>(
+      st + (size_t)rows * FXS * sizeof(XT));
   float a[FPT];
 #pragma unroll
   for (int i = 0; i < FPT; ++i) a[i] = 0.f;
-  depthwise_frames<FPT, FXS, FC>(st + dr * FXS + dc, st + rows * FXS + dc, K,
-                                 d, a);
+  depthwise_frames<FPT, FXS, FC>(x_s + dr * FXS + dc, wdw_s + dc, K, d, a);
 #pragma unroll
   for (int i = 0; i < FPT; ++i) {
     if (t0 + dr + i >= l2) a[i] = 0.f;  // m2 (and frames >= T_out)
@@ -305,34 +324,36 @@ __device__ __forceinline__ void fwd_depthwise(const float* st, float* dw,
   }
 }
 
-template <int TN>
+template <int TN, typename XT>
 __global__ void __launch_bounds__(TN / 2, TN == 256 ? 2 : 1)
-sep_fwd_kernel(const float* __restrict__ x, const int* __restrict__ len1,
+sep_fwd_kernel(const XT* __restrict__ x, const int* __restrict__ len1,
                const int* __restrict__ len2, const float* __restrict__ wdw,
                const float* __restrict__ wpw, float* __restrict__ y, int T,
                int Cin, int Cout, int K, int d, int p, int T_out, int vec) {
   constexpr int FPT = FwdShape<TN>::FPT;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = fwd_rows(K, d);
-  const int stage = (int)fwd_stage_floats<TN>(K, d);
-  float* dw_s = smem + F_STAGES * stage;  // [FC][FMP], masked by m2
+  const size_t stage = fwd_stage_bytes<TN, XT>(K, d);
+  const size_t x_bytes = fwd_x_bytes<XT>(K, d);
+  float* dw_s = reinterpret_cast<float*>(  // [FC][FMP], masked by m2
+      smem_raw + F_STAGES * stage);
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * FM;
   const int o0 = blockIdx.y * TN;
   const int b = blockIdx.z;
   const int l1 = len1 ? min(len1[b], T) : T;
   const int l2 = len2 ? min(len2[b], T_out) : T_out;
-  const float* xb = x + (size_t)b * T * Cin;
+  const XT* xb = x + (size_t)b * T * Cin;
   const int n_chunks = (Cin + FC - 1) / FC;
 
   auto load = [&](int chunk) {
-    float* st = smem + (chunk % F_STAGES) * stage;
+    unsigned char* st = smem_raw + (chunk % F_STAGES) * stage;
     if (vec) {
-      fwd_load_stage<TN, 4>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1, Cin,
-                            Cout, K, p, rows);
+      fwd_load_stage<TN, XT, true>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1,
+                                   Cin, Cout, K, p, rows);
     } else {
-      fwd_load_stage<TN, 1>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1, Cin,
-                            Cout, K, p, rows);
+      fwd_load_stage<TN, XT, false>(st, xb, wdw, wpw, chunk * FC, t0, o0, l1,
+                                    Cin, Cout, K, p, rows);
     }
   };
 
@@ -364,11 +385,12 @@ sep_fwd_kernel(const float* __restrict__ x, const int* __restrict__ len1,
     __syncthreads();  // chunk ch landed; everyone is done with ch - 1
     if (ch + F_STAGES - 1 < n_chunks) load(ch + F_STAGES - 1);
     cp_async_commit();
-    fwd_depthwise<TN>(smem + (ch % F_STAGES) * stage, dw_s, rows, K, d, dc,
-                      dr, t0, l2);
+    const unsigned char* st = smem_raw + (ch % F_STAGES) * stage;
+    fwd_depthwise<TN, XT>(st, dw_s, rows, K, d, dc, dr, t0, l2);
     __syncthreads();
     const float* dwt = dw_s;
-    const float* wpw_s = smem + (ch % F_STAGES) * stage + rows * FXS + K * FC;
+    const float* wpw_s =
+        reinterpret_cast<const float*>(st + x_bytes) + K * FC;
 #pragma unroll 4
     for (int cc = 0; cc < FC; ++cc) {
       float av[16], bv[8];
@@ -419,17 +441,17 @@ sep_fwd_kernel(const float* __restrict__ x, const int* __restrict__ len1,
   }
 }
 
-template <int TN>
-int launch_sep_fwd(const float* x, const int* len1, const int* len2,
+template <int TN, typename XT>
+int launch_sep_fwd(const XT* x, const int* len1, const int* len2,
                    const float* wdw, const float* wpw, float* y, int B,
                    int T, int Cin, int Cout, int K, int d, int p, int T_out,
                    int vec, cudaStream_t stream) {
   static SmemLimit limit;
-  const size_t smem = fwd_smem<TN>(K, d);
-  int err = limit.raise_to(sep_fwd_kernel<TN>, smem);
+  const size_t smem = fwd_smem<TN, XT>(K, d);
+  int err = limit.raise_to(sep_fwd_kernel<TN, XT>, smem);
   if (err) return err;
   const dim3 grid((T_out + FM - 1) / FM, (Cout + TN - 1) / TN, B);
-  sep_fwd_kernel<TN><<<grid, FwdShape<TN>::THREADS, smem, stream>>>(
+  sep_fwd_kernel<TN, XT><<<grid, FwdShape<TN>::THREADS, smem, stream>>>(
       x, len1, len2, wdw, wpw, y, T, Cin, Cout, K, d, p, T_out, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -470,64 +492,66 @@ __host__ __device__ inline int dw_x_rows(int K, int d, int kpt) {
   return DW_TT + d * (dw_groups(K, kpt) * kpt - 1);
 }
 
+// A stage: x*m1's span [x_rows][DW_CG] as XT, then gdw's [g_rows][DW_CG]
+// as float; after the DW_STAGES stages wdw and the dwdw sums, [K][DW_CG]
+// floats each.
+template <typename XT>
+inline size_t dw_stage_bytes(int K, int d) {
+  return (size_t)dw_x_rows(K, d, dw_kpt(K)) * DW_CG * sizeof(XT) +
+         (size_t)dw_g_rows(K, d) * DW_CG * sizeof(float);
+}
+
+template <typename XT>
 inline size_t dw_smem(int K, int d) {
-  const int kpt = dw_kpt(K);
-  return (DW_STAGES * (size_t)(dw_x_rows(K, d, kpt) + dw_g_rows(K, d)) *
-              DW_CG +
-          2 * (size_t)K * DW_CG) *
-         sizeof(float);
+  return DW_STAGES * dw_stage_bytes<XT>(K, d) +
+         2 * (size_t)K * DW_CG * sizeof(float);
 }
 
 // Stage one time tile: x*m1 rows t0 - p + r (zero outside [0, len1)) and
 // gdw rows t0 - pt + r (zero outside [0, T_out)), channels c0.. (zero past
-// Cin). STRIDE 4: 16-byte copies; STRIDE 1: 4-byte copies.
-template <int STRIDE>
+// Cin). VEC: 16-byte copies; else one element a copy.
+template <typename XT, bool VEC>
 __device__ __forceinline__ void dw_load_stage(
-    float* x_s, float* g_s, const float* __restrict__ xb,
+    XT* x_s, float* g_s, const XT* __restrict__ xb,
     const float* __restrict__ gb, int c0, int t0, int l1, int T_out,
     int Cin, int p, int pt, int x_rows, int g_rows) {
-  constexpr int PER_ROW = DW_CG / STRIDE;
-  for (int i = threadIdx.x; i < x_rows * PER_ROW; i += DW_THREADS) {
-    const int r = i / PER_ROW;
-    const int cq = (i % PER_ROW) * STRIDE;
+  constexpr int XSTRIDE = copy_elems<XT, VEC>();
+  constexpr int X_PER_ROW = DW_CG / XSTRIDE;
+  for (int i = threadIdx.x; i < x_rows * X_PER_ROW; i += DW_THREADS) {
+    const int r = i / X_PER_ROW;
+    const int cq = (i % X_PER_ROW) * XSTRIDE;
     const int t = t0 - p + r;
     const bool ok = t >= 0 && t < l1 && c0 + cq < Cin;
-    const float* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
-    if constexpr (STRIDE == 4) {
-      cp_async16(x_s + r * DW_CG + cq, src, ok);
-    } else {
-      cp_async4(x_s + r * DW_CG + cq, src, ok);
-    }
+    const XT* src = ok ? xb + (size_t)t * Cin + c0 + cq : xb;
+    copy_to_shared<XT, VEC>(x_s + r * DW_CG + cq, src, ok);
   }
+  constexpr int STRIDE = copy_elems<float, VEC>();
+  constexpr int PER_ROW = DW_CG / STRIDE;
   for (int i = threadIdx.x; i < g_rows * PER_ROW; i += DW_THREADS) {
     const int r = i / PER_ROW;
     const int cq = (i % PER_ROW) * STRIDE;
     const int t = t0 - pt + r;
     const bool ok = t >= 0 && t < T_out && c0 + cq < Cin;
     const float* src = ok ? gb + (size_t)t * Cin + c0 + cq : gb;
-    if constexpr (STRIDE == 4) {
-      cp_async16(g_s + r * DW_CG + cq, src, ok);
-    } else {
-      cp_async4(g_s + r * DW_CG + cq, src, ok);
-    }
+    copy_to_shared<float, VEC>(g_s + r * DW_CG + cq, src, ok);
   }
 }
 
 // dwdw of one channel over a tile: acc[j] += sum_{tt < n_t} xk[(tt + j d)
 // * DW_CG] * gt[tt * DW_CG], for KPT taps; at d = 1 a register window over
 // t, so one shared load of x feeds KPT taps.
-template <int KPT>
-__device__ __forceinline__ void dwdw_taps(const float* xk, const float* gt,
+template <int KPT, typename XT>
+__device__ __forceinline__ void dwdw_taps(const XT* xk, const float* gt,
                                           int n_t, int d, float (&acc)[KPT]) {
   if (d == 1) {
     float win[KPT];
 #pragma unroll
-    for (int j = 0; j + 1 < KPT; ++j) win[j + 1] = xk[j * DW_CG];
+    for (int j = 0; j + 1 < KPT; ++j) win[j + 1] = to_f32(xk[j * DW_CG]);
 #pragma unroll 8
     for (int tt = 0; tt < n_t; ++tt) {
 #pragma unroll
       for (int j = 0; j + 1 < KPT; ++j) win[j] = win[j + 1];
-      win[KPT - 1] = xk[(tt + KPT - 1) * DW_CG];
+      win[KPT - 1] = to_f32(xk[(tt + KPT - 1) * DW_CG]);
       const float g = gt[tt * DW_CG];
 #pragma unroll
       for (int j = 0; j < KPT; ++j) acc[j] = fmaf(win[j], g, acc[j]);
@@ -538,7 +562,7 @@ __device__ __forceinline__ void dwdw_taps(const float* xk, const float* gt,
       const float g = gt[tt * DW_CG];
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        acc[j] = fmaf(xk[(tt + j * d) * DW_CG], g, acc[j]);
+        acc[j] = fmaf(to_f32(xk[(tt + j * d) * DW_CG]), g, acc[j]);
       }
     }
   }
@@ -551,19 +575,21 @@ __device__ __forceinline__ void dwdw_taps(const float* xk, const float* gt,
 // frames warp * DW_FPT + 0..DW_FPT-1 of each tile; dwdw of tap groups warp,
 // warp + 8, ... of KPT taps, summed over tiles in acc_s, which only the
 // owning thread touches (no atomics).
-template <int KPT, int STRIDE>
+template <int KPT, typename XT, bool VEC>
 __global__ void __launch_bounds__(DW_THREADS, 2)
-sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
+sep_bwd_dw_kernel(const XT* __restrict__ x, const float* __restrict__ gdw,
                   const int* __restrict__ len1, const int* __restrict__ len2,
-                  const float* __restrict__ wdw, float* __restrict__ dx,
+                  const float* __restrict__ wdw, XT* __restrict__ dx,
                   float* __restrict__ dwres, float* __restrict__ part, int T,
                   int Cin, int K, int d, int p, int T_out,
                   int tiles_per_block) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int x_rows = dw_x_rows(K, d, KPT);
   const int g_rows = dw_g_rows(K, d);
-  const int stage = (x_rows + g_rows) * DW_CG;
-  float* wdw_s = smem + DW_STAGES * stage;  // [K][DW_CG]
+  const size_t x_bytes = (size_t)x_rows * DW_CG * sizeof(XT);
+  const size_t stage = x_bytes + (size_t)g_rows * DW_CG * sizeof(float);
+  float* wdw_s = reinterpret_cast<float*>(  // [K][DW_CG]
+      smem_raw + DW_STAGES * stage);
   float* acc_s = wdw_s + K * DW_CG;         // [K][DW_CG]: dwdw so far
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -577,15 +603,16 @@ sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
   const int tile0 = blockIdx.y * tiles_per_block;
   const int n_tiles = min(tiles_per_block,
                           (max(T, T_out) + DW_TT - 1) / DW_TT - tile0);
-  const float* xb = x + (size_t)b * T * Cin;
+  const XT* xb = x + (size_t)b * T * Cin;
   const float* gb = gdw + (size_t)b * T_out * Cin;
   const int groups = dw_groups(K, KPT);
 
   auto load = [&](int it) {
-    float* x_s = smem + (it % DW_STAGES) * stage;
-    dw_load_stage<STRIDE>(x_s, x_s + x_rows * DW_CG, xb, gb, c0,
-                          (tile0 + it) * DW_TT, l1, T_out, Cin, p, pt,
-                          x_rows, g_rows);
+    unsigned char* st = smem_raw + (it % DW_STAGES) * stage;
+    dw_load_stage<XT, VEC>(reinterpret_cast<XT*>(st),
+                           reinterpret_cast<float*>(st + x_bytes), xb, gb,
+                           c0, (tile0 + it) * DW_TT, l1, T_out, Cin, p, pt,
+                           x_rows, g_rows);
   };
   load(0);
   cp_async_commit();
@@ -599,8 +626,9 @@ sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile it landed (and wdw_s, acc_s are set)
-    const float* x_s = smem + (it % DW_STAGES) * stage;
-    const float* g_s = x_s + x_rows * DW_CG;
+    const unsigned char* st = smem_raw + (it % DW_STAGES) * stage;
+    const XT* x_s = reinterpret_cast<const XT*>(st);
+    const float* g_s = reinterpret_cast<const float*>(st + x_bytes);
     const int t0 = (tile0 + it) * DW_TT;
 
     float a[DW_FPT], bk[DW_FPT];
@@ -621,7 +649,9 @@ sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
         if (t < T_out) {
           dwres[((size_t)b * T_out + t) * Cin + c] = t < l2 ? a[i] : 0.f;
         }
-        if (t < T) dx[((size_t)b * T + t) * Cin + c] = t < l1 ? bk[i] : 0.f;
+        if (t < T) {
+          store(dx + ((size_t)b * T + t) * Cin + c, t < l1 ? bk[i] : 0.f);
+        }
       }
     }
 
@@ -647,26 +677,26 @@ sep_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ gdw,
   }
 }
 
-template <int KPT>
-int launch_bwd_dw(const float* x, const float* gdw, const int* len1,
-                  const int* len2, const float* wdw, float* dx, float* dwres,
+template <int KPT, typename XT>
+int launch_bwd_dw(const XT* x, const float* gdw, const int* len1,
+                  const int* len2, const float* wdw, XT* dx, float* dwres,
                   float* part, int B, int T, int Cin, int K, int d, int p,
                   int T_out, int tiles_per_block, int time_groups, int vec,
                   cudaStream_t stream) {
-  static SmemLimit limit4, limit1;
-  const size_t smem = dw_smem(K, d);
+  static SmemLimit limit_vec, limit_one;
+  const size_t smem = dw_smem<XT>(K, d);
   const dim3 grid((Cin + DW_CG - 1) / DW_CG, time_groups, B);
   int err;
   if (vec) {
-    err = limit4.raise_to(sep_bwd_dw_kernel<KPT, 4>, smem);
+    err = limit_vec.raise_to(sep_bwd_dw_kernel<KPT, XT, true>, smem);
     if (err) return err;
-    sep_bwd_dw_kernel<KPT, 4><<<grid, DW_THREADS, smem, stream>>>(
+    sep_bwd_dw_kernel<KPT, XT, true><<<grid, DW_THREADS, smem, stream>>>(
         x, gdw, len1, len2, wdw, dx, dwres, part, T, Cin, K, d, p, T_out,
         tiles_per_block);
   } else {
-    err = limit1.raise_to(sep_bwd_dw_kernel<KPT, 1>, smem);
+    err = limit_one.raise_to(sep_bwd_dw_kernel<KPT, XT, false>, smem);
     if (err) return err;
-    sep_bwd_dw_kernel<KPT, 1><<<grid, DW_THREADS, smem, stream>>>(
+    sep_bwd_dw_kernel<KPT, XT, false><<<grid, DW_THREADS, smem, stream>>>(
         x, gdw, len1, len2, wdw, dx, dwres, part, T, Cin, K, d, p, T_out,
         tiles_per_block);
   }
@@ -801,29 +831,17 @@ pw_gemm_kernel(const float* __restrict__ A, int lda,
   }
 }
 
-}  // namespace
-
-// Shared memory of K6 for (K, d, Cout): the tile width follows Cout.
-extern "C" long long sep_fwd_smem_bytes(int K, int d, int Cout) {
-  return (long long)(Cout <= 256 ? fwd_smem<256>(K, d) : fwd_smem<512>(K, d));
-}
-
-extern "C" long long sep_bwd_smem_bytes(int K, int d) {
-  return (long long)dw_smem(K, d);
-}
-
-// K6 on `stream`: y [B, T_out, Cout]. len1/len2 [B] int32 or null.
-extern "C" int sep_fwd_launch(const float* x, const int* len1,
-                              const int* len2, const float* wdw,
-                              const float* wpw, float* y, int B, int T,
-                              int Cin, int Cout, int K, int d, int p,
-                              int T_out, void* stream) {
+// K6 and K7 on one x element type XT (K7's dx is XT too).
+template <typename XT>
+int sep_fwd_entry(const XT* x, const int* len1, const int* len2,
+                  const float* wdw, const float* wpw, float* y, int B, int T,
+                  int Cin, int Cout, int K, int d, int p, int T_out,
+                  cudaStream_t st) {
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  const int vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned(x) &&
-                  aligned(wdw) && aligned(wpw) && aligned(y);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = Cin % copy_elems<XT, true>() == 0 && Cout % 4 == 0 &&
+                  aligned(x) && aligned(wdw) && aligned(wpw) && aligned(y);
   if (Cout <= 256) {
     return launch_sep_fwd<256>(x, len1, len2, wdw, wpw, y, B, T, Cin, Cout,
                                K, d, p, T_out, vec, st);
@@ -832,21 +850,14 @@ extern "C" int sep_fwd_launch(const float* x, const int* len1,
                              d, p, T_out, vec, st);
 }
 
-// K7 on `stream`: dx [B, T, Cin], dwdw [K, Cin], dwpw [Cin, Cout] from g
-// [B, T_out, Cout]. Scratch: gdw and dwres [B, T_out, Cin], part_dw
-// [B * time_groups, K, Cin], part_pw [pw_splits, Cin, Cout]; the plan
-// (tiles_per_block, time_groups, pw_splits, pw_rows) comes from the
-// wrapper (ops/sep_conv.py::bwd_plan). Five launches.
-extern "C" int sep_bwd_launch(const float* x, const int* len1,
-                              const int* len2, const float* wdw,
-                              const float* wpw, const float* g, float* dx,
-                              float* dwdw, float* dwpw, float* gdw,
-                              float* dwres, float* part_dw, float* part_pw,
-                              int B, int T, int Cin, int Cout, int K, int d,
-                              int p, int T_out, int tiles_per_block,
-                              int time_groups, int pw_splits, int pw_rows,
-                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename XT>
+int sep_bwd_entry(const XT* x, const int* len1, const int* len2,
+                  const float* wdw, const float* wpw, const float* g, XT* dx,
+                  float* dwdw, float* dwpw, float* gdw, float* dwres,
+                  float* part_dw, float* part_pw, int B, int T, int Cin,
+                  int Cout, int K, int d, int p, int T_out,
+                  int tiles_per_block, int time_groups, int pw_splits,
+                  int pw_rows, cudaStream_t st) {
   const long long m_rows = (long long)B * T_out;
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
@@ -862,12 +873,13 @@ extern "C" int sep_bwd_launch(const float* x, const int* len1,
   }
   // (ii) dx, dwres and the per-block partials of dwdw.
   {
-    const int vec = Cin % 4 == 0 && aligned(x) && aligned(gdw);
-    auto run = launch_bwd_dw<11>;
+    const int vec = Cin % copy_elems<XT, true>() == 0 && aligned(x) &&
+                    aligned(gdw);
+    auto run = launch_bwd_dw<11, XT>;
     switch (dw_kpt(K)) {
-      case 4: run = launch_bwd_dw<4>; break;
-      case 6: run = launch_bwd_dw<6>; break;
-      case 8: run = launch_bwd_dw<8>; break;
+      case 4: run = launch_bwd_dw<4, XT>; break;
+      case 6: run = launch_bwd_dw<6, XT>; break;
+      case 8: run = launch_bwd_dw<8, XT>; break;
     }
     int err = run(x, gdw, len1, len2, wdw, dx, dwres, part_dw, B, T, Cin, K,
                   d, p, T_out, tiles_per_block, time_groups, vec, st);
@@ -895,4 +907,78 @@ extern "C" int sep_bwd_launch(const float* x, const int* len1,
   if (err) return err;
   return launch_sum_partials(part_pw, pw_splits, (long long)Cin * Cout, dwpw,
                              st);
+}
+
+}  // namespace
+
+// Shared memory of K6 for (K, d, Cout) at x elements of `esize` bytes (4
+// float32, 2 bfloat16): the tile width follows Cout.
+extern "C" long long sep_fwd_smem_bytes(int K, int d, int Cout, int esize) {
+  if (esize == 2) {
+    return (long long)(Cout <= 256 ? fwd_smem<256, __nv_bfloat16>(K, d)
+                                   : fwd_smem<512, __nv_bfloat16>(K, d));
+  }
+  return (long long)(Cout <= 256 ? fwd_smem<256, float>(K, d)
+                                 : fwd_smem<512, float>(K, d));
+}
+
+// Shared memory of K7's depthwise pass for (K, d) at x elements of `esize`
+// bytes.
+extern "C" long long sep_bwd_smem_bytes(int K, int d, int esize) {
+  return (long long)(esize == 2 ? dw_smem<__nv_bfloat16>(K, d)
+                                : dw_smem<float>(K, d));
+}
+
+// K6 on `stream`: y [B, T_out, Cout]. len1/len2 [B] int32 or null.
+// sep_fwd_launch_bf16: the same on bfloat16 x.
+extern "C" int sep_fwd_launch(const float* x, const int* len1,
+                              const int* len2, const float* wdw,
+                              const float* wpw, float* y, int B, int T,
+                              int Cin, int Cout, int K, int d, int p,
+                              int T_out, void* stream) {
+  return sep_fwd_entry(x, len1, len2, wdw, wpw, y, B, T, Cin, Cout, K, d, p,
+                       T_out, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sep_fwd_launch_bf16(const __nv_bfloat16* x, const int* len1,
+                                   const int* len2, const float* wdw,
+                                   const float* wpw, float* y, int B, int T,
+                                   int Cin, int Cout, int K, int d, int p,
+                                   int T_out, void* stream) {
+  return sep_fwd_entry(x, len1, len2, wdw, wpw, y, B, T, Cin, Cout, K, d, p,
+                       T_out, static_cast<cudaStream_t>(stream));
+}
+
+// K7 on `stream`: dx [B, T, Cin], dwdw [K, Cin], dwpw [Cin, Cout] from g
+// [B, T_out, Cout]. Scratch: gdw and dwres [B, T_out, Cin], part_dw
+// [B * time_groups, K, Cin], part_pw [pw_splits, Cin, Cout]; the plan
+// (tiles_per_block, time_groups, pw_splits, pw_rows) comes from the
+// wrapper (ops/sep_conv.py::bwd_plan). Five launches.
+// sep_bwd_launch_bf16: the same on bfloat16 x and dx.
+extern "C" int sep_bwd_launch(const float* x, const int* len1,
+                              const int* len2, const float* wdw,
+                              const float* wpw, const float* g, float* dx,
+                              float* dwdw, float* dwpw, float* gdw,
+                              float* dwres, float* part_dw, float* part_pw,
+                              int B, int T, int Cin, int Cout, int K, int d,
+                              int p, int T_out, int tiles_per_block,
+                              int time_groups, int pw_splits, int pw_rows,
+                              void* stream) {
+  return sep_bwd_entry(x, len1, len2, wdw, wpw, g, dx, dwdw, dwpw, gdw,
+                       dwres, part_dw, part_pw, B, T, Cin, Cout, K, d, p,
+                       T_out, tiles_per_block, time_groups, pw_splits,
+                       pw_rows, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sep_bwd_launch_bf16(
+    const __nv_bfloat16* x, const int* len1, const int* len2,
+    const float* wdw, const float* wpw, const float* g, __nv_bfloat16* dx,
+    float* dwdw, float* dwpw, float* gdw, float* dwres, float* part_dw,
+    float* part_pw, int B, int T, int Cin, int Cout, int K, int d, int p,
+    int T_out, int tiles_per_block, int time_groups, int pw_splits,
+    int pw_rows, void* stream) {
+  return sep_bwd_entry(x, len1, len2, wdw, wpw, g, dx, dwdw, dwpw, gdw,
+                       dwres, part_dw, part_pw, B, T, Cin, Cout, K, d, p,
+                       T_out, tiles_per_block, time_groups, pw_splits,
+                       pw_rows, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-"""Shared acoustic-model pieces: activations, padding arithmetic, weight
-init, flax-style BatchNorm and dropout."""
+"""Shared acoustic-model pieces: activations, padding arithmetic, the
+bfloat16 conv, weight init, flax-style BatchNorm and dropout."""
 
 from __future__ import annotations
 
@@ -28,6 +28,30 @@ def same_pad_amount(t_in: int, kernel: int, stride: int,
     out_t = (t_in + stride - 1) // stride
     pad = max(0, (out_t - 1) * stride + (kernel - 1) * dilation + 1 - t_in)
     return pad // 2, pad - pad // 2
+
+
+def conv1d_bf16(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None = None, stride: int = 1,
+                padding: int = 0, dilation: int = 1,
+                groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=bfloat16)`` on [B, C, T]: x and the weight
+    rounded to bfloat16, a bfloat16 conv summed in float32 (cuDNN on the
+    card, ATen on the CPU) whose output is rounded to bfloat16, then the
+    bias rounded to bfloat16 and added to it, a second rounding. Returns
+    bfloat16; the parameters stay float32 and their gradients come back
+    through the casts."""
+    bf16 = torch.bfloat16
+    y = F.conv1d(x.to(bf16), weight.to(bf16), None, stride, padding,
+                 dilation, groups)
+    if bias is not None:
+        y = y + bias.to(bf16)[:, None]
+    return y
+
+
+def from_bf16(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 conv output as float32 (what follows a conv runs in
+    float32); any other tensor as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def compute_new_kernel_size(kernel_size: int, kernel_width: float) -> int:

@@ -28,6 +28,16 @@ switch; on the card the kernels are the path):
 * the rest is ``F.conv1d``, what JAX leaves to XLA: 1x1 pointwise and
   residual convs, heads-folded and grouped convs, C3 and the head.
 
+With ``compute_dtype`` bfloat16 (the JAX package's ``dtype=bfloat16``)
+the convs round through bf16 where flax's do: a ``MaskedConv`` masks
+first, then its conv takes x and the weight in bf16 and gives bf16 (K4
+in bf16, or ``conv1d_bf16``), cast to float32 before the norm; the fused
+unit (K6/K7) reads bf16 x only, its weights, intermediate and output
+float32, and its dx comes back bf16; K4's weight gradient is rounded to
+bf16 as JAX's ``dw.astype(w.dtype)``; the head is a bf16 conv with a
+bf16 bias, cast to float32 before the softmax. Norms, residuals,
+activations and dropout run in float32.
+
 Train mode follows flax: BatchNorm (torch momentum 0.1, eps 1e-3) keeps
 the biased batch variance (``FlaxBatchNorm1d``); dropout draws from the
 ``generator`` passed to ``forward``; ``remat`` recomputes each block in the
@@ -80,9 +90,9 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.depthwise import depthwise_conv1d
 from ..ops.sep_conv import sep_conv1d
 from ..parallel import sp, tp
-from .base import (FlaxBatchNorm1d, compute_new_kernel_size, dropout,
-                   frozen_statistics, get_same_padding, hardtanh_0_20,
-                   init_conv_)
+from .base import (FlaxBatchNorm1d, compute_new_kernel_size, conv1d_bf16,
+                   dropout, from_bf16, frozen_statistics, get_same_padding,
+                   hardtanh_0_20, init_conv_)
 
 _ACTIVATIONS = {
     'relu': F.relu,
@@ -187,9 +197,11 @@ class MaskedConv(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  heads: int = -1, padding: int = 0, use_bias: bool = False,
-                 use_mask: bool = True):
+                 use_mask: bool = True,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.in_channels, self.features = in_channels, features
+        self.compute_dtype = compute_dtype
         self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
                                                         dilation)
         self.groups, self.heads, self.padding = groups, heads, padding
@@ -254,7 +266,10 @@ class MaskedConv(nn.Module):
 
     def forward(self, x: torch.Tensor, lens, seq_len: int | None = None):
         """(y, new lengths); with ``seq_len``, ``x`` and ``y`` are this
-        rank's ranges of ``seq_len`` and ``out_time(seq_len)`` frames."""
+        rank's ranges of ``seq_len`` and ``out_time(seq_len)`` frames.
+        With ``compute_dtype`` bfloat16, ``y`` is bfloat16: x and the
+        weight rounded, the conv (K4 or ``conv1d_bf16``) summed in
+        float32 and its output rounded."""
         if self.use_mask and lens is not None:
             T = x.shape[1]
             start = 0 if seq_len is None else sp.local_range(seq_len)[0]
@@ -268,10 +283,13 @@ class MaskedConv(nn.Module):
             x, _ = sp.conv_input(x, 1, seq_len, self.kernel_size,
                                  self.stride, self.dilation, pad, pad)
             pad = 0
+        bf16 = self.compute_dtype
         if self.uses_kernel:
             w = self.conv.weight[:, 0, :].t().contiguous()      # [K, C]
             if self.out_sharded:   # K4 on this rank's channels
                 x = tp.scatter_to_model(x, 2)
+            if bf16 is not None:   # K4 in bf16 (dw rounded to bf16 too)
+                x, w = x.to(bf16), w.to(bf16)
             return depthwise_conv1d(x.contiguous(), w, self.stride,
                                     self.dilation, pad), lens
         if self.out_sharded:
@@ -285,9 +303,9 @@ class MaskedConv(nn.Module):
             groups = self.heads
             # replicated on every model rank, from the whole weight
             weight = tp.whole_param(weight, partial=False)
-        y = F.conv1d(x.transpose(1, 2), weight, self.conv.bias,
-                     self.stride, pad, self.dilation,
-                     groups).transpose(1, 2)
+        conv = F.conv1d if bf16 is None else conv1d_bf16
+        y = conv(x.transpose(1, 2), weight, self.conv.bias, self.stride, pad,
+                 self.dilation, groups).transpose(1, 2)
         if self.heads != -1:
             T2 = y.shape[1]
             y = y.reshape(B, self.features // self.heads, T2, self.heads)
@@ -307,8 +325,11 @@ class JasperBlock(nn.Module):
                  groups: int = 1, separable: bool = False, heads: int = -1,
                  normalization: str = 'batch', norm_groups: int = 1,
                  residual_mode: str = 'add', dense_residual: bool = False,
-                 conv_mask: bool = False, res_channels=None):
+                 conv_mask: bool = False, res_channels=None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        bf16 = dict(compute_dtype=compute_dtype)
         if residual_mode not in ('add', 'max'):
             raise ValueError(f'residual_mode must be add or max, got '
                              f'{residual_mode!r}')
@@ -330,13 +351,14 @@ class JasperBlock(nn.Module):
             if separable and kernel > 1:
                 convs.append(MaskedConv(cin, cin, kernel, stride, dilation,
                                         groups=cin, heads=heads, padding=pad,
-                                        use_mask=conv_mask))
+                                        use_mask=conv_mask, **bf16))
                 convs.append(MaskedConv(cin, planes, 1, groups=groups,
-                                        use_mask=conv_mask))
+                                        use_mask=conv_mask, **bf16))
             else:
                 convs.append(MaskedConv(cin, planes, kernel, stride, dilation,
                                         groups=groups, heads=heads,
-                                        padding=pad, use_mask=conv_mask))
+                                        padding=pad, use_mask=conv_mask,
+                                        **bf16))
             slots = {'convs': list(range(len(mconv), len(mconv) + len(convs)))}
             mconv += convs
             slots['norm'] = len(mconv)
@@ -354,7 +376,7 @@ class JasperBlock(nn.Module):
         if residual:
             for ch in (res_channels or [in_channels]):
                 res.append(nn.ModuleList([
-                    MaskedConv(ch, planes, 1, use_mask=conv_mask),
+                    MaskedConv(ch, planes, 1, use_mask=conv_mask, **bf16),
                     make_norm(normalization, planes, norm_groups)]))
         self.res = nn.ModuleList(res)
         self.out = nn.ModuleList([Activation(activation), Dropout(dropout)])
@@ -392,6 +414,8 @@ class JasperBlock(nn.Module):
                 shift = (in_lo, sp.local_range(seq_len)[0])
             if sliced:
                 x = tp.copy_to_model(x)
+            if self.compute_dtype is not None:   # K6/K7 read bf16 x only
+                x = x.to(self.compute_dtype)
             x = sep_conv1d(x.contiguous(), lens if self.conv_mask else None,
                            wdw, wpw, self.dilation, self.pad,
                            use_mask=self.conv_mask, shift=shift)
@@ -408,6 +432,7 @@ class JasperBlock(nn.Module):
                 if seq_len is not None:
                     seq_len = conv.out_time(seq_len)
                 sliced = conv.out_sharded
+            x = from_bf16(x)   # the norms and residuals run in float32
         x = norm_gathered(self.mconv[slots['norm']], x, sliced)
         if 'shuffle' in slots:
             x = self.mconv[slots['shuffle']](x)
@@ -426,7 +451,7 @@ class JasperBlock(nn.Module):
             branches = panes if self.dense_residual else [panes[-1]]
             for (conv, norm), res_in in zip(self.res, branches):
                 r, _ = conv(res_in, lens_orig, len_orig)
-                r = norm_gathered(norm, r, conv.out_sharded)
+                r = norm_gathered(norm, from_bf16(r), conv.out_sharded)
                 x = x + r if self.residual_mode == 'add' else torch.maximum(
                     x, r)
         x = self.out[0](x)
@@ -440,7 +465,9 @@ class Jasper(nn.Module):
     separable, masked convs, batch norm, dropout ``dropout_default``. With a
     ``generator``, every conv weight is drawn from it by ``init_mode`` and
     the head bias starts at zero; the module is built on the CPU and moved
-    to ``device``.
+    to ``device``. ``compute_dtype`` (None: float32; ``torch.bfloat16``)
+    is the JAX package's ``model.compute_dtype``; the parameters are
+    float32 either way.
     """
 
     eval_emits_probs = True
@@ -449,10 +476,12 @@ class Jasper(nn.Module):
                  mid_layers: int = 1, init_mode: str = 'xavier_uniform',
                  remat: bool = False, dropout_default: float = 0.0,
                  generator: torch.Generator | None = None,
-                 device: str | torch.device = 'cpu'):
+                 device: str | torch.device = 'cpu',
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         specs = [dict(b) for b in list(jasper_blocks)[:mid_layers]]
         self.remat = bool(remat)
+        self.compute_dtype = compute_dtype
         blocks = []
         panes = [input_size]
         for b in specs:
@@ -476,7 +505,8 @@ class Jasper(nn.Module):
                 residual_mode=b.get('residual_mode', 'add'),
                 dense_residual=dense,
                 conv_mask=bool(b.get('conv_mask', True)),
-                res_channels=list(panes) if dense else [panes[-1]]))
+                res_channels=list(panes) if dense else [panes[-1]],
+                compute_dtype=compute_dtype))
             panes = panes + [planes] if dense else [planes]
         self.jasper_encoder = nn.ModuleList(blocks)
         self.final_layer = nn.Sequential(nn.Conv1d(panes[-1], num_labels, 1,
@@ -530,8 +560,9 @@ class Jasper(nn.Module):
             panes = panes + [out] if block.dense_residual else [out]
             x = out
         head = self.final_layer[0]
-        logits = F.conv1d(x.transpose(1, 2), head.weight,
-                          head.bias).transpose(1, 2)
+        conv = F.conv1d if self.compute_dtype is None else conv1d_bf16
+        logits = from_bf16(conv(x.transpose(1, 2), head.weight,
+                                head.bias).transpose(1, 2))
         out = (F.log_softmax(logits, dim=-1) if self.training
                else F.softmax(logits, dim=-1)).contiguous()
         if lens is None:

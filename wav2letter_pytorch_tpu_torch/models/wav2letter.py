@@ -1,9 +1,14 @@
 """Wav2Letter: a 1-D convolutional CTC acoustic model (PyTorch).
 
 Same model as ``wav2letter_pytorch_tpu.models.wav2letter``: ``mid_layers``
-blocks of reflect-SAME padding -> Conv1d -> BatchNorm (torch momentum 0.9,
-eps 1e-3) -> dropout -> clamp(0, 20), then a 1x1 conv head to the labels
-and log_softmax. ``out_lengths = input_lengths // prod(strides)``.
+blocks of reflect-SAME padding (or zero SAME padding, ``padding_mode``)
+-> Conv1d -> BatchNorm (torch momentum 0.9, eps 1e-3) -> dropout ->
+clamp(0, 20), then a 1x1 conv head to the labels and log_softmax.
+``out_lengths = input_lengths // prod(strides)``. With ``compute_dtype``
+bfloat16 each conv (the head's too) runs in bf16 as flax's
+``nn.Conv(dtype=bfloat16)``: input and weight rounded, a bf16 output,
+the bias added in bf16; BatchNorm, dropout, clamp and log_softmax then
+run in float32.
 
 Train mode (``model.train()``) follows flax: BatchNorm normalises with the
 biased batch variance and updates its running statistics as
@@ -23,7 +28,7 @@ Under sequence parallelism (``parallel.sp``) ``forward`` takes
 ``seq_len``, the global length of the features of which ``x`` holds this
 rank's range: each block computes its rank's range of its output from
 the input frames it reads (``sp.conv_input``: neighbours' frames
-fetched, reflect SAME padding by index at the global edges only) with
+fetched, SAME padding by index at the global edges only) with
 an unpadded conv, then BN (statistics over every rank's frames), the
 dropout mask of the whole sequence (this rank's range of it) and the
 clamp on its range; the output is this rank's range of the log-probs
@@ -45,8 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import sp, tp
-from .base import (FlaxBatchNorm1d, dropout, hardtanh_0_20, init_conv_,
-                   same_pad_amount)
+from .base import (FlaxBatchNorm1d, conv1d_bf16, dropout, hardtanh_0_20,
+                   init_conv_, same_pad_amount)
+
+PADDING_MODES = ('reflect', 'zeros')
 
 # configs/model/wav2letter.yaml of the JAX package: the full 20-layer stack.
 WAV2LETTER_LAYERS = (
@@ -74,17 +81,25 @@ WAV2LETTER_LAYERS = (
 
 
 class Conv1dBlock(nn.Module):
-    """Reflect-pad SAME conv block with BN, dropout and clamp, on
-    [B, C, T]."""
+    """SAME conv block with BN, dropout and clamp, on [B, C, T]: padded
+    by reflection or with zeros (``padding_mode``), the conv in float32
+    or, with ``compute_dtype`` bfloat16, in bf16 (``conv1d_bf16``) with
+    everything after it in float32."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, dropout: float = -1.0,
-                 use_bn: bool = True, use_activation: bool = True):
+                 use_bn: bool = True, use_activation: bool = True,
+                 padding_mode: str = 'reflect',
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        if padding_mode not in PADDING_MODES:
+            raise ValueError(f'padding_mode must be one of {PADDING_MODES}, '
+                             f'got {padding_mode!r}')
         self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
                                                         dilation)
         self.dropout = dropout
         self.use_activation = use_activation
+        self.padding_mode, self.compute_dtype = padding_mode, compute_dtype
         self.conv1 = nn.Conv1d(in_channels, out_channels, kernel_size,
                                stride=stride, dilation=dilation)
         self.batch_norm = (FlaxBatchNorm1d(out_channels, momentum=0.9,
@@ -106,13 +121,26 @@ class Conv1dBlock(nn.Module):
         left, right = same_pad_amount(x.shape[-1] if seq_len is None
                                       else seq_len, self.kernel_size,
                                       self.stride, self.dilation)
+        pad = 0
         if seq_len is not None:   # this rank's output range, padded by index
             x, _ = sp.conv_input(x, 2, seq_len, self.kernel_size,
                                  self.stride, self.dilation, left, right,
-                                 'reflect')
+                                 self.padding_mode)
+        elif self.padding_mode == 'zeros' and left == right:
+            pad = left            # the conv's own zero padding
         elif left or right:
-            x = F.pad(x, (left, right), mode='reflect')
-        x = self.conv1(x)
+            x = F.pad(x, (left, right), mode='reflect'
+                      if self.padding_mode == 'reflect' else 'constant')
+        conv = self.conv1
+        if self.compute_dtype is not None:
+            # bf16 out; BN (or the head's log_softmax) takes it in float32
+            x = conv1d_bf16(x, conv.weight, conv.bias, self.stride, pad,
+                            self.dilation).float()
+        elif pad:
+            x = F.conv1d(x, conv.weight, conv.bias, self.stride, pad,
+                         self.dilation)
+        else:
+            x = conv(x)
         if self.batch_norm is not None:
             x = self.batch_norm(x)
         if sharded:
@@ -132,15 +160,21 @@ class Wav2Letter(nn.Module):
     before the 1x1 head. With a ``generator``, conv weights are drawn from
     it by ``init_mode`` (the JAX package's ``model.init_mode``, default
     xavier-uniform) and biases start at zero; the module is built on the
-    CPU and then moved to ``device``.
+    CPU and then moved to ``device``. ``padding_mode`` and
+    ``compute_dtype`` (None: float32; ``torch.bfloat16``) are the JAX
+    package's ``model.padding_mode`` and ``model.compute_dtype``; the
+    parameters are float32 either way.
     """
 
     def __init__(self, num_labels: int, input_size: int = 64,
                  layers=WAV2LETTER_LAYERS, mid_layers: int = 20,
                  generator: torch.Generator | None = None,
                  device: str | torch.device = 'cpu',
-                 init_mode: str = 'xavier_uniform'):
+                 init_mode: str = 'xavier_uniform',
+                 padding_mode: str = 'reflect',
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.padding_mode, self.compute_dtype = padding_mode, compute_dtype
         specs = list(layers)[:mid_layers]
         blocks = []
         cin = input_size
@@ -149,10 +183,12 @@ class Wav2Letter(nn.Module):
                 cin, int(spec['output_size']), int(spec['kernel_size']),
                 stride=int(spec.get('stride', 1)),
                 dilation=int(spec.get('dilation', 1)),
-                dropout=float(spec.get('dropout', -1.0)))))
+                dropout=float(spec.get('dropout', -1.0)),
+                padding_mode=padding_mode, compute_dtype=compute_dtype)))
             cin = int(spec['output_size'])
         blocks.append((f'conv1d_{len(specs)}', Conv1dBlock(
-            cin, num_labels, 1, use_bn=False, use_activation=False)))
+            cin, num_labels, 1, use_bn=False, use_activation=False,
+            compute_dtype=compute_dtype)))
         self.conv1ds = nn.Sequential(OrderedDict(blocks))
         self.scaling_factor = 1
         for spec in specs:

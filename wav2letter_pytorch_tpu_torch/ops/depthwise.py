@@ -10,10 +10,19 @@ falls back from one to the other. ``DepthwiseConv1d`` is the
 on the zero-stuffed cotangent with the flipped kernel, the weight gradient
 is K5. Layout ``[B, T, C]``, as in JAX. ``depthwise_fwd.launches`` and
 ``depthwise_wgrad.launches`` count calls that launched the kernel (K5 is
-two launches: partial sums, then their fixed-order sum). ``fwd_plan`` and
+two launches: partial sums, then their fixed-order sum), and
+``.bf16_launches`` those of them on bfloat16 x. ``fwd_plan`` and
 ``wgrad_plan`` cut the kernels' work into blocks, register windows and
 shared memory; ``tests/test_torch_dw_tiles.py`` models that tiling in
 numpy.
+
+Elements: float32, or bfloat16 (``model.compute_dtype=bf16``), with the
+TPU kernel's contract: bf16 x and w in, the taps summed in float32, y
+rounded to bf16; K5 reads bf16 x and g and gives a float32 dw, which
+``DepthwiseConv1d`` rounds to w's dtype as ``_dw_op_bwd`` does. The plain
+versions keep the same contract (float32 math on the bf16 values, the same
+roundings). A kernel never converts a bf16 tensor to float32 for itself:
+what it does not take, it refuses.
 """
 
 from __future__ import annotations
@@ -41,7 +50,11 @@ def _taps(x_pad: torch.Tensor, k: int, s: int, d: int, t_out: int):
 def depthwise_fwd_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
                             dilation: int, padding: int) -> torch.Tensor:
     """Plain K4: y[b, t, c] = sum_k w[k, c] * x_pad[b, t*s + k*d, c], the
-    K taps added in order. x [B, T, C], w [K, C] -> [B, T_out, C]."""
+    K taps added in order. x [B, T, C], w [K, C] -> [B, T_out, C]. bf16 x
+    and w: the sum in float32, y rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        return depthwise_fwd_reference(x.float(), w.float(), stride,
+                                       dilation, padding).to(x.dtype)
     B, T, C = x.shape
     K = w.shape[0]
     t_out = out_length(T, K, stride, dilation, padding)
@@ -56,18 +69,29 @@ def depthwise_wgrad_reference(x: torch.Tensor, g: torch.Tensor, K: int,
                               stride: int, dilation: int,
                               padding: int) -> torch.Tensor:
     """Plain K5: dw[k, c] = sum_{b, t} x_pad[b, t*s + k*d, c] * g[b, t, c].
-    x [B, T, C], g [B, T_out, C] -> [K, C]."""
+    x [B, T, C], g [B, T_out, C] -> [K, C], float32 (bf16 x and g summed
+    in float32)."""
+    if x.dtype == torch.bfloat16:
+        x, g = x.float(), g.float()
     t_out = g.shape[1]
     xp = F.pad(x, (0, 0, padding, padding))
     return torch.stack([(_taps(xp, k, stride, dilation, t_out) * g)
                         .sum(dim=(0, 1)) for k in range(K)])
 
 
+DTYPES = (torch.float32, torch.bfloat16)   # the kernels' element types
+
+
 def _check(name: str, **tensors):
-    dev = next(iter(tensors.values())).device
+    """Every tensor on one device, of one of ``DTYPES``, all the same, and
+    contiguous."""
+    first = next(iter(tensors.values()))
+    dev, dtype = first.device, first.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f'{name}: takes float32 or bfloat16, got {dtype}')
     for what, t in tensors.items():
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f'{name}: {what} must be float32 on {dev}, got '
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f'{name}: {what} must be {dtype} on {dev}, got '
                              f'{t.dtype} on {t.device}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: {what} must be contiguous')
@@ -111,7 +135,8 @@ def _class_sizes(K: int, s: int, d: int) -> list:
 class FwdPlan(NamedTuple):
     """How K4 cuts its work: blocks of ``tile`` output frames (a multiple
     of r*d'), ``rows`` rows a phase plane, ``warps`` a block (each
-    half-warp taking items of ``r`` outputs), ``smem`` bytes."""
+    half-warp taking items of ``r`` outputs), ``smem`` bytes (x's planes
+    and w at ``esize`` bytes an element)."""
     r: int
     tile: int
     rows: int
@@ -123,7 +148,8 @@ class WgradPlan(NamedTuple):
     """How K5 cuts its work: a block per (32 channels, chunk of ``chunk``
     frames, batch row), ``staged`` of ``rows`` rows a phase plane, groups
     of up to ``r`` taps, the chunk cut into ``slices`` in time; ``warps`` a
-    block, ``partials`` summed by the second launch, ``smem`` bytes."""
+    block, ``partials`` summed by the second launch, ``smem`` bytes (the
+    planes and g at ``esize`` bytes an element, the float32 sums)."""
     r: int
     chunk: int
     staged: int
@@ -134,18 +160,20 @@ class WgradPlan(NamedTuple):
     smem: int
 
 
-def fwd_plan(T_out: int, K: int, s: int, d: int) -> FwdPlan:
+def fwd_plan(T_out: int, K: int, s: int, d: int, esize: int = 4) -> FwdPlan:
     """K4's plan: about FWD_TILE frames a block, the tiles of a row as even
-    as whole groups of FWD_R*d' frames allow."""
+    as whole groups of FWD_R*d' frames allow; ``esize`` the bytes of an
+    element (4 float32, 2 bfloat16)."""
     r = FWD_R
     span = r * (d // math.gcd(s, d))
     tt = _cdiv(_cdiv(T_out, _cdiv(T_out, FWD_TILE)), span) * span
     rows = tt + (K - 1) * d // s
     warps = min(_cdiv(tt // r, 2), MAX_WARPS)
-    return FwdPlan(r, tt, rows, warps, 4 * CT * (s * rows + K))
+    return FwdPlan(r, tt, rows, warps, esize * CT * (s * rows + K))
 
 
-def wgrad_plan(B: int, T_out: int, K: int, s: int, d: int) -> WgradPlan:
+def wgrad_plan(B: int, T_out: int, K: int, s: int, d: int,
+               esize: int = 4) -> WgradPlan:
     """K5's plan: about WGRAD_CHUNK frames a block (as even as the chunks
     of a row allow); the smallest R whose tap groups fit the block; the
     frames sliced until a block has about WGRAD_WARPS warps."""
@@ -164,7 +192,7 @@ def wgrad_plan(B: int, T_out: int, K: int, s: int, d: int) -> WgradPlan:
     staged = tc + (K - 1) * d // s
     rows = staged + (r - 1) * dp
     warps = min(_cdiv(per_sub * slices, 2), MAX_WARPS)
-    smem = 4 * CT * (s * rows + tc + slices * dp * K)
+    smem = esize * CT * (s * rows + tc) + 4 * CT * slices * dp * K
     return WgradPlan(r, tc, staged, rows, slices, warps, chunks * B, smem)
 
 
@@ -176,8 +204,11 @@ def _check_smem(smem: int, K: int, s: int, d: int):
 
 
 def _vec(C: int, *tensors) -> int:
-    """1 where 16-byte copies are safe: C % 4 == 0 and aligned bases."""
-    return int(C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    """1 where 16-byte copies are safe: C a multiple of 16 bytes' elements
+    (4 float32, 8 bfloat16) and aligned bases."""
+    per = 16 // tensors[0].element_size()
+    return int(C % per == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in tensors))
 
 
 def _launch_fwd(x, w, s, d, p):
@@ -189,11 +220,12 @@ def _launch_fwd(x, w, s, d, p):
                          f'{tuple(w.shape)}')
     _check_geometry('depthwise_fwd', T, K, s, d, p)
     t_out = out_length(T, K, s, d, p)
-    plan = fwd_plan(t_out, K, s, d)
+    plan = fwd_plan(t_out, K, s, d, x.element_size())
     _check_smem(plan.smem, K, s, d)
     lib = _build.load('depthwise')
-    y = torch.empty((B, t_out, C), dtype=torch.float32, device=x.device)
-    fn = lib.dw_fwd_launch
+    y = torch.empty((B, t_out, C), dtype=x.dtype, device=x.device)
+    fn = (lib.dw_fwd_launch if x.dtype == torch.float32
+          else lib.dw_fwd_launch_bf16)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [
         ctypes.c_longlong, ctypes.c_void_p]
@@ -204,16 +236,18 @@ def _launch_fwd(x, w, s, d, p):
                   plan.smem, stream)
     _build.check(lib, code, 'depthwise K4 launch')
     depthwise_fwd.launches += 1
+    depthwise_fwd.bf16_launches += x.dtype == torch.bfloat16
     return y
 
 
 def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                   dilation: int = 1, padding: int = 0) -> torch.Tensor:
     """K4: depthwise conv of x [B, T, C] with w [K, C] at ``stride``,
-    ``dilation`` and symmetric zero ``padding`` -> [B, T_out, C]. A CUDA
-    tensor goes through the kernel (float32, contiguous; raises on anything
-    else or on a failed launch), a CPU tensor through the plain version.
-    No gradient: see ``depthwise_conv1d``."""
+    ``dilation`` and symmetric zero ``padding`` -> [B, T_out, C] in x's
+    dtype. A CUDA tensor goes through the kernel (float32 or bfloat16,
+    both alike, contiguous; raises on anything else or on a failed
+    launch), a CPU tensor through the plain version. No gradient: see
+    ``depthwise_conv1d``."""
     if x.device.type == 'cuda':
         return _launch_fwd(x.detach(), w.detach(), int(stride),
                            int(dilation), int(padding))
@@ -224,6 +258,7 @@ def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 depthwise_fwd.launches = 0
+depthwise_fwd.bf16_launches = 0   # of them, on bfloat16 x
 
 
 def _launch_wgrad(x, g, K, s, d, p):
@@ -234,13 +269,14 @@ def _launch_wgrad(x, g, K, s, d, p):
     if tuple(g.shape) != (B, t_out, C):
         raise ValueError(f'depthwise_wgrad: g must be {(B, t_out, C)}, got '
                          f'{tuple(g.shape)}')
-    plan = wgrad_plan(B, t_out, K, s, d)
+    plan = wgrad_plan(B, t_out, K, s, d, x.element_size())
     _check_smem(plan.smem, K, s, d)
     lib = _build.load('depthwise')
     part = torch.empty((plan.partials, K, C), dtype=torch.float32,
                        device=x.device)
     dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
-    fn = lib.dw_wgrad_launch
+    fn = (lib.dw_wgrad_launch if x.dtype == torch.float32
+          else lib.dw_wgrad_launch_bf16)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [
         ctypes.c_longlong, ctypes.c_void_p]
@@ -252,14 +288,15 @@ def _launch_wgrad(x, g, K, s, d, p):
                   plan.smem, stream)
     _build.check(lib, code, 'depthwise K5 launch')
     depthwise_wgrad.launches += 1
+    depthwise_wgrad.bf16_launches += x.dtype == torch.bfloat16
     return dw
 
 
 def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, K: int, stride: int = 1,
                     dilation: int = 1, padding: int = 0) -> torch.Tensor:
-    """K5: the weight gradient [K, C] of ``depthwise_fwd`` from its input x
-    [B, T, C] and the cotangent g [B, T_out, C]. CUDA: the kernel; CPU: the
-    plain version."""
+    """K5: the weight gradient [K, C], float32, of ``depthwise_fwd`` from
+    its input x [B, T, C] and the cotangent g [B, T_out, C] (both float32
+    or both bfloat16). CUDA: the kernel; CPU: the plain version."""
     if x.device.type == 'cuda':
         return _launch_wgrad(x.detach(), g.detach(), int(K), int(stride),
                              int(dilation), int(padding))
@@ -270,6 +307,7 @@ def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, K: int, stride: int = 1,
 
 
 depthwise_wgrad.launches = 0
+depthwise_wgrad.bf16_launches = 0   # of them, on bfloat16 x
 
 
 def dgrad_args(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
@@ -306,7 +344,8 @@ def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor, T: int, stride: int,
 
 class DepthwiseConv1d(torch.autograd.Function):
     """Depthwise conv with a gradient in x and w: forward K4; backward K4
-    (input gradient, ``depthwise_dgrad``) and K5 (weight gradient)."""
+    (input gradient, ``depthwise_dgrad``, in g's dtype) and K5 (weight
+    gradient, rounded to w's dtype: bf16 for a bf16 w, as JAX's)."""
 
     @staticmethod
     def forward(ctx, x, w, stride: int, dilation: int, padding: int):
@@ -323,7 +362,8 @@ class DepthwiseConv1d(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = depthwise_dgrad(g, w.detach(), x.shape[1], s, d, p)
         if ctx.needs_input_grad[1]:
-            dw = depthwise_wgrad(x.detach(), g, w.shape[0], s, d, p)
+            dw = depthwise_wgrad(x.detach(), g, w.shape[0], s, d,
+                                 p).to(w.dtype)
         return dx, dw, None, None, None
 
 

@@ -10,9 +10,17 @@ the ``custom_vjp`` of ``_sep_op``; ``lens`` only shapes the masks and gets
 no gradient. Stride is 1. ``sep_fwd.launches`` and ``sep_bwd.launches``
 count calls that launched the kernel (a K7 call is five launches of the
 one source: the g @ wpw^T product, the depthwise pass, the dwpw product
-and two fixed-order sums of partials). ``bwd_plan`` cuts K7's work into
+and two fixed-order sums of partials), ``.bf16_launches`` those on
+bfloat16 x. ``bwd_plan`` cuts K7's work into
 blocks and partials; ``tests/test_torch_sep_bwd_tiles.py`` models that
 tiling in numpy.
+
+x is float32 or bfloat16 (``model.compute_dtype=bf16``), as the TPU
+kernels take it: K6 reads bf16 x into float32 and keeps the weights, the
+depthwise intermediate, the product and y float32; K7 gives dx in x's
+dtype (rounded to nearest even) and dwdw, dwpw float32. The weights and g
+are float32. The plain versions keep the same contract; a kernel never
+converts a bf16 tensor to float32 for itself.
 """
 
 from __future__ import annotations
@@ -107,7 +115,9 @@ def sep_fwd_reference(x, len1, len2, wdw, wpw, dilation: int,
                       padding: int) -> torch.Tensor:
     """Plain K6, mirroring ``sep_conv1d_xla``: x * m1 -> K-tap depthwise
     loop -> * m2 -> einsum with wpw. ``len1``/``len2`` int [B] or None (no
-    masks)."""
+    masks). A bf16 x is read into float32 (y float32)."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
     B, T, _ = x.shape
     K = wdw.shape[0]
     t_out = out_length(T, K, dilation, padding)
@@ -125,7 +135,12 @@ def sep_bwd_reference(x, len1, len2, wdw, wpw, g, dilation: int,
     """Plain K7, the TPU kernel's arithmetic: recompute the depthwise
     output, then dwpw = (dwres * m2)^T g, g_dw = (g wpw^T) * m2, dwdw[k] =
     sum_t x_pad[t + kd] g_dw[t], dx = m1 * (the flipped-kernel conv of
-    g_dw at padding d(K-1) - p). Returns (dx, dwdw, dwpw)."""
+    g_dw at padding d(K-1) - p). Returns (dx, dwdw, dwpw): dx in x's dtype
+    (a bf16 x read into float32, dx rounded at the end), the rest
+    float32."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x = x.float()
     B, T, C = x.shape
     K = wdw.shape[0]
     d, p = dilation, padding
@@ -150,15 +165,19 @@ def sep_bwd_reference(x, len1, len2, wdw, wpw, g, dilation: int,
         dx = dx + gp[:, k * d:k * d + T] * wdw[K - 1 - k]
     if len1 is not None:
         dx = dx * m1
-    return dx, dwdw, dwpw
+    return dx.to(dtype), dwdw, dwpw
 
 
 def _check(name: str, **tensors):
+    """x float32 or bfloat16; the lengths int32; the rest float32; all on
+    x's device and contiguous."""
     dev = next(iter(tensors.values())).device
     for what, t in tensors.items():
         if t is None:
             continue
-        want = torch.int32 if what.startswith('len') else torch.float32
+        want = (torch.int32 if what.startswith('len') else
+                t.dtype if what == 'x' and t.dtype == torch.bfloat16
+                else torch.float32)
         if t.device != dev or t.dtype != want:
             raise ValueError(f'{name}: {what} must be {want} on {dev}, got '
                              f'{t.dtype} on {t.device}')
@@ -192,16 +211,25 @@ def _library() -> ctypes.CDLL:
     """The built library, its functions' ctypes signatures set once."""
     lib = _build.load('sep_conv')
     lib.sep_fwd_smem_bytes.restype = ctypes.c_longlong
-    lib.sep_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sep_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.sep_bwd_smem_bytes.restype = ctypes.c_longlong
-    lib.sep_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.sep_fwd_launch.restype = ctypes.c_int
-    lib.sep_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.sep_bwd_launch.restype = ctypes.c_int
-    lib.sep_bwd_launch.argtypes = [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.sep_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for suffix in ('', '_bf16'):
+        fwd = getattr(lib, 'sep_fwd_launch' + suffix)
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        bwd = getattr(lib, 'sep_bwd_launch' + suffix)
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
+            ctypes.c_void_p]
     return lib
+
+
+def _launcher(lib: ctypes.CDLL, name: str, x: torch.Tensor):
+    """``lib``'s float32 entry point ``name``, or its bfloat16 twin for a
+    bf16 x."""
+    return getattr(lib, name if x.dtype == torch.float32 else name + '_bf16')
 
 
 def _check_smem(smem: int, K: int, d: int) -> None:
@@ -212,15 +240,15 @@ def _check_smem(smem: int, K: int, d: int) -> None:
 
 
 @functools.cache
-def _fwd_smem(K: int, d: int, cout: int) -> int:
-    smem = _library().sep_fwd_smem_bytes(K, d, cout)
+def _fwd_smem(K: int, d: int, cout: int, esize: int) -> int:
+    smem = _library().sep_fwd_smem_bytes(K, d, cout, esize)
     _check_smem(smem, K, d)
     return smem
 
 
 @functools.cache
-def _bwd_smem(K: int, d: int) -> int:
-    smem = _library().sep_bwd_smem_bytes(K, d)
+def _bwd_smem(K: int, d: int, esize: int) -> int:
+    smem = _library().sep_bwd_smem_bytes(K, d, esize)
     _check_smem(smem, K, d)
     return smem
 
@@ -234,16 +262,17 @@ def _launch_fwd(x, len1, len2, wdw, wpw, d, p):
     B, T, C, K, cout, t_out = _geometry('sep_fwd', x, len1, len2, wdw, wpw,
                                         d, p)
     lib = _library()
-    _fwd_smem(K, d, cout)
+    _fwd_smem(K, d, cout, x.element_size())
     y = torch.empty((B, t_out, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sep_fwd_launch(
+        code = _launcher(lib, 'sep_fwd_launch', x)(
             x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
             wpw.data_ptr(), y.data_ptr(), B, T, C, cout, K, d, p, t_out,
             stream)
     _build.check(lib, code, 'sep_conv K6 launch')
     sep_fwd.launches += 1
+    sep_fwd.bf16_launches += x.dtype == torch.bfloat16
     return y
 
 
@@ -251,9 +280,10 @@ def sep_fwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
             wpw: torch.Tensor, dilation: int = 1,
             padding: int = 0) -> torch.Tensor:
     """K6: y [B, T_out, Cout] of the unit; ``len1``/``len2`` from
-    ``mask_lengths`` or both None (no masks). CUDA: the kernel (float32 and
-    int32, contiguous; raises on anything else or a failed launch); CPU:
-    the plain version. No gradient: see ``sep_conv1d``."""
+    ``mask_lengths`` or both None (no masks). CUDA: the kernel (x float32
+    or bfloat16, the weights float32, the lengths int32, contiguous; raises
+    on anything else or a failed launch); CPU: the plain version. No
+    gradient: see ``sep_conv1d``."""
     if x.device.type == 'cuda':
         return _launch_fwd(x.detach(), len1, len2, wdw.detach(),
                            wpw.detach(), int(dilation), int(padding))
@@ -264,6 +294,7 @@ def sep_fwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
 
 
 sep_fwd.launches = 0
+sep_fwd.bf16_launches = 0   # of them, on bfloat16 x
 
 
 def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
@@ -274,19 +305,20 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
         raise ValueError(f'sep_bwd: g must be {(B, t_out, cout)}, got '
                          f'{tuple(g.shape)}')
     lib = _library()
-    _bwd_smem(K, d)
+    _bwd_smem(K, d, x.element_size())
     plan = bwd_plan(B, T, t_out, C, cout)
     dev = x.device
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    dx, dwdw, dwpw = empty(B, T, C), empty(K, C), empty(C, cout)
+    dx = torch.empty((B, T, C), dtype=x.dtype, device=dev)
+    dwdw, dwpw = empty(K, C), empty(C, cout)
     gdw, dwres = empty(B, t_out, C), empty(B, t_out, C)
     part_dw = empty(B * plan.time_groups, K, C)
     part_pw = empty(plan.pw_splits, C, cout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sep_bwd_launch(
+        code = _launcher(lib, 'sep_bwd_launch', x)(
             x.data_ptr(), _ptr(len1), _ptr(len2), wdw.data_ptr(),
             wpw.data_ptr(), g.data_ptr(), dx.data_ptr(), dwdw.data_ptr(),
             dwpw.data_ptr(), gdw.data_ptr(), dwres.data_ptr(),
@@ -294,6 +326,7 @@ def _launch_bwd(x, len1, len2, wdw, wpw, g, d, p):
             t_out, *plan, stream)
     _build.check(lib, code, 'sep_conv K7 launch')
     sep_bwd.launches += 1
+    sep_bwd.bf16_launches += x.dtype == torch.bfloat16
     return dx, dwdw, dwpw
 
 
@@ -301,7 +334,8 @@ def sep_bwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
             wpw: torch.Tensor, g: torch.Tensor, dilation: int = 1,
             padding: int = 0):
     """K7: (dx, dwdw, dwpw) of the unit from the cotangent g [B, T_out,
-    Cout]. CUDA: the kernel; CPU: the plain version."""
+    Cout] (float32): dx in x's dtype, the weight gradients float32. CUDA:
+    the kernel; CPU: the plain version."""
     if x.device.type == 'cuda':
         return _launch_bwd(x.detach(), len1, len2, wdw.detach(),
                            wpw.detach(), g.detach(), int(dilation),
@@ -314,6 +348,7 @@ def sep_bwd(x: torch.Tensor, len1, len2, wdw: torch.Tensor,
 
 
 sep_bwd.launches = 0
+sep_bwd.bf16_launches = 0   # of them, on bfloat16 x
 
 
 class SepConv1d(torch.autograd.Function):
@@ -350,9 +385,9 @@ def sep_conv1d(x: torch.Tensor, lens, wdw: torch.Tensor, wpw: torch.Tensor,
                dilation: int = 1, padding: int = 0,
                use_mask: bool = True, shift=None) -> torch.Tensor:
     """Fused masked separable conv unit, differentiable in x, wdw and wpw:
-    x [B, T, Cin], float ``lens`` [B] (or None), wdw [K, Cin], wpw
-    [Cin, Cout] -> y [B, T_out, Cout] f32, T_out = T + 2p - d(K-1). The
-    counterpart of the JAX package's ``sep_conv1d``.
+    x [B, T, Cin] (float32 or bfloat16), float ``lens`` [B] (or None), wdw
+    [K, Cin], wpw [Cin, Cout] (float32) -> y [B, T_out, Cout] f32, T_out =
+    T + 2p - d(K-1). The counterpart of the JAX package's ``sep_conv1d``.
 
     ``shift=(in_lo, out_lo)``: ``x`` is already padded, the global input
     frames from ``in_lo`` that a range of the output starting at global

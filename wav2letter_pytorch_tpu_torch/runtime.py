@@ -13,7 +13,9 @@ def resolve_device(device: str | torch.device = 'cuda') -> torch.device:
     float32 convolutions in TF32 by default, which keeps about three decimal
     digits: the conv stack would then drift from the float32 reference
     (the JAX package, run at full precision) by far more than the port's
-    tolerances allow.
+    tolerances allow. And bfloat16 matmuls reduce in float32
+    (``model.compute_dtype=bf16``: bf16 products accumulated in float32,
+    as XLA's are), not in bfloat16 where cuBLAS may.
     """
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
@@ -21,4 +23,5 @@ def resolve_device(device: str | torch.device = 'cuda') -> torch.device:
                            'device is available')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

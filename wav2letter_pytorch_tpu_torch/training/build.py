@@ -49,12 +49,24 @@ def _check_layer_specs(layers, required, what):
                              f'keys {sorted(layer)}')
 
 
+def compute_dtype(model_cfg) -> torch.dtype | None:
+    """``model.compute_dtype`` as the models take it: ``torch.bfloat16``
+    for ``bf16`` / ``bfloat16`` (the convs in bf16, as the JAX package's
+    ``build_model`` passes ``dtype=jnp.bfloat16``), else None (float32)."""
+    if model_cfg.get('compute_dtype') in ('bf16', 'bfloat16'):
+        return torch.bfloat16
+    return None
+
+
 def build_model(model_cfg, num_labels: int, seed: int = 0):
     """The config's model (``model.name``: ``wav2letter`` or ``jasper``) on
-    the CPU, conv weights drawn by ``model.init_mode`` from ``seed``."""
+    the CPU, conv weights drawn by ``model.init_mode`` from ``seed``, its
+    convs in ``model.compute_dtype`` (its parameters float32) and
+    Wav2Letter's padded by ``model.padding_mode``."""
     name = model_cfg['name']
     mid_layers = int(model_cfg.get('mid_layers', 1))
     init_mode = model_cfg.get('init_mode', 'xavier_uniform')
+    dtype = compute_dtype(model_cfg)
     gen = torch.Generator().manual_seed(int(seed))
     if name == 'wav2letter':
         _check_layer_specs(model_cfg['layers'],
@@ -63,7 +75,9 @@ def build_model(model_cfg, num_labels: int, seed: int = 0):
         return Wav2Letter(num_labels, input_size=int(model_cfg['input_size']),
                           layers=[dict(l) for l in model_cfg['layers']],
                           mid_layers=mid_layers, generator=gen,
-                          init_mode=init_mode)
+                          init_mode=init_mode, compute_dtype=dtype,
+                          padding_mode=model_cfg.get('padding_mode',
+                                                     'reflect'))
     if name == 'jasper':
         _check_layer_specs(model_cfg['jasper_blocks'],
                            ('layer_size', 'kernel_size'),
@@ -74,7 +88,7 @@ def build_model(model_cfg, num_labels: int, seed: int = 0):
                       remat=bool(model_cfg.get('remat', False)),
                       dropout_default=float(
                           model_cfg.get('dropout_default', 0.0)),
-                      generator=gen)
+                      generator=gen, compute_dtype=dtype)
     raise ValueError(f'Unknown model name: {name!r} '
                      "(expected 'wav2letter' or 'jasper')")
 
