@@ -74,7 +74,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    LM-free, LM-fused, with hotwords and with both, and the card's n-best
    scores within 1e-5 of the CPU's; ``evaluate.main --model-path
    <Wav2Letter-20 run> --average-last 2 --lm-path ... --word-timings
-   --dump-jsonl`` over the corpus's first 2 utterances on the device
+   --dump-jsonl`` over the corpus's first utterance on the device
    and on the host beam backend: equal
    hypotheses (a difference only where the host DP ranks both within
    1e-5), K1 and K2 launched, the loss of the same state restored by hand;
@@ -90,7 +90,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    at near-ties); ``evaluate.main --artifact --offline`` at B=32 in five
    modes (f32, f32 with CMVN, int8, int8 ``--int8-full``, the LM artifact
    beam-decoding), the f32 one with the WER and CER of ``--model-path``;
-   ``transcribe_long.main`` over 5 minutes of the corpus, f32 and
+   ``transcribe_long.main`` over 2.5 minutes of the corpus, f32 and
    int8_full, each within 1e-3 of the one-shot forward with every argmax
    equal; K1 must have launched. Then int8 card vs CPU (the first layer's
    int32 accumulators equal; int8_full log-probs within 1e-5 of max
@@ -107,9 +107,9 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    max |logp|, every greedy string equal but at near-ties; int8 weights
    (1e-4) and int8_full with dynamic and static scales (1e-5, argmax
    equal) streamed on the card against the CPU; ``evaluate.main``
-   streaming on the card (``--artifact`` over the first 16 utterances,
+   streaming on the card (``--artifact`` over the first 4 utterances,
    its records those of ``--artifact --offline --offline-norm cmvn``
-   where the strings are equal; over the first 4 ``--model-path
+   where the strings are equal; over the first utterance ``--model-path
    --streaming`` with
    cumulative and CMVN
    normalisation and ``--int8``; ``--lookahead-frames`` 96 and the full
@@ -125,7 +125,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    share, K1's share and peak memory.
 18. Exact QuartzNet-15x5 streaming (``StreamingJasper``: K1 once a
    prime, step and finish, K4 on each of the 77 depthwise convs a phase),
-   on phase 13's run and its f32 artifact with CMVN, over 4 clips of 6
+   on phase 13's run and its f32 artifact with CMVN, over 2 clips of 6
    corpus utterances (~48.2 s each, past the 40.30 s prime window): K4
    against its plain version at every shape the streamer gives it (a
    prime, step and finish at B=1, a step at B=16) and K1 at the phases'
@@ -137,15 +137,15 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    --streaming --streaming-norm cmvn`` on the run and ``evaluate
    --artifact`` on the artifact, no offline fallback, the dumps the
    exactness check's strings, K1 and K4 counted and gated around each;
-   ``StreamMultiplexer`` over 16 streams against dedicated sessions; the
+   ``StreamMultiplexer`` over 8 streams against dedicated sessions; the
    times: prime, step and finish at B=1, a tick at 16 slots (f32 and
    int8_full) with launches, busy share and peak memory, and the host's
    time by function.
 19. The data layer: ``make_offline_corpus`` writes a FLAC corpus (64 /
-   16 / 2 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
-   prime window) and 4 utterances each at 8 and 22.05 kHz; (a) every
+   16 / 1 utterances, seeds 0 / 1 / 2, the test split past W2L-20's
+   prime window) and 2 utterances each at 8 and 22.05 kHz; (a) every
    file decodes through the C++ decoder to round(audio * 32767) of its
-   rendered utterance, the Python decoder gives the same samples on 4
+   rendered utterance, the Python decoder gives the same samples on 2
    files, the two STREAMINFO parsers agree; (b) an int16 loader batch /
    32768 equals the f32 batch bit for bit and so do K1's features on the
    card, without and with dither (one launch a forward, 4 in all); (c)
@@ -153,7 +153,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    are equal; (d) the 8 and 22.05 kHz manifests resampled in the loader:
    lengths ceil(n * up / down), raw features card vs CPU within 1e-5 of
    max |ref|, K1 once a batch; (e) a W2L-20 MFCC eval
-   step card vs CPU, and an MFCC artifact streamed (2 utterances) against
+   step card vs CPU, and an MFCC artifact streamed (1 utterance) against
    its offline
    forward (1e-4 of max |logp|, K1 once a phase); (f)
    ``full_depth_run.main`` at full width for 2 epochs with the recipe's
@@ -175,7 +175,7 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    wrapper makes two) and its loss on the card against the CPU's (1e-3
    relative, 2 rows); 40 LAMB steps at 3e-3 on one batch lower the int8
    graph's CTC loss; the step's ms, utt/s, peak memory and busy share;
-   ``qat_finetune.main`` (20 steps, int8_full WER before and after on the
+   ``qat_finetune.main`` (10 steps, int8_full WER before and after on the
    corpus, launches pinned), whose artifact loads with int8 weights equal
    to ``quantize_folded`` of the trained fold bit for bit, and
    ``evaluate --artifact --offline --int8-full`` on it.
@@ -187,18 +187,21 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    ``qat_finetune`` on the demo model (int8_full WER before and after,
    printed); ``build_arpa`` on its train split; ``align`` on its val
    split through the f32 artifact, no failure; ``error_analysis`` of an
-   ``evaluate --dump-jsonl`` of the val split, its WER the eval's.
+   ``evaluate --dump-jsonl`` of the val split, its WER the eval's. Phase
+   22's (c) ranks run beside it.
 22. Data parallelism (``parallel/mesh.py``): (a) ``train.main`` under
    ``python -m torch.distributed.run --nproc-per-node 1`` (NCCL, world
    1) on Wav2Letter-20 at full width, B=32, 2 steps, dropout off, against
    the ungrouped ``train.main``, each a fresh process (``chip_smoke.py
    --train-worker``) with cuDNN's deterministic algorithms: losses and
    weights within 1e-6 relative, K1-K3's launches equal, the step's ms in
-   both and the gap (the collectives' cost at world 1); (b) the same for
+   both and the gap (the collectives' cost at world 1; nothing else runs
+   on the card); (b) the same for
    QuartzNet-15x5 (NovoGrad, 2 steps, K1-K7); (c) two ranks on the one
    card over gloo (``init_distributed(backend='gloo')``, then
    ``train.main``), Wav2Letter with 4 layers at full width, a global B=8
-   as 4 + 4 with rank 1's last row masked, 3 steps, against one process
+   as 4 + 4 with rank 1's last row masked, 3 steps (started beside phase
+   21, done before (a) starts), against one process
    on the card (losses 1e-5, weights rtol 2e-4 atol 2e-6), and which
    collectives gloo takes on CUDA tensors; (d) serving over
    ``make_mesh()`` and over a mesh of two entries of the one card (the
@@ -248,6 +251,27 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    the SP checkpoint before it, within 1e-3 relative distance, the
    control outside it); K1-K7 against their plain versions (K4-K7 also
    the float64 oracle) at the SP path's shapes.
+   Phases 23's and 24's bf16 cases, more cases of the same
+   ``train.main`` runs (``full_width_cases``, ``bf16_par_compare``): (a)
+   and (b) in ``model.compute_dtype=bf16`` at model=2 and at seq=2, 2
+   steps, and at the CPU tests' depth (3 layers / 2 blocks) 1 step,
+   against one process's ``train.main`` in bf16 from the same weights on
+   the same B=8 batch: the trained model's eval log-probs on its grid
+   within one bf16 ulp of its checkpoint's loaded strict=True (float32
+   only) into one process; each loss from a shared state (step 1 from
+   the init, step 2 from the parallel run's step-1 checkpoint) within
+   1e-3; the BN statistics within 2e-2 relative distance; the update
+   within 2e-2 at the CPU tests' depth (``tests/test_torch_bf16.py``'s
+   bars) and at full depth within twice a witness's (one process resumed
+   from the same state with its weights one float32 ulp apart) and
+   nearer one process's than the control; at full depth the eval
+   log-probs' mean distance below half of bf16's own from float32 on the
+   same checkpoint (W2L-20's cuDNN convs over a rank's half sum in other
+   orders); each rank's launches equal
+   to the one process's; K4-K7 on bf16 x at a model=2 rank's shapes (C1
+   over half its channels, each unit with half its pointwise columns)
+   and a seq=2 rank's; the steps' ms (contended) and each rank's peak
+   memory.
 25. bf16 compute (``model.compute_dtype=bf16``): K4-K7 on bf16 x against
    their plain versions and a float64 oracle on the same bf16 values
    (phase 11's shapes and phase 24's SP shapes; a bf16 output within one
@@ -260,13 +284,31 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
    train and eval steps' ms, peak memory and conv TFLOP/s, bf16 vs f32
    log-probs (at full depth and at 2 layers / blocks), and the card's
    bf16 eval and train steps against the CPU's.
-26. One ``{"kernels": [...]}`` line: per kernel its launches on the
+26. The kernel-selection knobs and the validation decoders: an eval and
+   a train step of Wav2Letter-20 (B=32) built with
+   ``model.stft_method=conv trainer.ctc_impl=scan`` launch no K1-K3,
+   their features within 1e-3 and losses within 1e-4 of the default
+   path's; with ``pallas`` for both they launch K1-K3 and give the
+   default's bits. ``Trainer.validate`` of a seeded Wav2Letter-20 made
+   peaky (BatchNorm statistics of a corpus batch, its head scaled to a
+   12-nat spread of log-probs across the labels) with the greedy decoder,
+   the host ``PrefixBeamSearchLMDecoder`` and the ``DeviceBeamDecoder``
+   (k=16, built by ``build_decoder`` from ``model.decoder``): over the
+   corpus's first B=32 batch on the card, finite metrics, one val_loss,
+   the two searches' metrics equal, K1 and K2 launched, the ms of each;
+   over its first utterance on the card and on the CPU, each
+   decoder's metrics equal (the device search's to the CPU's host
+   search), the loss within 1e-3.
+27. One ``{"kernels": [...]}`` line: per kernel its launches on the
    training path (K1-K3 Wav2Letter's, K1 also the serving, streaming
    and data paths', K1-K3 the QAT paths' of phases 20-21, K4-K7
    QuartzNet's, K4 also its lookahead and exact streams', K6 its
    lookahead stream's, each kernel's ``mesh_launches`` on phase 22's
    paths, ``tp_launches`` on phase 23's and ``sp_launches`` on phase
-   24's; K4-K7's ``bf16_launches`` on phase 25's), max error against the
+   24's, ``tp_bf16_launches`` / ``sp_bf16_launches`` on their bf16
+   cases'; K4-K7's ``bf16_launches`` on phase 25's; K1-K3's
+   ``knob_launches`` and K1-K2's ``beam_validation_launches`` on phase
+   26's), max error against the
    plain version, time, plain time, roofline bound and the time of the
    nearest PyTorch library call (timed here only); then a row for each of
    K4-K7 on bf16 x (``<name>_bf16``). K2 and K3 are also timed at the long
@@ -280,6 +322,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import ctypes
 import gc
 import io
@@ -367,7 +410,8 @@ from wav2letter_pytorch_tpu_torch.serving.server import \
     _map_state as map_state
 from wav2letter_pytorch_tpu_torch.serving.lookahead import (
     _conv_specs_jasper, _conv_specs_w2l, one_sided_context)
-from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
+from wav2letter_pytorch_tpu_torch.training.build import (build_decoder,
+                                                         build_frontend,
                                                          build_labels,
                                                          build_model,
                                                          build_optimizer,
@@ -376,7 +420,8 @@ from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
 from wav2letter_pytorch_tpu_torch.training.checkpoint import (
     Checkpointer, average_checkpoints)
 from wav2letter_pytorch_tpu_torch.training.trainer import (Trainer,
-                                                           masked_ctc_mean)
+                                                           masked_ctc_mean,
+                                                           seq_forward)
 from wav2letter_pytorch_tpu_torch.ops.stft_mel import (K1Tables,
                                                        stft_mel_log,
                                                        stft_mel_log_reference)
@@ -2030,10 +2075,11 @@ PEAKY_SHAPE = (8, 202, 29)   # 8 rows, half the frames, of the main path's
 PEAKY_K, PEAKY_ALPHA, PEAKY_BETA = 8, 0.5, 1.0
 HOTWORDS = ['the', 'would', 'people']
 PY_UTTS = 1                  # utterances the float64 Python DP checks
-DECODE_CLI_UTTS = 2          # the corpus head evaluate.main beam-decodes
+DECODE_CLI_UTTS = 1          # the corpus head evaluate.main beam-decodes
 # The device search's ops are profiled over this share of a batch's frames
 # (its ops a frame do not depend on the frame count)
 PROFILE_FRAME_SHARE = 8
+DECODE_LM_ROWS = 8           # rows of the batch the LM searches are timed on
 NBEST_RTOL = 1e-5            # n-best log scores, card vs CPU search
 HYP_SCORE_RTOL = 1e-5        # a device/host hypothesis difference must be
 #                              a tie of the host DP's ranked scores
@@ -2318,8 +2364,9 @@ def search_launches(fn, frames: int) -> tuple:
 
 def phase_decoding_timing(manifest: str, restored_model: tuple,
                           lm_path: str, card: str, cli: dict):
-    """Decode time of one Wav2Letter-20 batch (B=32) under each decoder,
-    evaluate() end to end under each, and the device search's launches,
+    """Decode time of one Wav2Letter-20 batch (B=32; the searches with an
+    LM over its first DECODE_LM_ROWS rows) under each decoder, evaluate()
+    end to end under each, and the device search's launches,
     on the run's --average-last 2 state (``restored_model``: (model,
     frontend, labels), ``phase_decoding_w2l``'s)."""
     model, fe, labels = restored_model
@@ -2335,18 +2382,20 @@ def phase_decoding_timing(manifest: str, restored_model: tuple,
     dev_free = DeviceBeamDecoder(labels, device=DEVICE)
     dev_lm = DeviceBeamDecoder(labels, lm_path=lm_path, device=DEVICE)
     sizes = lens.cpu().numpy()
+    n = DECODE_LM_ROWS   # the LM searches: the batch's first rows
     rows = (
-        ('host greedy (ids to the host, collapse)', 5,
+        ('host greedy (ids to the host, collapse)', 5, B,
          lambda: greedy.decode_ids(ids.cpu().numpy(), sizes)),
-        ('host C++ beam + LM (log-probs to the host, exp)', 1,
-         lambda: host_lm.decode(np.exp(lp.cpu().numpy()), sizes)),
-        ('device beam, LM-free', 3,
+        ('host C++ beam + LM (log-probs to the host, exp)', 1, n,
+         lambda: host_lm.decode(np.exp(lp[:n].cpu().numpy()), sizes[:n])),
+        ('device beam, LM-free', 1, B,
          lambda: dev_free.decode_log_probs(lp, lens)),
-        ('device beam + LM, fused', 1,
-         lambda: dev_lm.decode_log_probs(lp, lens)))
-    for what, reps, fn in rows:
-        ms = host_ms(fn, reps, warmup=reps > 1)
-        print(f"decode a batch, Wav2Letter-20 B={B} T'={T}, "
+        ('device beam + LM, fused', 1, n,
+         lambda: dev_lm.decode_log_probs(lp[:n], lens[:n])))
+    for what, reps, rows_b, fn in rows:
+        ms = host_ms(fn, reps, warmup=what.startswith(('host greedy',
+                                                       'device beam, LM')))
+        print(f"decode a batch, Wav2Letter-20 B={rows_b} T'={T}, "
               f'k={DEFAULT_BEAM_K}: {what}: {ms:.2f} ms [{card}]')
     t_prof = T // PROFILE_FRAME_SHARE
     lp_prof = lp[:, :t_prof].contiguous()
@@ -2386,7 +2435,7 @@ SERVE_FOLD_RTOL = 1e-4
 # log_softmax's exp/log may differ (a few ulp); max |d| / max |logp|.
 SERVE_Q8_RTOL = 1e-5
 SERVE_Q8_CPU_ROWS = 2        # batch rows of the CPU int8_full comparison
-LONG_MINUTES = 5.0           # long-form clip: the corpus concatenated
+LONG_MINUTES = 2.5           # long-form clip: the corpus concatenated
 # Chunked vs one-shot, max |d logp|: f32 convs may sum a window in another
 # order than the whole clip (1.43e-6 seen on the card); int8_full with
 # static scales is integer sums and elementwise float32 steps, so exact.
@@ -2815,10 +2864,10 @@ QN_LA_UTTS = 1
 QN_LA_ATOL = 1e-3
 # evaluate.main's --model-path streaming modes run on the corpus's first
 # STREAM_CLI_UTTS utterances (--artifact on all, against --offline).
-STREAM_CLI_UTTS = 4
-STREAM_ARTIFACT_UTTS = 16    # the corpus head evaluate --artifact streams
+STREAM_CLI_UTTS = 1
+STREAM_ARTIFACT_UTTS = 4    # the corpus head evaluate --artifact streams
 TICK_SLOTS = (16, 64)
-TICK_ITERS = 10
+TICK_ITERS = 5
 TCP_SLOTS = 16
 TCP_PIECE_S = 0.1            # each client sends 100 ms pieces, unpaced
 
@@ -3488,7 +3537,7 @@ def phase_streaming(manifest: str, w2l_run: str, qn_run: str, arts: dict,
 # corpus utterances (~8.07 s each) concatenated, ~48.4 s: the prime and
 # at least 12 steps of 640 ms.
 QN_CLIP_UTTS = 6
-QN_CLIPS = 4
+QN_CLIPS = 2
 QN_DW_OPS = 77               # depthwise convs a phase: C1, 15 x 5, C2
 # The stream vs the eval forward (K4 + K6) on the clips zero-padded past
 # the lookahead, on log(max(p, 1e-30)): max |d| / max |log p|. The same
@@ -3496,7 +3545,7 @@ QN_DW_OPS = 77               # depthwise convs a phase: C1, 15 x 5, C2
 # product); card vs CPU streams (f32, int8 weights) likewise.
 QN_STREAM_RTOL = 1e-4
 QN_CPU_CLIPS = 1
-QN_MUX_STREAMS = 16
+QN_MUX_STREAMS = 8
 QN_TICK_SLOTS = (16,)
 
 
@@ -3949,15 +3998,15 @@ def phase_streaming_jasper(manifest: str, qn_run: str, root: str,
 # The FLAC corpus of make_offline_corpus (seeds 0 / 1 / 2): train and val
 # as the JAX recipe writes them, the test split at least DATA_TEST_MIN_S
 # long so that streaming evaluation streams past W2L-20's 4.22 s prime.
-DATA_SPLITS = (64, 16, 2)
+DATA_SPLITS = (64, 16, 1)
 DATA_TEST_MIN_S = 4.5
 DATA_BATCH = 16              # the recipe's batch size
 DATA_EPOCHS = 2
-DATA_PY_FILES = 4            # files the Python decoder decodes too
+DATA_PY_FILES = 2            # files the Python decoder decodes too
 DATA_RATES = (8000, 22050)   # resampled in the loader to 16 kHz
-DATA_RATE_UTTS = 4
+DATA_RATE_UTTS = 2
 DATA_FEAT_RTOL = 1e-5        # card vs CPU raw features, of max |ref|
-DATA_STREAM_UTTS = 2         # MFCC streams held to the offline forward
+DATA_STREAM_UTTS = 1         # MFCC streams held to the offline forward
 
 
 def data_loader(manifest: str, shuffle=False, prefetch=0, **kw):
@@ -4436,7 +4485,7 @@ QAT_F32_TOL = 1e-5
 QAT_LOSS_RTOL = 1e-3         # one QAT step's loss, card vs CPU (TF32 off)
 QAT_CPU_ROWS = 2             # rows of the card-vs-CPU step
 QAT_OVERFIT_STEPS, QAT_OVERFIT_LR = 40, 3e-3   # test_qat.py's rule
-QAT_CLI_STEPS = 20
+QAT_CLI_STEPS = 10
 QAT_COUNTERS = (stft_mel_log, ctc_alpha, ctc_beta)
 QAT_STEP_WANT = {'stft_mel_log': 1, 'ctc_alpha': 1, 'ctc_beta': 1}
 
@@ -4780,8 +4829,8 @@ DP2_BATCH = 8
 DP2_STEPS = 3
 DP2_LOSS_RTOL = 1e-5         # (c) 2 ranks vs 1 process on the card
 DP2_PARAM_RTOL, DP2_PARAM_ATOL = 2e-4, 2e-6
-DP_SERVE_UTTS = 32           # (d) MeshInference's batch
-DP_LONG_MINUTES = 1.0        # (d) transcribe_long --mesh
+DP_SERVE_UTTS = 16           # (d) MeshInference's batch
+DP_LONG_MINUTES = 0.5        # (d) transcribe_long --mesh
 DP_TCP_SLOTS = 4
 
 
@@ -4910,7 +4959,9 @@ def train_worker(spec_path: str) -> int:
     environment ``train.main`` joins
     the group; with ``spec['backend']`` (gloo, for two ranks on one GPU)
     this worker joins it first and records which collectives gloo takes
-    on CUDA tensors as they are."""
+    on CUDA tensors as they are. A run with ``outputs`` (and a
+    ``memory`` file) then writes the trained model's eval log-probs
+    (``eval_outputs``)."""
     import torch.distributed as dist
     from wav2letter_pytorch_tpu_torch import parallel
     with open(spec_path) as f:
@@ -4980,6 +5031,8 @@ def train_worker(spec_path: str) -> int:
                           else '')
                 with open(run['memory'] + suffix, 'w') as f:
                     json.dump({**state_bytes(trained[0]), **record}, f)
+                if run.get('outputs'):
+                    eval_outputs(trained[0], **run['outputs'])
     if parallel.distributed():
         if probe and parallel.rank() == 0:
             with open(spec['probe'], 'w') as f:
@@ -5028,7 +5081,7 @@ def read_ranks(path: str, world: int, here: bool = False) -> list:
 
 def run_workers(root: str, name: str, argvs: list, world: int = 1,
                 backend: str | None = None, here: bool = False,
-                record: bool = False, branches=None) -> tuple:
+                record: bool = False, extras=None) -> tuple:
     """One ``train_worker`` process under ``torch.distributed.run
     --nproc-per-node 1`` (``world`` 1) running ``train.main`` on each of
     ``argvs``, or (``here``) ``train_worker`` in this process, with no
@@ -5036,8 +5089,8 @@ def run_workers(root: str, name: str, argvs: list, world: int = 1,
     environment (all on ``cuda:0``, over ``backend``). Returns (for each
     run, each rank's (kernel launches, its ``state_bytes`` with step ms
     and peak memory when ``record``, else None), wall seconds, gloo's
-    probe or None). ``branches``: each run's ``record`` / ``force`` dict
-    (``branched``), or None."""
+    probe or None). ``extras``: each run's further keys (``record`` /
+    ``force``: ``branched``; ``outputs``: ``eval_outputs``), or None."""
     spec = os.path.join(root, f'{name}_spec.json')
     counts = [os.path.join(root, f'{name}_launches_{i}.json')
               for i in range(len(argvs))]
@@ -5047,7 +5100,7 @@ def run_workers(root: str, name: str, argvs: list, world: int = 1,
     with open(spec, 'w') as f:
         json.dump({'runs': [{'argv': a, 'launches': c, 'memory': m, **b}
                             for a, c, m, b in zip(argvs, counts, memory,
-                                                  branches or [{}] * len(
+                                                  extras or [{}] * len(
                                                       argvs))],
                    'probe': probe, 'backend': backend,
                    'device': str(DEVICE)}, f)
@@ -5218,15 +5271,11 @@ def phase_dp_world1(manifest: str, root: str, card: str) -> list:
     return nccl
 
 
-def phase_dp_two_ranks(manifest: str, root: str, card: str) -> dict:
-    """(c) Two ranks on the one card over gloo (``train_worker``): W2L
-    with DP2_LAYERS layers at full width, global B=8 as 4 + 4 over
-    DP2_UTTS utterances (rank 1's last row a masked repeat), DP2_STEPS
-    steps with the config's dither and dropout, against one process (this
-    one), both with cuDNN's deterministic algorithms."""
+def dp_two_ranks_argv(manifest: str, root: str) -> dict:
+    """(c)'s ``train.main`` argv by side, 'one' and 'gloo'."""
     small = head_manifest(manifest, root, DP2_UTTS)
     runs = {k: os.path.join(root, f'dp2_{k}') for k in ('one', 'gloo')}
-    argv = {k: [f'data.train_manifest={small}', f'data.val_manifest={small}',
+    return {k: [f'data.train_manifest={small}', f'data.val_manifest={small}',
                 f'model.mid_layers={DP2_LAYERS}',
                 f'data.batch_size={DP2_BATCH}', 'data.num_length_buckets=1',
                 'trainer.log_every_n_steps=1',
@@ -5234,14 +5283,38 @@ def phase_dp_two_ranks(manifest: str, root: str, card: str) -> dict:
                 f'trainer.checkpoint.every_n_epochs={DP2_STEPS}',
                 f'trainer.default_root_dir={r}', '--device', str(DEVICE)]
             for k, r in runs.items()}
+
+
+def dp_two_ranks_launch(manifest: str, root: str) -> tuple:
+    """(c)'s two gloo ranks (``run_workers``' result). A full run starts
+    them in a thread beside phase 21 and waits for them before (a) and
+    (b) time their steps: (c) checks equality and times nothing, and
+    phase 21 prints only its tools' wall seconds (which share the host
+    with them)."""
+    return run_workers(root, 'dp2', [dp_two_ranks_argv(manifest,
+                                                       root)['gloo']],
+                       world=2, backend='gloo')
+
+
+def phase_dp_two_ranks(manifest: str, root: str, card: str,
+                       ranks_run=None) -> dict:
+    """(c) Two ranks on the one card over gloo (``train_worker``): W2L
+    with DP2_LAYERS layers at full width, global B=8 as 4 + 4 over
+    DP2_UTTS utterances (rank 1's last row a masked repeat), DP2_STEPS
+    steps with the config's dither and dropout, against one process (this
+    one), both with cuDNN's deterministic algorithms. ``ranks_run``: the
+    result of ``dp_two_ranks_launch`` run earlier, else the ranks run here
+    after the one process."""
+    argv = dp_two_ranks_argv(manifest, root)
+    runs = {k: os.path.join(root, f'dp2_{k}') for k in ('one', 'gloo')}
     torch.cuda.empty_cache()
     with cudnn_deterministic():
         run_counted(port_train.main, argv['one'], TRAIN_COUNTERS[:3],
                     f'train.main (W2L-{DP2_LAYERS}, B={DP2_BATCH}, one '
                     'process)')
     torch.cuda.empty_cache()
-    (ranks,), wall, probe = run_workers(root, 'dp2', [argv['gloo']],
-                                        world=2, backend='gloo')
+    (ranks,), wall, probe = (ranks_run if ranks_run is not None
+                             else dp_two_ranks_launch(manifest, root))
     launches = summed(ranks)
     check(probe is not None and all(v == 'takes CUDA tensors'
                                     for v in probe.values()),
@@ -5403,14 +5476,17 @@ def phase_dp_serving(manifest: str, arts: dict, root: str,
 
 
 def phase_data_parallel(manifest: str, arts: dict, root: str,
-                        card: str) -> dict:
+                        card: str, two_ranks=None) -> dict:
     """Phase 22: (a) Wav2Letter-20 and (b) QuartzNet-15x5 under torchrun
     at world 1 over NCCL against ungrouped runs, (c) two ranks on the card
-    over gloo against one process, (d) serving over ``make_mesh()``.
-    Returns each kernel's launches on the data-parallel paths."""
+    over gloo against one process (``two_ranks``: the future of
+    ``dp_two_ranks_launch``, done before (a) and (b) start), (d) serving
+    over ``make_mesh()``. Returns each kernel's launches on the
+    data-parallel paths."""
     t0 = time.time()
+    ranks_run = two_ranks.result() if two_ranks is not None else None
     w2l, qn = phase_dp_world1(manifest, root, card)
-    two = phase_dp_two_ranks(manifest, root, card)
+    two = phase_dp_two_ranks(manifest, root, card, ranks_run)
     serve_k1 = phase_dp_serving(manifest, arts, root, card)
     launches = {fn.__name__: qn[fn.__name__] for fn in TRAIN_COUNTERS}
     for name in ('stft_mel_log', 'ctc_alpha', 'ctc_beta'):
@@ -5669,27 +5745,69 @@ def tp_sep_timing(card: str) -> None:
 def full_width_cases(head8: str) -> dict:
     """Phases 23's and 24's full-width cases on the ``head8`` batch:
     {key: (what, manifest, overrides, steps)}: (a) Wav2Letter-20, (b)
-    QuartzNet-15x2 with NovoGrad, dropout off in both."""
+    QuartzNet-15x2 with NovoGrad, dropout off in both; and each in
+    model.compute_dtype=bf16 (PAR_BF16_CASES: ``a16``, ``b16``
+    PAR_BF16_STEPS steps at the phases' depth, ``a16s``, ``b16s`` one step
+    at the CPU tests' depth, 3 layers / 2 blocks)."""
     w2l = [f'model.mid_layers={MID_LAYERS}', *no_dropout([])]
     qn = [*QN, 'optimizer=novograd', *no_dropout(QN)] + [
         f'model.jasper_blocks.{i}.repeat={TP_QN_REPEAT}'
         for i, blk in enumerate(train_config(*QN)['model']['jasper_blocks'])
         if int(blk.get('repeat', 1)) > 1]
+    bf16 = ['model.compute_dtype=bf16']
+    qn_what = f'(b) QuartzNet-15x{TP_QN_REPEAT}'
     return {'a': ('(a) Wav2Letter-20', head8, w2l, TP_W2L_STEPS),
-            'b': (f'(b) QuartzNet-15x{TP_QN_REPEAT}', head8, qn,
-                  TP_QN_STEPS)}
+            'b': (qn_what, head8, qn, TP_QN_STEPS),
+            'a16': ('(a) Wav2Letter-20 bf16', head8, w2l + bf16,
+                    PAR_BF16_STEPS),
+            'b16': (f'{qn_what} bf16', head8, qn + bf16, PAR_BF16_STEPS),
+            'a16s': ('(a) Wav2Letter-3 bf16', head8,
+                     w2l + ['model.mid_layers=3'] + bf16, 1),
+            'b16s': (f'{qn_what} at 2 blocks bf16', head8,
+                     qn + ['model.mid_layers=2'] + bf16, 1)}
+
+
+def resume_start(src: str, dst: str, step: int, moved: bool = False):
+    """``dst``'s checkpoints directory holding run ``src``'s step-``step``
+    checkpoint (hard links), from which ``train.main --resume`` goes on;
+    ``moved``: a copy with each floating parameter moved one float32 ulp
+    toward +inf (PAR_BF16_WITNESS)."""
+    src, dst = (os.path.join(r, 'checkpoints') for r in (src, dst))
+    os.makedirs(dst)
+    ckpt = f'ckpt_{step}.pt'
+    os.link(os.path.join(src, f'meta_{step}.json'),
+            os.path.join(dst, f'meta_{step}.json'))
+    if not moved:
+        os.link(os.path.join(src, ckpt), os.path.join(dst, ckpt))
+        return
+    state = torch.load(os.path.join(src, ckpt))
+    state['model'] = ulp_moved(state['model'])
+    torch.save(state, os.path.join(dst, ckpt))
+
+
+def ulp_moved(model_state: dict) -> dict:
+    """``model_state`` with each floating parameter (not the BatchNorm
+    statistics) moved one float32 ulp toward +inf."""
+    return {k: torch.nextafter(v, torch.full_like(v, math.inf))
+            if v.is_floating_point() and not k.endswith(('running_mean',
+                                                         'running_var'))
+            else v for k, v in model_state.items()}
 
 
 def phase_tensor_parallel(manifest: str, root: str, card: str) -> tuple:
     """Phase 23: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
-    with trainer.mesh.model=2 on two ranks sharing the card over gloo, (c)
-    Wav2Letter-4 on four ranks, data=2 x model=2, with a gradient clip;
-    each against one process on the same global batch, all with cuDNN's
-    deterministic algorithms and dropout off; (c)'s checkpoint loaded
-    strict into one process and evaluated. Returns (each kernel's
-    launches on the TP paths, summed over the ranks; for (a) and (b), the
-    one-process run's directory and its (launches, state bytes), which
-    phase 24 holds its runs against)."""
+    with trainer.mesh.model=2 on two ranks sharing the card over gloo, in
+    float32 and in bf16 (``full_width_cases``), (c) Wav2Letter-4 on four
+    ranks, data=2 x model=2, with a gradient clip; each through
+    ``train.main`` against one process on the same global batch, all with
+    cuDNN's deterministic algorithms and dropout off; (c)'s checkpoint
+    loaded strict into one process and evaluated; the bf16 cases at
+    ``bf16_par_compare``'s gates; K4-K7 on bf16 x at a rank's shapes.
+    Returns (each kernel's launches on the float32 TP paths, summed over
+    the ranks; the same on the full-depth bf16 ones; each kernel's max
+    abs error at the bf16 ranks' shapes; for (a), (b) and the bf16 cases,
+    the one-process run's directory and its (launches, state bytes),
+    which phase 24 holds its runs against)."""
     t0 = time.time()
     head8 = head_manifest(manifest, root, TP_BATCH)
     head7 = head_manifest(manifest, root, TP4_UTTS)
@@ -5699,52 +5817,60 @@ def phase_tensor_parallel(manifest: str, root: str, card: str) -> tuple:
              'c': (f'(c) Wav2Letter-{TP4_LAYERS}, data=2 x model=2, clip '
                    f'{TP4_CLIP:g}', head7, w2l4, TP4_STEPS)}
     runs = {k: {side: os.path.join(root, f'tp_{k}_{side}')
-                for side in ('one', 'tp', 'resume')} for k in cases}
-    grid = {'a': ['trainer.mesh.data=1', 'trainer.mesh.model=2'],
-            'b': ['trainer.mesh.data=1', 'trainer.mesh.model=2'],
-            'c': ['trainer.mesh.data=2', 'trainer.mesh.model=2']}
+                for side in ('one', 'tp', 'resume', 'witness')}
+            for k in cases}
+    grid = {k: ['trainer.mesh.data=1', 'trainer.mesh.model=2']
+            for k in cases}
+    grid['c'] = ['trainer.mesh.data=2', 'trainer.mesh.model=2']
+    batch = bf16_batch(head8, root)
 
     def argv(k, side):
         _, m, over, steps = cases[k]
         return tp_argv(m, runs[k][side], over + (grid[k] if side == 'tp'
                                                  else []), steps) + (
-            ['--resume'] if side == 'resume' else [])
+            ['--resume'] if side in ('resume', 'witness') else [])
+    two_keys = [k for k in cases if k != 'c']
     torch.cuda.empty_cache()
-    # (c)'s four ranks start beside (a)'s and (b)'s two (the phase's time;
+    # (c)'s four ranks start beside the two ranks' runs (the phase's time;
     # their steps' ms share the card and the host)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         started = pool.submit(run_workers, root, 'tp4', [argv('c', 'tp')],
                               world=4, backend='gloo', record=True)
-        two, wall, probe = run_workers(root, 'tp2',
-                                       [argv(k, 'tp') for k in 'ab'],
-                                       world=2, backend='gloo', record=True)
+        two, wall, probe = run_workers(
+            root, 'tp2', [argv(k, 'tp') for k in two_keys], world=2,
+            backend='gloo', record=True,
+            extras=[bf16_extras(k, runs[k], batch) for k in two_keys])
         (four,), wall4, _ = started.result()
+    ranks = {**dict(zip(two_keys, two)), 'c': four}
     check(probe is not None and all(v == 'takes CUDA tensors'
                                     for v in probe.values()),
           f'gloo on CUDA tensors, the collectives TP uses: {probe}')
-    print(f'[{time.time() - t0:.1f} s] phase 23: (a), (b) on 2 ranks '
-          f'{wall:.1f} s wall, beside (c) on 4 ranks {wall4:.1f} s wall')
-    for k, (_, _, _, steps) in cases.items():   # the resumed runs' start
-        src = os.path.join(runs[k]['tp'], 'checkpoints')
-        dst = os.path.join(runs[k]['resume'], 'checkpoints')
-        os.makedirs(dst)
-        for f in (f'ckpt_{steps - 1}.pt', f'meta_{steps - 1}.json'):
-            os.link(os.path.join(src, f), os.path.join(dst, f))
+    print(f'[{time.time() - t0:.1f} s] phase 23: {", ".join(two_keys)} on '
+          f'2 ranks {wall:.1f} s wall, beside (c) on 4 ranks {wall4:.1f} s '
+          f'wall')
+    sides = prepared_sides(cases, runs, ('one',))
     torch.cuda.empty_cache()
-    ones, wall, _ = run_workers(
-        root, 'tp_one', [argv(k, side) for side in ('one', 'resume')
-                         for k in cases], here=True, record=True)
+    ones, wall, _ = run_workers(root, 'tp_one',
+                                [argv(k, side) for k, side in sides],
+                                here=True, record=True)
+    one = {ks: r[0] for ks, r in zip(sides, ones)}
     print(f'[{time.time() - t0:.1f} s] phase 23: the one-process runs, '
           f'fresh and resumed from the TP checkpoints, {wall:.1f} s wall')
     launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
-    for k, ranks in (('a', two[0]), ('b', two[1]), ('c', four)):
+    for k in 'abc':
         what, _, _, steps = cases[k]
         counters = TRAIN_COUNTERS if k == 'b' else TRAIN_COUNTERS[:3]
-        got = tp_compare(what, runs[k], steps, ones['abc'.index(k)][0],
-                         ranks, counters, card,
-                         bars_to=steps if k == 'c' else 1)
+        got = tp_compare(what, runs[k], steps, one[k, 'one'], ranks[k],
+                         counters, card, bars_to=steps if k == 'c' else 1)
         for name, n in got.items():
             launches[name] += n
+    bf16_launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
+    for k in PAR_BF16_CASES:
+        got = bf16_par_compare(cases[k], runs[k], one[k, 'one'], ranks[k],
+                               card, 'TP model=2', batch)
+        if k in PAR_BF16_FULL:
+            for name, n in got.items():
+                bf16_launches[name] += n
     # (c): the checkpoint in one process
     tp_run = runs['c']['tp']
     state = restored(tp_run)
@@ -5771,10 +5897,11 @@ def phase_tensor_parallel(manifest: str, root: str, card: str) -> tuple:
           f'{loss_rel:.2e}, gate {TP_LOSS_RTOL:g}), max |log p| difference '
           f'{logp_diff:.2e} (gate {TP_EVAL_LOGP_ATOL:g})')
     tp_sep_timing(card)
+    bf16_errs = bf16_rank_kernels(card, 'tp')
     print(f'tensor-parallel phase: {time.time() - t0:.1f} s; launches '
-          f'{json.dumps(launches)}')
-    return launches, {k: (runs[k]['one'], ones['abc'.index(k)][0])
-                      for k in 'ab'}
+          f'{json.dumps(launches)}, bf16 {json.dumps(bf16_launches)}')
+    return launches, bf16_launches, bf16_errs, {
+        k: (runs[k]['one'], one[k, 'one']) for k in two_keys}
 
 
 SP_GRID = ['trainer.mesh.data=1', 'trainer.mesh.seq=2']   # phase 24
@@ -5879,48 +6006,55 @@ def sp_kernel_checks(card: str) -> dict:
 
 
 def sp_launch(manifest: str, root: str) -> dict:
-    """Phase 24's SP ranks: (a) and (b) of ``full_width_cases`` at
-    SP_GRID on SP_RANKS ranks sharing the card over gloo, each rank
-    recording its activations' branches at
-    the first and last step (``branched``); under ``root/sp``, so that it
-    can run beside phase 23. Returns what ``phase_sequence_parallel``
-    reads: the cases, the runs' directories, the branch records'
-    prefixes, each run's ranks (``run_workers``), the wall seconds and
+    """Phase 24's SP ranks: the cases of ``full_width_cases`` at SP_GRID
+    on SP_RANKS ranks sharing the card over gloo, each float32 run's
+    ranks recording their activations' branches at the first and last
+    step (``branched``), each bf16 run's writing its trained model's eval
+    log-probs (``eval_outputs``); under ``root/sp``, so that it can run
+    beside phase 23. Returns what ``phase_sequence_parallel`` reads: the
+    cases, the runs' directories, the branch records' prefixes, the
+    batch, each run's ranks (``run_workers``), the wall seconds and
     gloo's probe."""
     t0 = time.time()
     root = os.path.join(root, 'sp')
     os.makedirs(root, exist_ok=True)
-    cases = full_width_cases(head_manifest(manifest, root, TP_BATCH))
+    head8 = head_manifest(manifest, root, TP_BATCH)
+    cases = full_width_cases(head8)
+    batch = bf16_batch(head8, root)
     runs = {k: {side: os.path.join(root, f'sp_{k}_{side}')
-                for side in ('one', 'tp', 'first', 'resume')} for k in cases}
+                for side in ('one', 'tp', 'first', 'resume', 'witness')}
+            for k in cases}
     tapes = {k: os.path.join(root, f'sp_{k}_branches') for k in cases}
     ranks, wall, probe = run_workers(
         root, 'sp2', [sp_argv(cases, runs, k, 'tp') for k in cases],
         world=SP_RANKS, backend='gloo', record=True,
-        branches=[{'record': {'path': tapes[k], 'steps': [0, steps - 1]}}
-                  for k, (_, _, _, steps) in cases.items()])
-    print(f'[{time.time() - t0:.1f} s] phase 24: (a), (b) on {SP_RANKS} '
-          f'ranks {wall:.1f} s wall')
+        extras=[bf16_extras(k, runs[k], batch) if k in PAR_BF16_CASES else
+                {'record': {'path': tapes[k], 'steps': [0, steps - 1]}}
+                for k, (_, _, _, steps) in cases.items()])
+    print(f'[{time.time() - t0:.1f} s] phase 24: {", ".join(cases)} on '
+          f'{SP_RANKS} ranks {wall:.1f} s wall')
     return dict(cases=cases, runs=runs, tapes=tapes, ranks=ranks,
-                wall=wall, probe=probe, root=root)
+                wall=wall, probe=probe, root=root, batch=batch)
 
 
 def sp_argv(cases: dict, runs: dict, k: str, side: str) -> list:
     """``train.main``'s argv for case ``k``'s ``side``: 'tp' the SP run,
-    'one' / 'first' one process (all steps / the first), 'resume' one
-    process resumed from the SP run's checkpoint before its last step."""
+    'one' / 'first' one process (all steps / the first), 'resume' /
+    'witness' one process resumed from the SP run's checkpoint before its
+    last step (``resume_start``)."""
     _, m, over, steps = cases[k]
     return tp_argv(m, runs[k][side], over + (SP_GRID if side == 'tp'
                                              else []),
                    1 if side == 'first' else steps) + (
-        ['--resume'] if side == 'resume' else [])
+        ['--resume'] if side in ('resume', 'witness') else [])
 
 
 def phase_sequence_parallel(manifest: str, root: str, card: str,
                             shared: dict | None = None,
                             launched: dict | None = None) -> tuple:
-    """Phase 24: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width
-    with trainer.mesh.seq=2 on two ranks sharing the card over gloo
+    """Phase 24: (a) Wav2Letter-20 and (b) QuartzNet-15x2 at full width,
+    in float32 and in bf16 (``full_width_cases``), with
+    trainer.mesh.seq=2 on two ranks sharing the card over gloo
     (activations sharded over time, halo-exchanged convs), against one
     process on the same head8 batch at phase 23's gates: the first step's
     loss, each rank's launches, peak memory (printed, not a gate) and
@@ -5945,14 +6079,18 @@ def phase_sequence_parallel(manifest: str, root: str, card: str,
     GB for QuartzNet-15x2 at 404 frames against 0.39 GB with the default
     algorithms: ``tools/cudnn_workspace.py``; ``tools/sp_memory.py``
     measures SP's memory with the default ones). Also K1-K7 against
-    their plain versions at the SP path's shapes. Returns (each kernel's
-    launches on the SP runs, summed over the ranks; each kernel's max abs
-    error there)."""
+    their plain versions at the SP path's shapes. The bf16 cases are held
+    at ``bf16_par_compare``'s gates, with no branches forced. Returns
+    (each kernel's launches on the float32 SP runs, summed over the
+    ranks; each kernel's max abs error there; the launches on the
+    full-depth bf16 SP runs; each kernel's max abs error at the bf16
+    ranks' shapes)."""
     t0 = time.time()
     if launched is None:
         launched = sp_launch(manifest, root)
     cases, runs, tapes = (launched[k] for k in ('cases', 'runs', 'tapes'))
     ranks, probe, root = (launched[k] for k in ('ranks', 'probe', 'root'))
+    ranks = dict(zip(cases, ranks))
     torch.cuda.empty_cache()
     if shared is None:
         ones, wall, _ = run_workers(root, 'sp_one',
@@ -5968,39 +6106,44 @@ def phase_sequence_parallel(manifest: str, root: str, card: str,
     check(probe is not None and all(v == 'takes CUDA tensors'
                                     for v in probe.values()),
           f'gloo on CUDA tensors, the collectives SP uses: {probe}')
-    for k, (_, _, _, steps) in cases.items():   # the resumed runs' start
-        src = os.path.join(runs[k]['tp'], 'checkpoints')
-        dst = os.path.join(runs[k]['resume'], 'checkpoints')
-        os.makedirs(dst)
-        for f in (f'ckpt_{steps - 1}.pt', f'meta_{steps - 1}.json'):
-            os.link(os.path.join(src, f), os.path.join(dst, f))
+    f32 = [k for k in cases if k not in PAR_BF16_CASES]
+    sides = ([(k, 'first') for k in f32]
+             + prepared_sides(cases, runs))
     torch.cuda.empty_cache()
-    sides = [(k, side) for side in ('first', 'resume') for k in cases]
     _, wall, _ = run_workers(
         root, 'sp_forced', [sp_argv(cases, runs, k, side)
                             for k, side in sides], here=True,
-        branches=[{'force': {
+        extras=[{} if k in PAR_BF16_CASES else {'force': {
             'path': joined_branches(tapes[k], step, SP_RANKS), 'step': step}}
             for k, side in sides
             for step in [0 if side == 'first' else cases[k][3] - 1]])
     print(f'[{time.time() - t0:.1f} s] phase 24: one process on the SP '
-          f'runs\' branches, a first step and a step resumed from the SP '
-          f'checkpoints, {wall:.1f} s wall')
+          f'runs\' branches (float32), a first step and a step resumed from '
+          f'the SP checkpoints, {wall:.1f} s wall')
     launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
-    for i, (k, (what, _, _, steps)) in enumerate(cases.items()):
+    for k in f32:
+        what, _, _, steps = cases[k]
         counters = TRAIN_COUNTERS if k == 'b' else TRAIN_COUNTERS[:3]
         got = tp_compare(f'{what}, seq={SP_RANKS}', runs[k], steps,
-                         shared[k][1], ranks[i], counters, card,
+                         shared[k][1], ranks[k], counters, card,
                          label='SP', state_share=None, first='first',
                          free_losses=False)
         for name, n in got.items():
             launches[name] += n
     for name, n in launches.items():
         check(n > 0, f'phase 24: {name} launched on the SP runs ({n})')
+    bf16_launches = {fn.__name__: 0 for fn in TRAIN_COUNTERS}
+    for k in PAR_BF16_CASES:
+        got = bf16_par_compare(cases[k], runs[k], shared[k][1], ranks[k],
+                               card, f'SP seq={SP_RANKS}', launched['batch'])
+        if k in PAR_BF16_FULL:
+            for name, n in got.items():
+                bf16_launches[name] += n
     errs = sp_kernel_checks(card)
+    bf16_errs = bf16_rank_kernels(card, 'sp')
     print(f'sequence-parallel phase: {time.time() - t0:.1f} s; launches '
-          f'{json.dumps(launches)}')
-    return launches, errs
+          f'{json.dumps(launches)}, bf16 {json.dumps(bf16_launches)}')
+    return launches, errs, bf16_launches, bf16_errs
 
 
 # ------------------------------------------------------------ phase 25
@@ -6507,6 +6650,518 @@ def phase_bf16(manifest: str, root: str, card: str) -> tuple:
     return launches, errs
 
 
+
+# ------------------------------------------- phases 23-24: bf16 cases
+
+# (a) Wav2Letter-20 and (b) QuartzNet-15x2 of ``full_width_cases`` in
+# model.compute_dtype=bf16 through ``train.main`` at model=2 (phase 23)
+# and at seq=2 (phase 24) on two ranks sharing the card over gloo,
+# against one process's ``train.main`` in bf16 from the same seeded
+# weights on the same head8 batch. The checkpoint holds float32 only and
+# loads strict=True into one process. Each step's loss from a state both
+# sides share (step 1 from the init, the last from the parallel run's
+# checkpoint before it) within BF16_LOSS_RTOL; the BN statistics within
+# BF16_UPDATE_RTOL. At the CPU tests' depth (3 layers / 2 blocks:
+# ``a16s``, ``b16s``, one step) their gates
+# (tests/test_torch_bf16.py::assert_parallel_bf16): the trained model's
+# eval log-probs on its grid within one bf16 ulp of its checkpoint's in
+# one process, the update within BF16_UPDATE_RTOL. At full depth a
+# rank's convs over half the channels or frames (other cuDNN algorithms)
+# and its BN statistics sum in other orders; a float32 difference that
+# moves a conv input across a bf16 rounding boundary grows about tenfold
+# a normalised conv in train mode, and the ranks' partial input
+# gradients are rounded to bf16 apiece (one process rounds each sum
+# once). There the last update is held to a witness of rounding alone,
+# one process resumed from the same checkpoint with every weight moved
+# one float32 ulp (``resume_start``): within PAR_BF16_WITNESS_RATIO of
+# the witness's distance (or BF16_UPDATE_RTOL, were that more) and
+# nearer one process's than the control (the parallel run without that
+# update, 1.0 by construction: a skipped, doubled or flipped update
+# reads 1 or more). In eval mode the same other orders through
+# Wav2Letter-20's 20 bf16 roundings move its log-probs apart too
+# (QuartzNet's K6 units compute a column as one process does: its stay
+# equal): their mean distance must be below PAR_BF16_DRIFT_SHARE of
+# bf16's own from float32 on the same checkpoint.
+PAR_BF16_STEPS = 2
+PAR_BF16_CASES = ('a16', 'b16', 'a16s', 'b16s')
+PAR_BF16_FULL = ('a16', 'b16')
+PAR_BF16_WITNESS_RATIO = 2.0
+PAR_BF16_DRIFT_SHARE = 0.5
+
+
+def bf16_batch(head8: str, root: str) -> str:
+    """The loader's batch of ``head8`` (the one batch every phase-23 and
+    -24 step trains on) saved under ``root``; returns its path."""
+    cfg = train_config(f'data.train_manifest={head8}',
+                       f'data.val_manifest={head8}',
+                       f'data.batch_size={TP_BATCH}',
+                       'data.num_length_buckets=1')
+    loader, _ = port_train.get_data_loaders(build_labels(cfg['model']),
+                                            cfg['data'])
+    batch = next(iter(loader))
+    path = os.path.join(root, 'bf16_batch.pt')
+    torch.save({k: torch.from_numpy(v) for k, v in batch.items()
+                if isinstance(v, np.ndarray)}, path)
+    return path
+
+
+def bf16_extras(k: str, sides: dict, batch: str) -> dict:
+    """``run_workers``' extra keys of case ``k``'s parallel run: a bf16
+    case writes its eval log-probs next to the run's directory."""
+    return ({'outputs': {'batch': batch, 'path': sides['tp'] + '_logp.pt'}}
+            if k in PAR_BF16_CASES else {})
+
+
+def log_p(model, out: torch.Tensor) -> torch.Tensor:
+    """Eval outputs as float32 log-probs (Jasper emits probabilities)."""
+    if getattr(model, 'eval_emits_probs', False):
+        out = torch.log(torch.clamp(out.float(), min=1e-30))
+    return out.float().cpu()
+
+
+def eval_outputs(tr, batch: str, path: str) -> None:
+    """Trainer ``tr``'s model as it stands, on its grid, in eval mode:
+    the log-probs of the batch saved at ``batch`` (``bf16_batch``), which
+    the first rank writes to ``path``."""
+    from wav2letter_pytorch_tpu_torch import parallel
+    b = {k: v.to(DEVICE) for k, v in torch.load(batch).items()}
+    tr.model.eval()
+    with torch.no_grad():
+        feats, flens = tr.frontend(b['audio'], b['audio_lengths'])
+        out, _ = seq_forward(tr.model, feats, flens)
+    if parallel.rank() == 0:
+        torch.save(log_p(tr.model, out), path)
+
+
+def one_process_outputs(run: str, state: dict, batch: str,
+                        f32: bool = False) -> tuple:
+    """Run ``run``'s model state ``state`` (its last checkpoint's)
+    loaded strict=True into one process built from the run's config (its
+    mesh unused): the eval-mode log-probs of the batch at ``batch`` and,
+    with ``f32``, those of the same modules in float32 (their
+    ``compute_dtype`` None) or None."""
+    cfg = run_config(run)
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])))
+    model.load_state_dict(state, strict=True)
+    model.to(DEVICE).eval()
+    fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE)
+    b = {k: v.to(DEVICE) for k, v in torch.load(batch).items()}
+    outs = []
+    with torch.no_grad(), cudnn_deterministic():
+        feats = fe(b['audio'], b['audio_lengths'])
+        outs.append(log_p(model, model(*feats)[0]))
+        if f32:
+            for m in model.modules():
+                if getattr(m, 'compute_dtype', None) is not None:
+                    m.compute_dtype = None
+            outs.append(log_p(model, model(*feats)[0]))
+    return outs[0], outs[1] if f32 else None
+
+
+def seeded_init(run: str) -> dict:
+    """The initial weights ``train.main`` builds for run ``run`` (its
+    config's model and seed), on the CPU."""
+    cfg = run_config(run)
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])),
+                        seed=int(cfg['trainer'].get('seed', 0)))
+    return model.state_dict()
+
+
+def prepared_sides(cases: dict, runs: dict, fresh=()) -> list:
+    """The one-process runs held against the parallel ones: [(case,
+    side)] for each side in ``fresh`` of every case, then for each case
+    of more than one step 'resume' and, for PAR_BF16_FULL, 'witness'
+    (their start checkpoints written here, ``resume_start``)."""
+    sides = [(k, side) for side in fresh for k in cases]
+    for k, (_, _, _, steps) in cases.items():
+        if steps > 1:
+            resume_start(runs[k]['tp'], runs[k]['resume'], steps - 1)
+            sides.append((k, 'resume'))
+        if k in PAR_BF16_FULL:
+            resume_start(runs[k]['tp'], runs[k]['witness'], steps - 1,
+                         moved=True)
+            sides.append((k, 'witness'))
+    return sides
+
+
+def within_bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise: float32 ``a`` within one bf16 ulp (the spacing at the
+    larger magnitude) of ``b``."""
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    return (a - b).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_update_rel(a: dict, b: dict, init: dict,
+                    init_a: dict | None = None) -> tuple:
+    """(the relative distance of ``a``'s update (from ``init_a``, else
+    ``init``) to ``b``'s (from ``init``) over the weights (pre-BatchNorm
+    conv biases, whose exact gradient is zero, left out), that of the BN
+    statistics)."""
+    init_a = init if init_a is None else init_a
+    pre_bn = {k for k in b if k.endswith('conv1.bias')
+              and k.replace('conv1.bias', 'batch_norm.weight') in b}
+    params = [k for k in b if k.endswith(('.weight', '.bias'))
+              and k not in pre_bn]
+    stats = [k for k in b if k.endswith(('running_mean', 'running_var'))]
+
+    def rel(keys, da, db):
+        num = sum(float(((da[k] - db[k]).double() ** 2).sum()) for k in keys)
+        den = sum(float((db[k].double() ** 2).sum()) for k in keys)
+        return math.sqrt(num / den) if den else 0.0
+    return (rel(params, {k: a[k] - init_a[k] for k in params},
+                {k: b[k] - init[k] for k in params}),
+            rel(stats, a, b))
+
+
+def bf16_par_compare(case: tuple, runs: dict, one: tuple, ranks: list,
+                     card: str, label: str, batch: str) -> dict:
+    """One bf16 case of phase 23 or 24 (``case``: ``full_width_cases``'
+    entry; ``runs``: its directories; ``one``: the one-process run's
+    (launches, state bytes); ``ranks``: ``run_workers``' record of the
+    parallel run) at the gates above; each rank's launches of the path's
+    kernels equal to the one process's and not zero; ms and peak memory
+    of a step printed beside one process's. Returns the launches summed
+    over the ranks."""
+    what, _, _, steps = case
+    what = f'{what}, {label}'
+    got, want = run_metrics(runs['tp']), run_metrics(runs['one'])
+    refs = [(1, want)] + ([(steps, run_metrics(runs['resume']))]
+                          if steps > 1 else [])
+    losses = [(ref['train_loss'][s], got['train_loss'].get(s))
+              for s, ref in refs]
+    loss_rel = max(abs(g - w) / abs(w) for w, g in losses)
+    final = restored(runs['tp'])['model']
+    if steps > 1:
+        start = restored(runs['tp'], steps - 1)['model']
+        resumed = restored(runs['resume'])['model']
+        update, stats = bf16_update_rel(final, resumed, start)
+        witness, _ = bf16_update_rel(restored(runs['witness'])['model'],
+                                     resumed, start, ulp_moved(start))
+        control, _ = bf16_update_rel(start, resumed, start)
+        bar = min(control, max(BF16_UPDATE_RTOL,
+                               PAR_BF16_WITNESS_RATIO * witness))
+        where = (f'update {steps} from the parallel run\'s step '
+                 f'{steps - 1}: {update:.3e}, the witness (one process '
+                 f'from that state moved one float32 ulp) {witness:.3e}, '
+                 f'the control {control:.3e} (gate {bar:.3e})')
+    else:
+        update, stats = bf16_update_rel(
+            final, restored(runs['one'])['model'], seeded_init(runs['tp']))
+        bar = BF16_UPDATE_RTOL
+        where = f'update 1 from the init {update:.3e} (gate {bar:g})'
+    dtypes = {v.dtype for v in final.values()}
+    logp = torch.load(runs['tp'] + '_logp.pt')
+    ref, f32 = one_process_outputs(runs['tp'], final, batch, steps > 1)
+    ok = within_bf16_ulp(logp, ref)
+    apart = float((logp - ref).abs().mean())
+    if steps > 1:
+        drift = float((ref - f32).abs().mean())
+        near = apart < PAR_BF16_DRIFT_SHARE * drift
+        logp_gate = (f'mean |diff| {apart:.3e}, bf16\'s from float32 '
+                     f'{drift:.3e} (gate {PAR_BF16_DRIFT_SHARE:g} of it)')
+    else:
+        near = bool(ok.all())
+        logp_gate = f'mean |diff| {apart:.3e} (gate: none past one ulp)'
+    check(dtypes <= {torch.float32, torch.int64} and near
+          and loss_rel < BF16_LOSS_RTOL and stats < BF16_UPDATE_RTOL
+          and update < bar,
+          f'{what}, {len(ranks)} ranks over gloo, train.main vs one '
+          f'process in bf16, B={TP_BATCH}: the checkpoint '
+          f'({sorted(map(str, dtypes))}) loads strict=True into one '
+          f'process, whose eval log-probs are {int((~ok).sum())} of '
+          f'{ok.numel()} more than one bf16 ulp from the trained model\'s '
+          f'on its grid (max |diff| {float((logp - ref).abs().max()):.3e}, '
+          f'{logp_gate}); losses at steps '
+          f'{[s for s, _ in refs]} rel {loss_rel:.2e} (gate '
+          f'{BF16_LOSS_RTOL}); BN statistics {stats:.3e} (gate '
+          f'{BF16_UPDATE_RTOL}); {where} [{card}]')
+    one_counts, one_bytes = one
+    names = [fn.__name__ for fn in (TRAIN_COUNTERS if 'QuartzNet' in what
+                                    else TRAIN_COUNTERS[:3])]
+    want_n = {k: one_counts[k] for k in names}
+    total = dict.fromkeys(names, 0)
+    for r, (counts, _) in enumerate(ranks):
+        have = {k: counts[k] for k in names}
+        check(have == want_n and all(have.values()),
+              f'{what}: rank {r} launches {have} = the one process\'s '
+              f'{want_n}')
+        for k in names:
+            total[k] += have[k]
+    ms = [max(r[1]['step_ms'][s] for r in ranks) for s in range(steps)]
+    print(f'{what}: train steps {", ".join(f"{t:.3f}" for t in ms)} ms (the '
+          f'slowest rank; contended: other ranks share the card) against '
+          f'one process {", ".join(f"{t:.3f}" for t in one_bytes["step_ms"])} '
+          f'ms; peak allocated in a step, each rank '
+          + ', '.join(f'{r[1]["step_peak"]:,} B' for r in ranks)
+          + f', one process {one_bytes["step_peak"]:,} B (cuDNN\'s '
+          f'deterministic algorithms) [{card}]')
+    return total
+
+
+def bf16_rank_kernels(card: str, which: str) -> dict:
+    """K4-K7 on bf16 x at the shapes a model=2 rank (``which`` 'tp': K4 /
+    K5 on QuartzNet's C1 over half its channels; K6 / K7 on the whole x
+    with half of each unit's pointwise columns) or a seq=2 rank ('sp':
+    phase 24's haloed halves) gives them, against their plain versions
+    and the float64 oracle (``bf16_dw_check``, ``bf16_sep_check``).
+    Returns each kernel's max abs error against its plain version."""
+    errs = dict.fromkeys(('depthwise_fwd', 'depthwise_wgrad', 'sep_fwd',
+                          'sep_bwd'), 0.0)
+
+    def keep(pair, names):
+        for n, v in zip(names, pair):
+            errs[n] = max(errs[n], v)
+    dw, sep = ('depthwise_fwd', 'depthwise_wgrad'), ('sep_fwd', 'sep_bwd')
+    if which == 'tp':
+        _, T, C, K, s, d = DW_MAIN
+        shape = (TP_BATCH, T, C // 2, K, s, d)
+        (x, w, g), p = dw_inputs(*shape, 320, DEVICE)
+        keep(bf16_dw_check('TP rank C1', shape, x, w, g, s, d, p), dw)
+        for i, (_, T, cin, cout, K, d) in enumerate(SEP_MAIN):
+            shape = (TP_BATCH, T, cin, cout // 2, K, d)
+            (x, wdw, wpw, g), l1, l2, p = sep_inputs(*shape, 330 + i,
+                                                     DEVICE)
+            keep(bf16_sep_check('TP rank unit', shape, x, l1, l2, wdw, wpw,
+                                g, d, p), sep)
+    else:
+        shape, (x, w, g) = sp_dw_case()
+        keep(bf16_dw_check('SP rank C1', shape, x, w, g, *shape[4:], 0), dw)
+        for unit, (xh, l1, l2, wdw, wpw, g) in sp_sep_cases():
+            keep(bf16_sep_check('SP rank unit',
+                                (TP_BATCH, xh.shape[1], *unit), xh, l1, l2,
+                                wdw, wpw, g, unit[3], 0), sep)
+    print(f'bf16 K4-K7 at the {which.upper()} ranks\' shapes: max abs error '
+          f'vs plain {json.dumps(errs)} [{card}]')
+    return errs
+
+
+# ------------------------------------------------------------ phase 26
+
+KNOB_FEAT_ATOL = 1e-3        # the plain frontend vs K1's, normalised
+KNOB_LOSS_RTOL = 1e-4        # the plain CTC vs K2 / K3, a step's loss
+BEAM_VAL_K = 16
+# Validation with each decoder by a seeded Wav2Letter-20 made peaky
+# (``peaky_w2l``): its BatchNorm statistics those of a corpus batch and
+# its head scaled so that its log-probs spread BEAM_VAL_SPREAD nats
+# across the labels (the mean over frames), frame by frame as a trained
+# model's vary. Under its initial statistics a random Wav2Letter-20's
+# activations fade through the 20 layers and its log-probs are nearly
+# the same at every frame and across labels (a spread of ~5e-4 nats):
+# the beam then favours long strings (their alignments outnumber the
+# blank path's), the host search keeps every label past the prune
+# (~2-30 s an 8 s utterance) and near-ties decide between hypotheses. At
+# a 4-nat spread the top two labels are ~2 nats apart, both past the
+# prune, and the host search still took ~6 s an utterance on the card's
+# host; at 12 one label a frame passes it.
+# Over the corpus's first B=32 batch on the card (timed), and over its
+# first BEAM_VAL_CPU_ROWS utterances on the card and on the CPU: the
+# metrics equal, the loss within BEAM_VAL_LOSS_RTOL (float32 convs
+# summed in other orders, as phase 7's card vs CPU eval).
+BEAM_VAL_SPREAD = 12.0
+BEAM_VAL_CPU_ROWS = 1
+BEAM_VAL_LOSS_RTOL = 1e-3
+BEAM_VAL_METRICS = ('val_cer', 'val_wer', 'val_len_ratio')
+
+
+def knob_step(batch: dict, root: str, model, stft: str, ctc: str) -> dict:
+    """One eval step and one SGD train step of a copy of ``model``
+    (Wav2Letter-20, full width, dropout off) in a Trainer built from a
+    config with ``model.stft_method=stft`` and ``trainer.ctc_impl=ctc``:
+    the features, both losses and K1-K3's launches over the two steps."""
+    cfg = train_config(f'model.stft_method={stft}',
+                       f'trainer.ctc_impl={ctc}', no_dropout=True)
+    model = copy.deepcopy(model).to(DEVICE)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    tr = Trainer(cfg, model, build_frontend(cfg['model'], dither=0.0,
+                                            device=DEVICE),
+                 opt, constant_lr(1e-3), port_eval.GreedyDecoder(
+                     build_labels(cfg['model'])), device=DEVICE,
+                 run_dir=os.path.join(root, f'knob_{stft}_{ctc}'))
+    counters = TRAIN_COUNTERS[:3]
+    for fn in counters:
+        fn.launches = 0
+    with torch.no_grad():
+        feats, _ = tr.frontend(batch['audio'], batch['audio_lengths'])
+    tr.model.eval()
+    eval_loss = float(port_eval.eval_step(tr.model, tr.frontend, batch,
+                                          ctc=tr.ctc)[0])
+    loss = float(tr.train_step(batch)[0])
+    torch.cuda.synchronize()
+    out = {'feats': feats, 'eval_loss': eval_loss, 'loss': loss,
+           'launches': {fn.__name__: fn.launches for fn in counters}}
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_knobs(batch: dict, root: str, card: str) -> dict:
+    """Phase 26, the kernel-selection knobs: an eval step and a train step
+    of Wav2Letter-20 at full width on the corpus's first B=32 batch with
+    ``model.stft_method=conv trainer.ctc_impl=scan`` (no K1, K2 or K3
+    may launch), with ``pallas`` for both (each must launch: K1 once a
+    step and once for the features, K2 once a step, K3 once a backward)
+    and with ``auto`` (the default
+    path): the plain path's features within KNOB_FEAT_ATOL and losses
+    within KNOB_LOSS_RTOL of the default's, ``pallas`` the default's to
+    the bit. Returns ``pallas``'s launches."""
+    cfg = train_config(no_dropout=True)
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])))
+    steps = {knob: knob_step(batch, root, model, *knob) for knob in (
+        ('auto', 'auto'), ('conv', 'scan'), ('pallas', 'pallas'))}
+    ref, plain = steps[('auto', 'auto')], steps[('conv', 'scan')]
+    kernel = steps[('pallas', 'pallas')]
+    feat = float((plain['feats'] - ref['feats']).abs().max())
+    rels = [abs(plain[k] - ref[k]) / abs(ref[k]) for k in ('eval_loss',
+                                                          'loss')]
+    # K1: the features, the eval step, the train step; K2: both steps
+    want = {'stft_mel_log': 3, 'ctc_alpha': 2, 'ctc_beta': 1}
+    check(plain['launches'] == dict.fromkeys(want, 0)
+          and kernel['launches'] == want == ref['launches']
+          and feat < KNOB_FEAT_ATOL and max(rels) < KNOB_LOSS_RTOL
+          and torch.equal(kernel['feats'], ref['feats'])
+          and (kernel['eval_loss'], kernel['loss']) == (ref['eval_loss'],
+                                                        ref['loss']),
+          f'Wav2Letter-20 eval + train step, B={BATCH}: stft_method=conv '
+          f'ctc_impl=scan launches {plain["launches"]}, features max |diff| '
+          f'{feat:.2e} (gate {KNOB_FEAT_ATOL}), eval / train loss rel '
+          f'{rels[0]:.2e} / {rels[1]:.2e} (gate {KNOB_LOSS_RTOL}) against '
+          f'auto; pallas launches {kernel["launches"]} (want {want}), auto\'s '
+          f'bits [{card}]')
+    return kernel['launches']
+
+
+def peaky_w2l(cfg, batch: dict) -> torch.nn.Module:
+    """The seed-0 Wav2Letter of ``cfg`` on the card, its BatchNorm
+    statistics ``batch``'s (one train-mode forward at momentum 1) and its
+    head scaled so that its eval log-probs of ``batch`` spread
+    BEAM_VAL_SPREAD nats across the labels."""
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])),
+                        seed=0).to(DEVICE)
+    fe = build_frontend(cfg['model'], dither=0.0, device=DEVICE)
+    norms = [m for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm1d)]
+    momenta = [m.momentum for m in norms]
+    with torch.no_grad():
+        feats = fe(batch['audio'], batch['audio_lengths'])
+        for m in norms:
+            m.momentum = 1.0
+        model.train()
+        model(*feats)
+        for m, v in zip(norms, momenta):
+            m.momentum = v
+        model.eval()
+        spread = float(model(*feats)[0].std(-1).mean())
+        head = model.conv1ds[-1].conv1
+        head.weight.mul_(BEAM_VAL_SPREAD / spread)
+        head.bias.mul_(BEAM_VAL_SPREAD / spread)
+    return model
+
+
+def phase_beam_validation(manifest: str, root: str, batch: dict,
+                          card: str) -> dict:
+    """Phase 26, validation with a beam ``model.decoder``: ``Trainer.
+    validate`` of a peaky Wav2Letter-20 (``peaky_w2l`` on ``batch``) with
+    the greedy decoder, the host ``PrefixBeamSearchLMDecoder``
+    (k=BEAM_VAL_K, no LM) and the ``DeviceBeamDecoder`` (k=BEAM_VAL_K),
+    each built by
+    ``build_decoder`` from the config. Over the corpus's first B=32
+    batch on the card: finite metrics, one val_loss, K1 and K2 launched,
+    the host and the device search's metrics equal, each validation's ms.
+    Over its first BEAM_VAL_CPU_ROWS utterances on the card and on the
+    CPU (greedy and the host search; the device search op by op on the
+    CPU takes ~4 s an utterance, and it is held to the host search's
+    metrics there): each decoder's metrics equal (BEAM_VAL_METRICS), its
+    loss within BEAM_VAL_LOSS_RTOL (the device search's against the CPU's
+    host search). Returns K1's and K2's launches over the card's
+    beam validations."""
+    jax_name = 'wav2letter_pytorch_tpu.decoding.'
+    decoders = {
+        'greedy': [],
+        'host beam': [f'model.decoder._target_={jax_name}'
+                      'PrefixBeamSearchLMDecoder',
+                      '+model.decoder.lm_path=',
+                      f'+model.decoder.k={BEAM_VAL_K}'],
+        'device beam': [f'model.decoder._target_={jax_name}'
+                        'DeviceBeamDecoder',
+                        f'+model.decoder.k={BEAM_VAL_K}']}
+    heads = {BATCH: head_manifest(manifest, root, BATCH),
+             BEAM_VAL_CPU_ROWS: head_manifest(manifest, root,
+                                              BEAM_VAL_CPU_ROWS)}
+    model = peaky_w2l(train_config(no_dropout=True), batch)
+    counters = (stft_mel_log, ctc_alpha)
+    launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    res = {}
+    cpu = torch.device('cpu')
+    for side, dev, rows in (('card', DEVICE, BATCH),
+                            ('card', DEVICE, BEAM_VAL_CPU_ROWS),
+                            ('cpu', cpu, BEAM_VAL_CPU_ROWS)):
+        on = copy.deepcopy(model).to(dev)
+        for name, over in decoders.items():
+            if side == 'cpu' and name == 'device beam':
+                continue
+            cfg = train_config(f'data.train_manifest={heads[rows]}',
+                               f'data.val_manifest={heads[rows]}',
+                               f'data.batch_size={BATCH}', *over,
+                               no_dropout=True)
+            labels = build_labels(cfg['model'])
+            dec = build_decoder(cfg['model'], labels, device=dev)
+            tr = Trainer(cfg, on, build_frontend(cfg['model'], dither=0.0,
+                                                 device=dev),
+                         None, None, dec, device=dev,
+                         run_dir=os.path.join(root, f'beam_val_{len(res)}'))
+            _, val = port_train.get_data_loaders(labels, cfg['data'])
+            if dev == DEVICE and rows == BATCH and not over:
+                tr.validate(val)   # warm-up: cuDNN's plans for these shapes
+            for fn in counters:
+                fn.launches = 0
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.validate(val)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counted = {fn.__name__: fn.launches for fn in counters}
+            tr.close()
+            res[side, rows, name] = out
+            want = over[0].rsplit('.', 1)[-1] if over else 'GreedyDecoder'
+            check(all(math.isfinite(v) for v in out.values())
+                  and type(dec).__name__ == want
+                  and (dev == cpu or all(counted.values())),
+                  f'Trainer.validate on {dev.type} with the {name} decoder '
+                  f'({type(dec).__name__}), {rows} utterances of ~8 s: '
+                  f'{out}, launches {counted}, {ms:.1f} ms'
+                  + (f' [{card}]' if dev == DEVICE else ' (host clock)'))
+            if over and dev == DEVICE:
+                for k in launches:
+                    launches[k] += counted[k]
+            del tr
+        del on
+        torch.cuda.empty_cache()
+    full = [res['card', BATCH, name] for name in decoders]
+    check(len({v['val_loss'] for v in full}) == 1
+          and all(full[1][k] == full[2][k] for k in BEAM_VAL_METRICS),
+          f'B={BATCH} on the card: the three validations\' val_loss '
+          f'{[v["val_loss"] for v in full]} agree; the host and the device '
+          f'search\'s metrics equal: '
+          + '; '.join(f'{k} {full[1][k]!r} / {full[2][k]!r}'
+                      for k in BEAM_VAL_METRICS))
+    for name, ref in (('greedy', 'greedy'), ('host beam', 'host beam'),
+                      ('device beam', 'host beam')):
+        a = res['card', BEAM_VAL_CPU_ROWS, name]
+        b = res['cpu', BEAM_VAL_CPU_ROWS, ref]
+        rel = abs(a['val_loss'] - b['val_loss']) / abs(b['val_loss'])
+        check(all(a[k] == b[k] for k in BEAM_VAL_METRICS)
+              and rel < BEAM_VAL_LOSS_RTOL,
+              f'{name} validation of {BEAM_VAL_CPU_ROWS} utterances on the '
+              f'card vs the {ref} one on the CPU: '
+              + '; '.join(f'{k} {a[k]!r} / {b[k]!r}'
+                          for k in BEAM_VAL_METRICS)
+              + f'; val_loss rel {rel:.2e} (gate {BEAM_VAL_LOSS_RTOL})')
+    return launches
+
+
 def serving_t_out(layers, T: int) -> list:
     """Output frames of each layer (and the head) of the stack at input
     length T."""
@@ -6541,9 +7196,12 @@ def main() -> int:
     phase_environment()
     card = card_line()
 
+    laps = []   # (what, seconds since the start), printed again at the end
+
     def lap(what: str) -> None:
         torch.cuda.empty_cache()
-        print(f'[{time.time() - t_start:.1f} s] {what}: done', flush=True)
+        laps.append((what, round(time.time() - t_start, 1)))
+        print(f'[{laps[-1][1]} s] {what}: done', flush=True)
     phase_build()
     k1_err, k1_main = phase_k1()
     k4_err, k5_err = phase_k4_k5()
@@ -6615,25 +7273,38 @@ def main() -> int:
         # QAT of the Wav2Letter-20 run against its int8 artifact
         qat_launches = phase_qat(manifest, w2l_run, arts, root, card)
         lap('phase 20: QAT')
-        # The serving tools on a model that trains
-        tools_qat = phase_tools(root, card)
-        lap('phase 21: the serving tools')
-        # Data parallelism: torchrun at world 1, two ranks, mesh serving
-        mesh_launches = phase_data_parallel(manifest, arts, root, card)
+        # The serving tools on a model that trains; beside them phase
+        # 22's two gloo ranks of (c), which time nothing
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            two_ranks = pool.submit(dp_two_ranks_launch, manifest, root)
+            tools_qat = phase_tools(root, card)
+            lap('phase 21: the serving tools')
+            # Data parallelism: torchrun at world 1, two ranks, mesh
+            # serving
+            mesh_launches = phase_data_parallel(manifest, arts, root, card,
+                                                two_ranks)
         lap('phase 22: data parallelism')
         # Tensor parallelism: 2 and 4 ranks sharing the card over gloo;
         # beside them phase 24's two sequence-parallel ranks, held after it
         # against phase 23's one-process runs
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             sp_ranks = pool.submit(sp_launch, manifest, root)
-            tp_launches, shared = phase_tensor_parallel(manifest, root, card)
+            tp_launches, tp_bf16, tp_bf16_errs, shared = \
+                phase_tensor_parallel(manifest, root, card)
             lap('phase 23: tensor parallelism (phase 24\'s ranks beside)')
-            sp_launches, sp_errs = phase_sequence_parallel(
-                manifest, root, card, shared, sp_ranks.result())
+            sp_launches, sp_errs, sp_bf16, sp_bf16_errs = \
+                phase_sequence_parallel(manifest, root, card, shared,
+                                        sp_ranks.result())
         lap('phase 24: sequence parallelism')
         # bf16 compute: K4-K7 on bf16 x, both models trained in bf16
         bf16_launches, bf16_errs = phase_bf16(manifest, root, card)
         lap('phase 25: bf16 compute')
+        # the kernel-selection knobs; validation with the beam decoders
+        batch = bf16_corpus_batch(manifest, [])
+        knob_launches = phase_knobs(batch, root, card)
+        beam_launches = phase_beam_validation(manifest, root, batch, card)
+        del batch
+        lap('phase 26: the knobs and the beam validation decoders')
     k6_numbers, k7_numbers = k6_k7_numbers()
     src = 'wav2letter_pytorch_tpu_torch/csrc/'
     tpu = 'wav2letter_pytorch_tpu/ops/'
@@ -6693,13 +7364,25 @@ def main() -> int:
         entry['bf16_launches'] = bf16_launches[name]
         kernels.append(kernel_entry(
             name + '_bf16', entry['source'], entry['replaces'],
-            bf16_launches[name], bf16_errs[name], bf16_numbers[name]))
+            bf16_launches[name], max(bf16_errs[name], tp_bf16_errs[name],
+                                     sp_bf16_errs[name]),
+            bf16_numbers[name]))
+    # phases 23's and 24's bf16 cases; phase 26's knob and validation paths
+    for entry in kernels[:7]:
+        name = entry['name']
+        entry['tp_bf16_launches'] = tp_bf16[name]
+        entry['sp_bf16_launches'] = sp_bf16[name]
+    for entry in kernels[:3]:
+        entry['knob_launches'] = knob_launches[entry['name']]
+    for entry in kernels[:2]:
+        entry['beam_validation_launches'] = beam_launches[entry['name']]
     long = {}
     for name, fn in (('ctc_alpha', k2_numbers), ('ctc_beta', k3_numbers)):
         ms, _, library_ms, nbytes, ops = fn(k2_long, 'long', plain=False)
         long[name] = {'ms': ms, 'library_ms': library_ms,
                       'bound_ms': ctc_bound_ms(nbytes, ops)}
     print(json.dumps({'ctc_long_shape': list(CTC_LONG), **long}))
+    print(json.dumps({'laps_s': dict(laps)}))
     print(f'total {time.time() - t_start:.1f} s [{card}]')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

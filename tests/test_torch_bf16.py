@@ -23,12 +23,17 @@ seeded numpy inputs go through both sides:
 * One train step from the same weights against the JAX trainer in bf16
   (SGD for Wav2Letter, NovoGrad for QuartzNet), and the bf16 training of
   ``tests/test_bf16.py`` (final loss within 30 % of f32's).
-* The config (bf16 accepted, parameters float32; bf16 with tensor or
-  sequence parallelism refused), ``padding_mode=zeros`` in float32, and
-  ``train.main`` then ``evaluate.main`` on a bf16 run with ``--cpu``.
+* The config (bf16 accepted, parameters float32), ``padding_mode=zeros``
+  in float32, and ``train.main`` then ``evaluate.main`` on a bf16 run
+  with ``--cpu``.
+* The gates of bf16 under data, tensor and sequence parallelism
+  (``assert_parallel_bf16``), which ``tests/test_torch_parallel.py``,
+  ``test_torch_tensor_parallel.py`` and ``test_torch_seq_parallel.py``
+  hold their gloo ranks to.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -60,6 +65,7 @@ from wav2letter_pytorch_tpu_torch.ops.sep_conv import (
     mask_lengths, out_length as sep_out_length, sep_bwd_reference,
     sep_conv1d, sep_fwd_reference)
 from wav2letter_pytorch_tpu_torch.training.build import (build_frontend,
+                                                         build_labels,
                                                          build_model,
                                                          build_optimizer,
                                                          load_run)
@@ -647,13 +653,207 @@ def test_float_models_keep_their_dtype():
         assert out.dtype == torch.float64
 
 
-@pytest.mark.parametrize('axis', ['model', 'seq'])
-def test_bf16_with_tensor_or_sequence_parallelism_raises(axis):
-    with pytest.raises(ValueError, match=f'trainer.mesh.{axis}=2'):
-        load_config(['data.train_manifest=x', 'data.val_manifest=y',
-                     'model.compute_dtype=bf16', f'trainer.mesh.{axis}=2'])
-    load_config(['data.train_manifest=x', 'data.val_manifest=y',
-                 f'trainer.mesh.{axis}=2'])
+# ------------------------------------------ bf16 under DP, TP and SP
+#
+# tests/test_torch_parallel.py, test_torch_tensor_parallel.py and
+# test_torch_seq_parallel.py run these models in bf16 on gloo ranks
+# (``tests/torch_parallel_worker.py::bf16_record``) and hold them here:
+# the narrow Wav2Letter (3 layers) at twice its widths and a QuartzNet of
+# 4 blocks (C1, a block of two fused units with a residual, a dilated
+# unit, a 1x1 conv), so that every conv shards at model=4 (8 channels a
+# shard or more), from JAX's initial weights. The depth is the CPU
+# tests' (as for the card's bf16 step against the CPU's): in train mode
+# a rank's BatchNorm statistics over its channel slice or frames are
+# summed in another order than one process's, and a float32 difference
+# that moves an input across a bf16 rounding boundary grows about
+# tenfold a normalised conv (QuartzNet-15x5's narrowed blocks of five
+# repeats moved one update by 0.10 at model=4).
+PAR_W2L = [dict(l, output_size=2 * l['output_size'], dropout=-1.0)
+           for l in W2L_NARROW]
+PAR_QN = [dict(layer_size=32, kernel_size=33, stride=2, residual=False,
+               separable=True),
+          dict(layer_size=32, kernel_size=13, repeat=2, residual=True,
+               separable=True),
+          dict(layer_size=48, kernel_size=9, dilation=2, residual=False,
+               separable=True),
+          dict(layer_size=64, kernel_size=1, residual=False,
+               separable=False)]
+PARALLEL_BF16 = {'w2l_reflect': ('reflect', PAR_W2L),
+                 'w2l_zeros': ('zeros', PAR_W2L),
+                 'qn': (None, PAR_QN)}
+# One train step from the shared initial weights, a parallel run against
+# one process in bf16: the relative distance of the updates (as
+# STEP_UPDATE_RTOL's) at most this. The ranks' partial sums are rounded
+# to bf16 apiece before they are added: a tensor-parallel conv's input
+# gradient (each rank's Cout slice, K7's on the fused unit), a halo
+# frame's gradient (each seq rank's outputs), a data-parallel weight
+# gradient (each rank's rows). Each partial's rounding is at most half a
+# bf16 ulp of it, 2^-9 relative; one process rounds the whole sum once
+# (``test_partial_sums_within_their_roundings`` holds a column conv's
+# input gradient to that bound). That bound is relative to the sum of
+# the partials' magnitudes, not to their sum, and it compounds layer by
+# layer backward, so it sets no tighter bar on an update than the
+# roundings in other places that the one-process bf16 step is held to
+# JAX's with: STEP_UPDATE_RTOL. Measured over three seeds (data=2 x
+# model=2, model=4, data=4): Wav2Letter 3.3-4.6e-3, 2.8-3.6e-3,
+# 2.2-4.3e-3, QuartzNet 4.8-5.1e-3, 4.6-4.7e-3, 1.9-2.4e-3; the port's
+# one-process step against JAX's reads 5.6e-3 / 4.3e-3.
+PARALLEL_UPDATE_RTOL = STEP_UPDATE_RTOL
+
+
+def parallel_bf16_overrides(name) -> list:
+    """``PARALLEL_BF16[name]``'s overrides (no mesh), for
+    ``invariance_trainer``."""
+    padding, spec = PARALLEL_BF16[name]
+    base = ['data.train_manifest=x', 'data.val_manifest=y',
+            'model.input_size=16', f'model.mid_layers={len(spec)}',
+            'model.compute_dtype=bf16', 'trainer.string_metrics_interval=0']
+    if padding is None:
+        return base + ['model=quartznet', f'model.jasper_blocks={_flow(spec)}']
+    return base + [f'model.layers={_flow(spec)}',
+                   f'model.padding_mode={padding}']
+
+
+def _parallel_jax_model(name, dtype):
+    padding, spec = PARALLEL_BF16[name]
+    if padding is None:
+        return JaxJasper(jasper_blocks=spec, num_labels=N_LABELS,
+                         mid_layers=len(spec), precision='highest',
+                         dtype=dtype)
+    return JaxWav2Letter(layers=spec, num_labels=N_LABELS,
+                         mid_layers=len(spec), precision='highest',
+                         padding_mode=padding, dtype=dtype)
+
+
+def parallel_bf16_init(name, root, seed: int = 1) -> dict:
+    """A parallel bf16 case of ``name``: its overrides, JAX's initial
+    weights (``variables``, from a threefry key: the JAX trainer switches
+    the default generator to rbg) and the path of them as a port state
+    dict (``init``)."""
+    padding, spec = PARALLEL_BF16[name]
+    variables = jax.device_get(_parallel_jax_model(name, None).init(
+        jax.random.key(seed, impl='threefry2x32'),
+        jnp.zeros((1, 64, 16), jnp.float32), jnp.array([64]), train=False))
+    init = os.path.join(root, f'init_{name}.pt')
+    torch.save(state_dict_from_flax(variables,
+                                    spec if padding is None else None), init)
+    return {'name': name, 'overrides': parallel_bf16_overrides(name),
+            'init': init, 'variables': variables}
+
+
+def parallel_bf16_refs(case: dict, root) -> dict:
+    """What ``parallel_bf16_init``'s case is held to, added to it: one
+    port process's ``bf16_record`` (``one``), and JAX's one-process
+    eval-mode log-probs in bf16 and f32 on the same features (``jax16``,
+    ``jax32``)."""
+    from tests.torch_parallel_worker import bf16_batch, bf16_record
+    name, overrides = case['name'], case['overrides']
+    batch = bf16_batch()
+    fe = build_frontend(load_config(overrides)['model'], dither=0.0)
+    feats, flens = fe(torch.from_numpy(batch['audio']),
+                      torch.from_numpy(batch['audio_lengths']))
+    x, lens = jnp.asarray(feats.numpy()), jnp.asarray(flens.numpy())
+    case['one'] = bf16_record(overrides, case['init'],
+                              os.path.join(root, f'one_{name}'))
+    jasper = PARALLEL_BF16[name][0] is None
+    with pytest.MonkeyPatch.context() as mp:
+        if jasper:   # QuartzNet: the JAX Pallas branches
+            _pallas_interpret(mp)
+        for key, dtype in (('jax16', jnp.bfloat16), ('jax32', None)):
+            y, _ = _parallel_jax_model(name, dtype).apply(
+                case['variables'], x, lens, train=False)
+            if jasper:   # Jasper's eval emits probabilities
+                y = jnp.log(jnp.clip(y.astype(jnp.float32), 1e-30))
+            case[key] = to_np(y)
+    return case
+
+
+def within_bf16_ulp(a, b) -> np.ndarray:
+    """Elementwise: float32 ``a`` within one bf16 ulp of ``b`` (the bf16
+    spacing at the larger magnitude)."""
+    a, b = to_np(a), to_np(b)
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0 ** -126)
+    return np.abs(a - b) <= 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def assert_parallel_bf16(got: dict, case: dict) -> None:
+    """A parallel run's ``bf16_record`` against one port process in bf16
+    (eval-mode log-probs within one bf16 ulp; the step's loss and, at
+    PARALLEL_UPDATE_RTOL, its update from the shared initial weights)
+    and against JAX's one-process bf16 model on the same weights (the
+    bars of ``test_wav2letter_bf16_matches_flax``)."""
+    one = case['one']
+    logp = to_np(got['logp'])
+    ok = within_bf16_ulp(logp, one['logp'])
+    assert ok.all(), (f'{int((~ok).sum())} of {ok.size} log-probs more than '
+                      'one bf16 ulp from one process', np.abs(
+                          logp - to_np(one['logp'])).max())
+    np.testing.assert_allclose(logp, case['jax16'], rtol=0, atol=BF16_ATOL)
+    assert _closeness(logp, case['jax16'], case['jax32']) >= CLOSER
+    assert got['loss'] == pytest.approx(one['loss'], rel=STEP_LOSS_RTOL)
+    init = torch.load(case['init'])
+    ours, theirs = got['state']['model'], one['state']['model']
+    assert all(v.dtype == torch.float32 for k, v in ours.items()
+               if not k.endswith('num_batches_tracked'))
+    # a conv bias that feeds BatchNorm has an exact gradient of zero
+    pre_bn = {k for k in ours if k.endswith('conv1.bias')
+              and k.replace('conv1.bias', 'batch_norm.weight') in ours}
+    params = [k for k in ours if k.endswith(('.weight', '.bias'))
+              and k not in pre_bn]
+    moved = {k: ours[k] - init[k] for k in params}
+    want = {k: theirs[k] - init[k] for k in params}
+    update = _rel(moved, want, params)
+    assert update < PARALLEL_UPDATE_RTOL, (update, max(
+        (_rel(moved, want, [k]), k) for k in params))
+    stats = [k for k in ours if k.endswith(('running_mean', 'running_var'))]
+    assert _rel(ours, theirs, stats) < PARALLEL_UPDATE_RTOL
+
+
+def _logged(run_dir: str) -> dict:
+    """metrics.csv of a run: {metric: {step: value}}."""
+    out = {}
+    with open(os.path.join(run_dir, 'metrics.csv')) as f:
+        for line in f.read().splitlines()[1:]:
+            _, step, metric, value = line.split(',')
+            out.setdefault(metric, {})[int(step)] = float(value)
+    return out
+
+
+def assert_train_main_bf16(par_run: str, one_run: str) -> None:
+    """``train.main`` in bf16 on a parallel grid against the same run in
+    one process, from the same seeded weights: every logged train and
+    validation loss at STEP_LOSS_RTOL; the parallel run's last checkpoint
+    float32 and loaded strict=True into one process built from its
+    config; its update from the initial weights and its BN statistics at
+    PARALLEL_UPDATE_RTOL of one process's."""
+    got, want = _logged(par_run), _logged(one_run)
+    for metric in ('train_loss', 'val_loss'):
+        assert got[metric].keys() == want[metric].keys(), metric
+        for step, v in want[metric].items():
+            assert got[metric][step] == pytest.approx(
+                v, rel=STEP_LOSS_RTOL), (metric, step)
+    with open(os.path.join(par_run, 'config.json')) as f:
+        cfg = json.load(f)
+    assert cfg['model']['compute_dtype'] == 'bf16'
+    ours, theirs = (Checkpointer(os.path.join(r, 'checkpoints')).restore()
+                    for r in (par_run, one_run))
+    assert ours['step'] == theirs['step'] > 0
+    ours, theirs = ours['model'], theirs['model']
+    assert all(v.dtype == torch.float32 for k, v in ours.items()
+               if not k.endswith('num_batches_tracked'))
+    model = build_model(cfg['model'], len(build_labels(cfg['model'])),
+                        seed=int(cfg['trainer'].get('seed', 0)))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(ours, strict=True)
+    pre_bn = {k for k in ours if k.endswith('conv1.bias')
+              and k.replace('conv1.bias', 'batch_norm.weight') in ours}
+    params = [k for k in ours if k.endswith(('.weight', '.bias'))
+              and k not in pre_bn]
+    update = _rel({k: ours[k] - init[k] for k in params},
+                  {k: theirs[k] - init[k] for k in params}, params)
+    assert update < PARALLEL_UPDATE_RTOL, update
+    stats = [k for k in ours if k.endswith(('running_mean', 'running_var'))]
+    assert _rel(ours, theirs, stats) < PARALLEL_UPDATE_RTOL
 
 
 TEXTS = ['abba', 'cab', 'dad at bat', 'a cat sat', 'bad cab', 'tact']

@@ -16,7 +16,10 @@ package's 8-device mesh step on the same flax weights:
   NovoGrad; validation reduced over the ranks;
 * SIGTERM to rank 1 alone: both ranks stop at the same step with
   ``stopped_reason == 'signal'`` and one checkpoint, which one process
-  resumes to the uninterrupted run's weights.
+  resumes to the uninterrupted run's weights;
+* bf16 compute (``model.compute_dtype=bf16``) of Wav2Letter and QuartzNet
+  at data=2 against one process in bf16 and JAX's bf16 model
+  (``test_torch_bf16.py``'s ``assert_parallel_bf16``).
 
 Serving: ``MeshInference``, long-form windows, ``StreamMultiplexer``
 (both streamers) and ``StreamingServer`` over a CPU mesh of 2 and 4
@@ -37,6 +40,8 @@ import torch
 import jax
 
 from tests.test_multidevice import _make_trainer as jax_invariance_trainer
+from tests.test_torch_bf16 import (assert_parallel_bf16, parallel_bf16_init,
+                                   parallel_bf16_refs)
 from tests.test_torch_longform import EXACT_TOL, _one_shot
 from tests.test_torch_longform import _audio as lf_audio
 from tests.test_torch_longform import _fe as lf_frontend
@@ -193,7 +198,11 @@ def dp_runs(tmp_path_factory):
     init = os.path.join(root, 'init.pt')
     torch.save(_jax_invariance()[0], init)
     cases = _cases(root)
+    bf16 = {name: parallel_bf16_init(name, root) for name in DP_BF16}
     spec = {'out': root, 'cases': [
+        {'kind': 'bf16', 'name': f'bf16_{name}', 'init': case['init'],
+         'overrides': case['overrides'] + ['trainer.mesh.data=2']}
+        for name, case in bf16.items()] + [
         {'kind': 'bn', 'name': 'bn_0.9', 'momentum': 0.9},
         {'kind': 'bn', 'name': 'bn_0.1', 'momentum': 0.1},
         {'kind': 'steps', 'name': 'steps', 'overrides': INVARIANCE,
@@ -204,10 +213,13 @@ def dp_runs(tmp_path_factory):
             **({'kill_rank': 1, 'kill_at': 2} if name == 'sigterm' else {})}
            for name, argv in cases.items()]}
     _launch(spec, root)
-    return root, cases, init
+    for case in bf16.values():
+        parallel_bf16_refs(case, root)
+    return root, cases, init, bf16
 
 
 _JAX_INVARIANCE = {}
+DP_BF16 = ('w2l_reflect', 'qn')
 
 
 def _jax_invariance():
@@ -417,7 +429,7 @@ def test_cross_replica_batchnorm_is_one_process(dp_runs, momentum):
     """2 ranks x 2 rows against one process on the 4 rows: outputs,
     running statistics (the biased variance, flax's), and the input and
     weight gradients, within BN_RTOL."""
-    root, _, _ = dp_runs
+    root, _, _, _ = dp_runs
     got = torch.load(os.path.join(root, f'bn_{momentum}.pt'))
     x, g, _, _, _, _ = bn_inputs()
     bn = make_bn(momentum)
@@ -441,7 +453,7 @@ def test_device_count_invariance(dp_runs, tmp_path):
     """tests/test_multidevice.py::test_device_count_invariance for the
     port: 2 ranks, 1 process and JAX's 8-device mesh take 3 SGD steps on
     the same batch from the same flax weights."""
-    root, _, init = dp_runs
+    root, _, init, _ = dp_runs
     got = torch.load(os.path.join(root, 'steps.pt'))
     tr = invariance_trainer(INVARIANCE, init, str(tmp_path / 'one'))
     batch = {k: torch.from_numpy(v) for k, v in invariance_batch().items()}
@@ -465,7 +477,7 @@ def test_two_ranks_train_as_one_process(dp_runs, name):
     statistics. W2L: the short last batch's 2 masked rows are rank 1's
     whole share, with accumulate_grad_batches=2, dither, dropout and
     SpecAugment on. Jasper: remat, NovoGrad, K4-K7's plain versions."""
-    root, cases, _ = dp_runs
+    root, cases, _, _ = dp_runs
     dp = os.path.join(root, f'dp_{name}')
     one = _one_process(root, name, cases)
     got, want = _metrics(dp), _metrics(one)
@@ -490,7 +502,7 @@ def test_two_ranks_train_as_one_process(dp_runs, name):
 def test_validate_on_two_ranks_is_one_process(dp_runs, name):
     """Validation on 2 ranks (each scores its rows; loss sums, WER and CER
     numerators and denominators reduced) logs one process's numbers."""
-    root, cases, _ = dp_runs
+    root, cases, _, _ = dp_runs
     got = _metrics(os.path.join(root, f'dp_{name}'))
     want = _metrics(os.path.join(root, f'one_{name}'))
     for metric in ('val_loss', 'val_wer', 'val_cer', 'val_len_ratio'):
@@ -500,12 +512,24 @@ def test_validate_on_two_ranks_is_one_process(dp_runs, name):
                                                       abs=1e-12)
 
 
+@pytest.mark.parametrize('name', DP_BF16)
+def test_bf16_on_two_ranks_is_one_process(dp_runs, name):
+    """bf16 compute at data=2 (each rank's weight gradients rounded to
+    bf16 before the all-reduce adds them): eval-mode log-probs within one
+    bf16 ulp of one process in bf16, one SGD step's loss and update from
+    the shared initial weights, and JAX's one-process bf16 model on the
+    same weights (``assert_parallel_bf16``)."""
+    root, _, _, bf16 = dp_runs
+    assert_parallel_bf16(torch.load(os.path.join(root, f'bf16_{name}.pt')),
+                         bf16[name])
+
+
 def test_sigterm_to_one_rank_stops_every_rank(dp_runs):
     """Rank 1 alone gets SIGTERM after step 2; with preempt_sync_every=3
     both ranks stop at step 3 with stopped_reason 'signal' and one
     checkpoint (written by rank 0), which one process resumes to the
     weights of an uninterrupted one-process run."""
-    root, cases, _ = dp_runs
+    root, cases, _, _ = dp_runs
     dp = os.path.join(root, 'dp_sigterm')
     ranks = [json.load(open(os.path.join(root, f'sigterm.rank{r}.json')))
              for r in range(WORLD)]

@@ -27,7 +27,11 @@ flax weights carried across with ``weights.state_dict_from_flax``:
 * (e) ``train.main`` with ``trainer.mesh.data=2 trainer.mesh.seq=2`` on
   JAX's ``test_sp_train_cli`` corpus, dropout and SpecAugment on, against
   one process; its checkpoint loads strict into one process and
-  ``evaluate.main --model-path`` scores it.
+  ``evaluate.main --model-path`` scores it;
+* bf16 compute (``model.compute_dtype=bf16``): Wav2Letter (reflect and
+  zeros) and QuartzNet at data=2 x seq=2 and 1 x 2 x 2 against one
+  process in bf16 and JAX's bf16 model (``test_torch_bf16.py``'s
+  ``assert_parallel_bf16``), with float32 halos.
 """
 
 import json
@@ -48,6 +52,10 @@ from tests.test_seq_parallel import _batch as jax_batch
 from tests.test_seq_parallel import _make_trainer as jax_trainer
 from tests.test_torch_parallel import AUGMENT, _latest, _metrics
 from tests.test_torch_tensor_parallel import NORMS, _assert_params_close
+from tests.test_torch_bf16 import (PARALLEL_BF16, STEP_LOSS_RTOL,
+                                   assert_parallel_bf16,
+                                   assert_train_main_bf16,
+                                   parallel_bf16_init, parallel_bf16_refs)
 from tests.test_train_e2e import _make_corpus
 from tests.torch_parallel_worker import invariance_trainer
 from tests.torch_sp_worker import grad64_case
@@ -130,6 +138,9 @@ def _cli_argv(manifest, run):
             'trainer.string_metrics_interval=0', 'trainer.max_epochs=2',
             'trainer.log_every_n_steps=1', AUGMENT,
             f'trainer.default_root_dir={run}', '--device', 'cpu']
+
+
+BF16_CLI = ['model.compute_dtype=bf16', 'trainer.max_epochs=1']
 
 
 def _free_port():
@@ -246,11 +257,19 @@ def runs(tmp_path_factory):
                           'batch': batches['jasper'],
                           'overrides': _jasper_cfg(blocks, n, data, model,
                                                    seq)})
+    bf16 = {name: parallel_bf16_init(name, root) for name in PARALLEL_BF16}
     spec = {'out': root, 'cases': [dict(c, kind='steps') for c in steps] + [
+        {'kind': 'bf16', 'name': f'bf16_{name}_d{d}m{m}s2', 'model': m,
+         'seq': 2, 'init': case['init'],
+         'overrides': case['overrides'] + _mesh(d, m, 2)}
+        for name, case in bf16.items() for d, m in ((2, 1), (1, 2))] + [
         {'kind': 'grad64', 'name': 'grad64', 'model': 1, 'seq': 4},
         {'kind': 'train', 'name': 'cli', 'model': 1, 'seq': 2,
          'argv': _cli_argv(manifest, os.path.join(root, 'sp_cli'))
-         + _mesh(2, 1, 2)}]}
+         + _mesh(2, 1, 2)},
+        {'kind': 'train', 'name': 'cli_bf16', 'model': 1, 'seq': 2,
+         'argv': _cli_argv(manifest, os.path.join(root, 'sp_cli_bf16'))
+         + BF16_CLI + _mesh(2, 1, 2)}]}
     procs = _start(spec, root)
     try:
         ones = {'w2l': _one_steps(W2L, inits['w2l'], batch,
@@ -262,9 +281,14 @@ def runs(tmp_path_factory):
                                     os.path.join(root, f'one_{name}'))
         assert train_cli.main(_cli_argv(manifest,
                                         os.path.join(root, 'one_cli'))) == 0
+        assert train_cli.main(_cli_argv(manifest, os.path.join(
+            root, 'one_cli_bf16')) + BF16_CLI) == 0
+        for case in bf16.values():
+            parallel_bf16_refs(case, root)
     finally:
         _wait(procs)
-    return dict(root=root, ones=ones, jax=jax_runs, manifest=manifest)
+    return dict(root=root, ones=ones, jax=jax_runs, manifest=manifest,
+                bf16=bf16)
 
 
 def _load(runs, name):
@@ -556,3 +580,44 @@ def test_seq_without_a_process_group_stops(tmp_path, monkeypatch):
         trainer_mod.Trainer(cfg, model, build_frontend(cfg['model']), None,
                             None, None, device='cpu',
                             run_dir=str(tmp_path / 't'))
+
+
+# ------------------------------------------------------------------ bf16
+
+def test_train_main_bf16_under_sp(runs, capsys):
+    """``train.main`` with model.compute_dtype=bf16 at data=2 x seq=2
+    (dropout, SpecAugment, dither) against the same run in one process
+    (``assert_train_main_bf16``: the losses, a float32 checkpoint that
+    loads strict=True into one process, the update); ``evaluate.main
+    --model-path`` on the seq run in one process gives one process's
+    loss at the same bar."""
+    root = runs['root']
+    sp_run, one = (os.path.join(root, k)
+                   for k in ('sp_cli_bf16', 'one_cli_bf16'))
+    assert_train_main_bf16(sp_run, one)
+    ranks = [json.load(open(os.path.join(root, f'cli_bf16.rank{r}.json')))
+             for r in range(WORLD)]
+    assert all(r['rc'] == 0 and r['step'] == 2 for r in ranks)
+    losses = []
+    for run in (sp_run, one):
+        capsys.readouterr()
+        assert eval_cli.main(['--model-path', run, '--test-manifest',
+                              runs['manifest'], '--device', 'cpu']) == 0
+        losses.append(json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])['loss'])
+    assert losses[0] == pytest.approx(losses[1], rel=STEP_LOSS_RTOL)
+
+
+@pytest.mark.parametrize('grid', ['d2m1s2', 'd1m2s2'])
+@pytest.mark.parametrize('name', sorted(PARALLEL_BF16))
+def test_bf16_under_sp(runs, name, grid):
+    """bf16 compute at data=2 x seq=2 and on the 3-D grid data=1 x
+    model=2 x seq=2: eval-mode log-probs within one bf16 ulp of one
+    process in bf16, one SGD step's loss and update from the shared
+    initial weights, and JAX's one-process bf16 model on the same
+    weights (``assert_parallel_bf16``). Every halo exchanged carries
+    float32: the bf16 cast comes after it, on the haloed input, as one
+    process casts the padded input."""
+    got = _load(runs, f'bf16_{name}_{grid}')
+    assert got['halo_dtypes'] == ['torch.float32']
+    assert_parallel_bf16(got, runs['bf16'][name])

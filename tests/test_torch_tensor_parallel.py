@@ -28,7 +28,13 @@ on its 8-device CPU mesh, from the same flax weights carried across with
   model=1 draws), the short last batch's masked rows all on the second
   replica, validation sums; a QuartzNet-style Jasper under remat; SIGTERM
   to one rank stops every rank at the same step, and one process resumes
-  the TP checkpoint; ``evaluate.main`` on a TP run in one process.
+  the TP checkpoint; ``evaluate.main`` on a TP run in one process;
+* bf16 compute (``model.compute_dtype=bf16``): Wav2Letter (reflect and
+  zeros) and QuartzNet at model=4 and data=2 x model=2 against one
+  process in bf16 and JAX's bf16 model (``test_torch_bf16.py``'s
+  ``assert_parallel_bf16``); bf16 column convs (``MaskedConv._column``,
+  each grouping) equal to the one-process conv's columns, and their
+  input gradients within the ranks' roundings of their partial sums.
 
 JAX's ``test_tp_multi_step_dispatch`` has no counterpart:
 ``trainer.steps_per_dispatch`` stays refused (CUDA graphs are ROADMAP
@@ -51,10 +57,16 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from tests.test_tensor_parallel import _batch as jax_batch
+from tests.test_torch_bf16 import (PARALLEL_BF16, STEP_LOSS_RTOL,
+                                   assert_parallel_bf16,
+                                   assert_train_main_bf16,
+                                   parallel_bf16_init, parallel_bf16_refs,
+                                   ulps)
 from tests.test_tensor_parallel import _make_trainer as jax_trainer
 from tests.test_torch_parallel import (AUGMENT, JASPER_BLOCKS, W2L_LAYERS,
                                        _argv, _corpus, _latest, _metrics)
 from tests.torch_parallel_worker import invariance_batch, invariance_trainer
+from tests.torch_tp_worker import COLUMN_CASES, column_case
 from wav2letter_pytorch_tpu.config import load_config as jax_load_config
 from wav2letter_pytorch_tpu.parallel import make_mesh as jax_make_mesh
 from wav2letter_pytorch_tpu.parallel import model_axis_spec as jax_spec
@@ -157,6 +169,10 @@ def _tp_train_cases(root):
                      'model.mid_layers=3', JASPER_BLOCKS, 'model.remat=true',
                      'data.batch_size=4', 'trainer.max_epochs=1',
                      'trainer.gradient_clip_val=0.05', AUGMENT), tp2),
+        'bf16': (_argv(m6, '{run}', W2L_LAYERS, 'model.mid_layers=2',
+                       'data.batch_size=4', 'trainer.max_epochs=1',
+                       'model.optimizer.lr=0.05',
+                       'model.compute_dtype=bf16'), tp2),
         'sigterm': (_argv(m10, '{run}', W2L_LAYERS, 'model.mid_layers=2',
                           'data.batch_size=2', 'trainer.max_epochs=1',
                           'trainer.preempt_sync_every=3',
@@ -253,6 +269,14 @@ def runs(tmp_path_factory):
             steps.append({'kind': 'steps', 'name': f'{name}_m{m}',
                           'model': m, 'init': inits[name],
                           'overrides': _jasper_cfg(blocks, n, 4 // m, m)})
+    bf16 = {name: parallel_bf16_init(name, root) for name in PARALLEL_BF16}
+    steps += [{'kind': 'bf16', 'name': f'bf16_{name}_d{4 // m}m{m}',
+               'model': m, 'init': case['init'],
+               'overrides': case['overrides'] + [
+                   f'trainer.mesh.data={4 // m}', f'trainer.mesh.model={m}']}
+              for name, case in bf16.items() for m in (2, 4)]
+    steps += [{'kind': 'columns', 'name': f'columns_m{m}', 'model': m}
+              for m in (2, 4)]
     restores = [
         {'name': 'dp4_from_tp', 'model': 1, 'cfg': _tp_cfg(4, 1),
          'from': 'tp_steps', 'save': True},
@@ -282,10 +306,12 @@ def runs(tmp_path_factory):
             run = os.path.join(root, f'one_{name}')
             assert train_cli.main([a.replace('{run}', run)
                                    for a in argv]) == 0
+        for case in bf16.values():
+            parallel_bf16_refs(case, root)
     finally:
         _wait(procs)
     return dict(root=root, ones=ones, jax=(jax_losses, jax_final),
-                one_ck=os.path.join(root, 'one_ck'), train=train)
+                one_ck=os.path.join(root, 'one_ck'), train=train, bf16=bf16)
 
 
 def _load(runs, name):
@@ -630,3 +656,78 @@ def test_tp_without_a_process_group_stops(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match='model groups of 1'):
         Trainer(cfg, model, build_frontend(cfg['model']), None, None, None,
                 device='cpu', run_dir=str(tmp_path / 't'))
+
+
+# ------------------------------------------------------------------ bf16
+
+@pytest.mark.parametrize('grid', ['d2m2', 'd1m4'])
+@pytest.mark.parametrize('name', sorted(PARALLEL_BF16))
+def test_bf16_under_tp(runs, name, grid):
+    """bf16 compute at model=4 and data=2 x model=2: eval-mode log-probs
+    within one bf16 ulp of one process in bf16 (in fact equal), one SGD
+    step's loss and update from the shared initial weights at
+    ``assert_parallel_bf16``'s bars, and JAX's one-process bf16 model on
+    the same weights at ``test_torch_bf16.py``'s."""
+    assert_parallel_bf16(_load(runs, f'bf16_{name}_{grid}'),
+                         runs['bf16'][name])
+
+
+def test_train_main_bf16_under_tp(runs, tmp_path, capsys):
+    """``train.main`` with model.compute_dtype=bf16 at data=2 x model=2
+    against the same run in one process (``assert_train_main_bf16``: the
+    losses, a float32 checkpoint that loads strict=True into one process,
+    the update); ``evaluate.main --model-path`` on the TP run in one
+    process gives one process's loss at the same bar."""
+    root = runs['root']
+    tp_run, one = (os.path.join(root, f'{k}_bf16') for k in ('tp', 'one'))
+    assert_train_main_bf16(tp_run, one)
+    ranks = _ranks_json(root, 'bf16')
+    assert all(r['rc'] == 0 and r['stopped_reason'] is None for r in ranks)
+    manifest = runs['train']['bf16'][0][0].partition('=')[2]
+    losses = []
+    for run in (tp_run, one):
+        capsys.readouterr()
+        assert eval_cli.main(['--model-path', run, '--test-manifest',
+                              manifest, '--device', 'cpu']) == 0
+        losses.append(json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])['loss'])
+    assert losses[0] == pytest.approx(losses[1], rel=STEP_LOSS_RTOL)
+
+
+def _ranks_json(root, name):
+    return [json.load(open(os.path.join(root, f'{name}.rank{r}.json')))
+            for r in range(WORLD)]
+
+
+def _half_ulps(t: torch.Tensor) -> torch.Tensor:
+    """Half the bf16 spacing at each element of ``t``."""
+    mag = t.float().abs().clamp(min=2.0 ** -126)
+    return 2.0 ** (torch.floor(torch.log2(mag)) - 8)
+
+
+@pytest.mark.parametrize('i', range(len(COLUMN_CASES)))
+@pytest.mark.parametrize('m', [2, 4])
+def test_bf16_columns_and_their_partial_sums(runs, m, i):
+    """``MaskedConv._column`` in bf16 at model m (``COLUMN_CASES[i]``: one
+    group, a rank inside a group, slices straddling groups, whole groups
+    a rank, a bias): the ranks' columns gathered are the one-process bf16
+    conv's output within one bf16 ulp (in fact equal). Its input
+    gradient is the ranks' partial gradients, each rounded to bf16 by
+    its conv's backward, summed in float32 (``tp.copy_to_model``), where
+    one process rounds the whole sum once: it must lie within the half
+    ulps of those roundings (each partial's and the one-process
+    gradient's) of one process's, plus float32 slack."""
+    rec = _load(runs, f'columns_m{m}')[i]
+    conv, x, g = column_case(i)
+    x.requires_grad_()
+    y, _ = conv(x, None)
+    (y.float() * g).sum().backward()
+    assert rec['y'].dtype == y.dtype == torch.bfloat16
+    assert int(ulps(rec['y'], y.detach()).max()) <= 1
+    parts = rec['partials'].float()
+    assert parts.shape[0] == m
+    np.testing.assert_allclose(rec['dx'].numpy(), parts.sum(0).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    bound = (_half_ulps(parts).sum(0) + _half_ulps(x.grad)
+             + 1e-6 * parts.abs().sum(0))
+    assert bool(((rec['dx'] - x.grad).abs() <= bound).all())

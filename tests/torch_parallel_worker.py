@@ -17,7 +17,12 @@ order in one process group:
 * ``train``: ``train.main(argv)`` (which joins the group itself); with
   ``kill_rank``/``kill_at``, that rank sends itself SIGTERM after step
   ``kill_at``. Every rank writes its ``stopped_reason``, its last step
-  and a checksum of its parameters.
+  and a checksum of its parameters;
+* ``bf16``: ``bf16_record`` of ``model.compute_dtype=bf16`` on the grid
+  the case names (``model``, ``seq``); rank 0 writes it.
+
+``bf16_record`` and ``bf16_batch`` serve the tensor- and sequence-
+parallel workers too.
 """
 
 import json
@@ -99,6 +104,54 @@ def invariance_batch(B=8, t=4800):
         batch_mask=np.ones((B,), np.float32))
 
 
+def bf16_batch():
+    """The bf16 cases' batch: ``invariance_batch`` at 9 600 samples (61
+    feature frames, 31 after a stride of 2)."""
+    return invariance_batch(t=9600)
+
+
+def bf16_record(overrides, init, run_dir, track_halos=False) -> dict:
+    """One bf16 scenario on this process's grid (none: one process), on
+    its replica's rows of ``bf16_batch()``, with the trainer of
+    ``invariance_trainer``: the eval-mode log-probabilities of the whole
+    batch (Jasper's probabilities as log p, as ``eval_step`` scores them),
+    then one train step; returns them with the step's loss and the
+    gathered ``Trainer.state_dict()``. ``track_halos``: also the dtypes
+    of the inputs ``sp.conv_input`` exchanged halos of."""
+    from wav2letter_pytorch_tpu_torch.parallel import sp
+    batch = bf16_batch()
+    k = batch['audio'].shape[0] // parallel.data_world()
+    r = parallel.data_rank()
+    mine = {key: torch.from_numpy(v[r * k:(r + 1) * k])
+            for key, v in batch.items()}
+    tr = invariance_trainer(overrides, init, run_dir)
+    dtypes = set()
+    conv_input = sp.conv_input
+
+    def tracked(x, *args, **kw):
+        dtypes.add(str(x.dtype))
+        return conv_input(x, *args, **kw)
+    if track_halos:
+        sp.conv_input = tracked
+    try:
+        tr.model.eval()
+        with torch.no_grad():
+            feats, flens = tr.frontend(mine['audio'], mine['audio_lengths'])
+            out, _ = trainer_mod.seq_forward(tr.model, feats, flens)
+        if getattr(tr.model, 'eval_emits_probs', False):
+            out = torch.log(torch.clamp(out, min=1e-30))
+        if parallel.distributed():
+            out = parallel.all_gather(out.contiguous(),
+                                      parallel.data_group()).flatten(0, 1)
+        loss = float(tr.train_step(mine)[0])
+    finally:
+        sp.conv_input = conv_input
+    state = tr.state_dict()
+    tr.close()
+    return {'logp': out, 'loss': loss, 'state': state,
+            'halo_dtypes': sorted(dtypes)}
+
+
 def invariance_trainer(overrides, init, run_dir):
     """The port's counterpart of the JAX test's ``_make_trainer``: SGD
     with momentum 0.9 at a constant 1e-3, from the weights in ``init``."""
@@ -165,7 +218,19 @@ def run_train(case, rank, world, out):
         json.dump(record, f)
 
 
-RUNNERS = {'bn': run_bn, 'steps': run_steps, 'train': run_train}
+def run_bf16(case, rank, world, out):
+    parallel.set_grid(int(case.get('model', 1)), int(case.get('seq', 1)))
+    try:
+        record = bf16_record(case['overrides'], case['init'],
+                             os.path.join(out, case['name']))
+    finally:
+        parallel.set_grid(1)
+    if rank == 0:
+        torch.save(record, os.path.join(out, f'{case["name"]}.pt'))
+
+
+RUNNERS = {'bn': run_bn, 'steps': run_steps, 'train': run_train,
+           'bf16': run_bf16}
 
 
 def main(spec_path):

@@ -21,7 +21,9 @@ data x model x seq grid (``parallel.set_grid``) before it:
 * ``grad64``: one forward and backward of ``grad64_case``'s float64
   Wav2Letter (every rank holds the same rows, the seq group their
   frames); rank 0 writes the loss and the gradients summed over the
-  replica group.
+  replica group;
+* ``bf16``: ``bf16_record`` of ``model.compute_dtype=bf16``, with the
+  dtypes of the halo exchanges' inputs; rank 0 writes it.
 """
 
 import json
@@ -36,8 +38,8 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from tests.torch_parallel_worker import (invariance_trainer,  # noqa: E402
-                                         run_train)
+from tests.torch_parallel_worker import (bf16_record,  # noqa: E402
+                                         invariance_trainer, run_train)
 from wav2letter_pytorch_tpu_torch import parallel  # noqa: E402
 from wav2letter_pytorch_tpu_torch.training import \
     trainer as trainer_mod  # noqa: E402
@@ -111,7 +113,15 @@ def run_train_case(case, rank, out):
     run_train(case, rank, parallel.world(), out)
 
 
-RUNNERS = {'steps': run_steps, 'train': run_train_case, 'grad64': run_grad64}
+def run_bf16(case, rank, out):
+    record = bf16_record(case['overrides'], case['init'],
+                         os.path.join(out, case['name']), track_halos=True)
+    if rank == 0:
+        torch.save(record, os.path.join(out, f'{case["name"]}.pt'))
+
+
+RUNNERS = {'steps': run_steps, 'train': run_train_case, 'grad64': run_grad64,
+           'bf16': run_bf16}
 
 
 def main(spec_path):

@@ -21,7 +21,13 @@ rows of ``model`` ranks (``parallel.set_grid``) before it:
   again; with ``save``, it checkpoints that state under its own run
   directory;
 * ``train``: ``train.main(argv)`` as ``tests/torch_parallel_worker.py``
-  runs it (a rank may send itself SIGTERM).
+  runs it (a rank may send itself SIGTERM);
+* ``bf16``: ``bf16_record`` of ``model.compute_dtype=bf16``; rank 0
+  writes it;
+* ``columns``: each of ``column_case``'s bf16 convs sharded over the
+  model group: rank 0 writes its output (the ranks' columns gathered),
+  its input gradient (the ranks' partial gradients all-reduced) and
+  each rank's partial input gradient.
 """
 
 import json
@@ -34,7 +40,8 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from tests.torch_parallel_worker import (invariance_batch,  # noqa: E402
+from tests.torch_parallel_worker import (bf16_record,  # noqa: E402
+                                         invariance_batch,
                                          invariance_trainer, run_train)
 from wav2letter_pytorch_tpu_torch import parallel  # noqa: E402
 from wav2letter_pytorch_tpu_torch.parallel import tp  # noqa: E402
@@ -107,8 +114,70 @@ def run_train_case(case, rank, out):
     run_train(case, rank, parallel.world(), out)
 
 
+def run_bf16(case, rank, out):
+    record = bf16_record(case['overrides'], case['init'],
+                         os.path.join(out, case['name']))
+    if rank == 0:
+        torch.save(record, os.path.join(out, f'{case["name"]}.pt'))
+
+
+# (Cin, Cout, kernel, groups, bias) of the ``columns`` convs: one group
+# (one conv), two groups (a rank's slice in one group at model 2, half of
+# one at model 4), three groups of 16 (slices straddling groups at model
+# 2 and 4), four groups (two whole groups a rank at model 2: one conv
+# over them) with a bias
+COLUMN_CASES = [(16, 32, 5, 1, False), (32, 32, 1, 2, False),
+                (48, 48, 3, 3, False), (32, 64, 1, 4, True)]
+
+
+def column_case(i):
+    """(MaskedConv in bf16, x [2, 20, Cin], upstream gradient) of
+    ``COLUMN_CASES[i]``, drawn from a seed."""
+    from wav2letter_pytorch_tpu_torch.models.jasper import MaskedConv
+    cin, cout, k, groups, bias = COLUMN_CASES[i]
+    gen = torch.Generator().manual_seed(i)
+    conv = MaskedConv(cin, cout, k, groups=groups, padding=k // 2,
+                      use_bias=bias, use_mask=False,
+                      compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    x = torch.randn(2, 20, cin, generator=gen)
+    g = torch.randn(2, 20, cout, generator=gen)
+    return conv, x, g
+
+
+def run_columns(case, rank, out):
+    """Each ``column_case`` conv sharded (``tp.shard_module``): its
+    column-parallel forward gathered, its input gradient through
+    ``copy_to_model``, and each rank's partial input gradient (the
+    columns' backward alone)."""
+    records = []
+    for i in range(len(COLUMN_CASES)):
+        conv, x, g = column_case(i)
+        tp.shard_module(conv)
+        assert conv.out_sharded
+        sl = tp.shard_slice(conv.conv.weight)
+        x = x.requires_grad_()
+        y, _ = conv(x, None)
+        assert y.dtype == torch.bfloat16
+        (y.float() * g[:, :, sl]).sum().backward()
+        part = x.detach().clone().requires_grad_()
+        (conv._column(part, conv.padding).float()
+         * g[:, :, sl]).sum().backward()
+        group = parallel.model_group()
+        records.append({
+            'y': parallel.all_gather(y.detach().contiguous(),
+                                     group).movedim(0, 2).flatten(2, 3),
+            'dx': x.grad,
+            'partials': parallel.all_gather(part.grad, group)})
+    if rank == 0:
+        torch.save(records, os.path.join(out, f'{case["name"]}.pt'))
+
+
 RUNNERS = {'steps': run_steps, 'restore': run_restore,
-           'train': run_train_case}
+           'train': run_train_case, 'bf16': run_bf16,
+           'columns': run_columns}
 
 
 def main(spec_path):

@@ -7,10 +7,12 @@ card: a few minutes instead of a full run.
 Builds the kernels (``chip_smoke.phase_build``), writes the 64-utterance
 corpus, then runs ``chip_smoke.phase_sequence_parallel``: Wav2Letter-20
 and QuartzNet-15x2 at full width with ``trainer.mesh.seq=2`` on two ranks
-sharing the card over gloo, each against one process on the same global
+sharing the card over gloo, in float32 and in ``model.compute_dtype=bf16``
+(also at 3 layers / 2 blocks), each against one process on the same global
 batch (run here first: a full run reuses phase 23's), with every gate and
 number of the full run's phase 24, each kernel's launches on those paths
-and K1-K7 against their plain versions at the SP path's shapes.
+and K1-K7 against their plain versions at the SP path's shapes (K4-K7
+on bf16 x too).
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ def main() -> int:
     cs.phase_build()
     with tempfile.TemporaryDirectory() as root:
         manifest, _ = cs.write_corpus(root)
-        launches, errs = cs.phase_sequence_parallel(manifest, root, card)
-    print(json.dumps({'sp_launches': launches, 'max_abs_err': errs}))
+        launches, errs, bf16, bf16_errs = cs.phase_sequence_parallel(
+            manifest, root, card)
+    print(json.dumps({'sp_launches': launches, 'max_abs_err': errs,
+                      'sp_bf16_launches': bf16,
+                      'bf16_max_abs_err': bf16_errs}))
     print(f'total {time.time() - t0:.1f} s [{card}]')
     return 0
 

@@ -7,10 +7,12 @@ a few minutes instead of a full run.
 Builds the kernels (``chip_smoke.phase_build``), writes the 64-utterance
 corpus, then runs ``chip_smoke.phase_tensor_parallel``: Wav2Letter-20 and
 QuartzNet-15x2 at full width with ``trainer.mesh.model=2`` on two ranks
-sharing the card over gloo, and Wav2Letter-4 on four ranks (data=2 x
+sharing the card over gloo, in float32 and in ``model.compute_dtype=bf16``
+(also at 3 layers / 2 blocks), and Wav2Letter-4 on four ranks (data=2 x
 model=2, a gradient clip), each against one process on the same global
 batch, with every gate and number of the full run's phase 23 and each
-kernel's launches on those paths.
+kernel's launches on those paths, and K4-K7 on bf16 x at a rank's
+shapes.
 """
 
 from __future__ import annotations
@@ -39,8 +41,10 @@ def main() -> int:
     cs.phase_build()
     with tempfile.TemporaryDirectory() as root:
         manifest, _ = cs.write_corpus(root)
-        launches, _ = cs.phase_tensor_parallel(manifest, root, card)
-    print(json.dumps({'tp_launches': launches}))
+        launches, bf16, errs, _ = cs.phase_tensor_parallel(manifest, root,
+                                                           card)
+    print(json.dumps({'tp_launches': launches, 'tp_bf16_launches': bf16,
+                      'bf16_max_abs_err': errs}))
     print(f'total {time.time() - t0:.1f} s [{card}]')
     return 0
 

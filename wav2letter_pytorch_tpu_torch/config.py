@@ -154,15 +154,12 @@ DEFAULT_GROUPS = {'audio': 'standard_16k', 'optimizer': 'exp_lr_optimizer',
                   'model': 'wav2letter'}
 
 # Keys the port does not act on, with the only value it accepts: the TPU
-# package's dispatch, device-cache, host-memory, PRNG and kernel-selection
-# knobs, and features not ported (yet).
+# package's dispatch, device-cache, host-memory and PRNG mechanisms.
 UNSUPPORTED = {
     'trainer.steps_per_dispatch': 1,
     'trainer.device_cache': False,
     'trainer.host_rss_budget_gb': None,
     'trainer.prng_impl': 'rbg',
-    'trainer.ctc_impl': 'auto',
-    'model.stft_method': 'auto',
 }
 # Keys the port acts on whose values are checked as the JAX package checks
 # them (there, where the dataset, the frontend and the model are built).
@@ -171,9 +168,22 @@ CHOICES = {
     'model.feature_type': ('logmel', 'mfcc'),
     'model.compute_dtype': ('f32', 'float32', 'bf16', 'bfloat16'),
     'model.padding_mode': ('reflect', 'zeros'),
+    # the kernel-selection knobs: 'pallas' the hand kernels (K2/K3, K1),
+    # 'scan' / 'conv' / 'matmul' / 'fft' their plain versions
+    'trainer.ctc_impl': ('auto', 'scan', 'pallas'),
+    'model.stft_method': ('auto', 'pallas', 'conv', 'matmul', 'fft'),
 }
-SUPPORTED_DECODERS = ('wav2letter_pytorch_tpu.decoding.GreedyDecoder',
-                      'decoder.GreedyDecoder')
+# model.decoder._target_ names (the JAX package's and the reference's)
+# -> the name of the port's decoder class (``training.build`` holds the
+# classes)
+DECODERS = {
+    'wav2letter_pytorch_tpu.decoding.GreedyDecoder': 'GreedyDecoder',
+    'wav2letter_pytorch_tpu.decoding.PrefixBeamSearchLMDecoder':
+        'PrefixBeamSearchLMDecoder',
+    'wav2letter_pytorch_tpu.decoding.DeviceBeamDecoder': 'DeviceBeamDecoder',
+    'decoder.GreedyDecoder': 'GreedyDecoder',
+    'decoder.PrefixBeamSearchLMDecoder': 'PrefixBeamSearchLMDecoder',
+}
 
 _INTERP = re.compile(r'^\$\{([^}]+)\}$')
 
@@ -435,15 +445,6 @@ def check_supported(cfg: dict) -> None:
         if value not in choices:
             raise ValueError(f'{key} must be one of {choices}, got '
                              f'{value!r}')
-    if cfg.get('model', {}).get('compute_dtype') in ('bf16', 'bfloat16'):
-        mesh = cfg.get('trainer', {}).get('mesh') or {}
-        for axis in ('model', 'seq'):
-            if int(mesh.get(axis) or 1) > 1:
-                raise ValueError(
-                    f'model.compute_dtype=bf16 with trainer.mesh.{axis}='
-                    f'{mesh[axis]} is not ported: tensor- and sequence-'
-                    'parallel convs carry float32 (train bf16 with '
-                    'trainer.mesh.model=1 trainer.mesh.seq=1)')
     n_mfcc = cfg.get('model', {}).get('n_mfcc')
     if n_mfcc is not None and (isinstance(n_mfcc, bool)
                                or not isinstance(n_mfcc, int)
@@ -451,8 +452,6 @@ def check_supported(cfg: dict) -> None:
         raise ValueError(f'model.n_mfcc must be a positive int or null, '
                          f'got {n_mfcc!r}')
     target = cfg['model']['decoder'].get('_target_')
-    if target not in SUPPORTED_DECODERS:
-        raise ValueError(f'model.decoder._target_={target!r} is not ported: '
-                         'training-time validation decodes greedily (beam '
-                         'search with an LM is evaluate.py --lm-path / '
-                         '--beam-search-params)')
+    if target not in DECODERS:
+        raise ValueError(f'model.decoder._target_={target!r} is not a '
+                         f'decoder; one of {sorted(DECODERS)}')

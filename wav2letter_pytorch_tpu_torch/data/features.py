@@ -25,14 +25,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import CHOICES
 from ..parallel.mesh import draw_rows
 from ..ops.stft_mel import (MAX_FFT, MIN_FFT, K1Tables, build_tables,
-                            stft_mel_log)
+                            check_n_fft, stft_mel_log,
+                            stft_mel_log_reference)
 
 DITHER = 1e-5
 PREEMPH = 0.97
 LOG_ZERO_GUARD = 2.0 ** -24
 NORM_EPS = 1e-5
+# ``model.stft_method`` (``config.CHOICES``): 'auto' and 'pallas' run K1
+# (its plain version on a CPU tensor); the JAX package's three XLA
+# formulations (a strided conv, a frame matmul, an FFT) are one plain
+# dense DFT here, on either device.
+PLAIN_METHODS = ('conv', 'matmul', 'fft')
 
 
 # --------------------------------------------------------------------------
@@ -154,14 +161,25 @@ class SpectrogramFrontend(nn.Module):
     features are then normalised as ``(x - mean) / (std + 1e-5)`` in place
     of the per-utterance statistics. ``normalize=False`` emits the raw
     log-mel features (padding frames zeroed).
+
+    ``stft_method`` is the JAX package's ``model.stft_method``: ``auto``
+    and ``pallas`` run K1 (``pallas`` raises here for an n_fft the kernel
+    does not take), ``conv``, ``matmul`` and ``fft`` its plain version on
+    any device.
     """
 
     def __init__(self, audio_conf: AudioConfig = AudioConfig(),
                  n_mels: int = 64, dither: float = DITHER,
                  device: str | torch.device = 'cpu',
                  norm_stats=None, normalize: bool = True,
-                 feature_type: str = 'logmel', n_mfcc: int | None = None):
+                 feature_type: str = 'logmel', n_mfcc: int | None = None,
+                 stft_method: str = 'auto'):
         super().__init__()
+        choices = CHOICES['model.stft_method']
+        if stft_method not in choices:
+            raise ValueError(f'stft_method must be one of {choices}, got '
+                             f'{stft_method!r}')
+        self.stft_method = stft_method
         self.conf = audio_conf
         self.n_mels = n_mels
         if feature_type not in ('logmel', 'mfcc'):
@@ -201,6 +219,8 @@ class SpectrogramFrontend(nn.Module):
         self.register_buffer('dft_im', torch.from_numpy(dft_im).to(device))
         self.register_buffer('fb_t', torch.from_numpy(fb_t).to(device))
         self.has_k1_tables = MIN_FFT <= n_fft <= MAX_FFT
+        if stft_method == 'pallas':
+            check_n_fft(n_fft)
         if self.has_k1_tables:
             tables = build_tables(padded, fb_t)
             for name in ('twiddles', 'bands', 'weights'):
@@ -263,9 +283,19 @@ class SpectrogramFrontend(nn.Module):
         """Raw log-mel features [B, n_frames, n_mels], before
         normalisation (padding frames not yet zeroed)."""
         padded = self.prepare(audio, sample_lengths, generator)
-        return stft_mel_log(padded, num_frames(audio.shape[1], self.hop),
-                            self.hop, self.dft_re, self.dft_im, self.fb_t,
-                            self.k1_tables())
+        return self.mel(padded, num_frames(audio.shape[1], self.hop))
+
+    def mel(self, padded: torch.Tensor, n_frames: int,
+            tables: K1Tables | None = None) -> torch.Tensor:
+        """K1 over ``n_frames`` frames of ``padded`` [B, P] (``tables``:
+        ``k1_tables()``, cached by a caller), or its plain version under
+        ``stft_method`` conv / matmul / fft."""
+        args = (padded, n_frames, self.hop, self.dft_re, self.dft_im,
+                self.fb_t)
+        if self.stft_method in PLAIN_METHODS:
+            return stft_mel_log_reference(*args)
+        return stft_mel_log(*args, self.k1_tables() if tables is None
+                            else tables)
 
     def prepare(self, audio: torch.Tensor, sample_lengths: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -231,7 +231,8 @@ class MaskedConv(nn.Module):
         """This rank's output channels of the (grouped) conv from the whole
         input ``x`` [B, T, C]: one conv over the groups the slice covers
         whole, else one conv a group it touches, on that group's input
-        channels."""
+        channels. With ``compute_dtype`` bfloat16 each is ``conv1d_bf16``
+        and the columns are bfloat16, the one-process conv's columns."""
         sl = tp.shard_slice(self.conv.weight)
         opg = self.features // self.groups
         ipg = self.in_channels // self.groups
@@ -244,12 +245,13 @@ class MaskedConv(nn.Module):
         xt = x.transpose(1, 2)
         w, b = self.conv.weight, self.conv.bias
         geometry = (self.stride, padding, self.dilation)
+        conv = F.conv1d if self.compute_dtype is None else conv1d_bf16
         if len(pieces) > 1 and all(hi - lo == opg for _, lo, hi in pieces):
             g0 = pieces[0][0]
-            y = F.conv1d(xt[:, g0 * ipg:(g0 + len(pieces)) * ipg], w, b,
-                         *geometry, len(pieces))
+            y = conv(xt[:, g0 * ipg:(g0 + len(pieces)) * ipg], w, b,
+                     *geometry, len(pieces))
         else:
-            y = torch.cat([F.conv1d(
+            y = torch.cat([conv(
                 xt[:, g * ipg:(g + 1) * ipg], w[lo:hi],
                 None if b is None else b[lo:hi], *geometry, 1)
                 for g, lo, hi in pieces], 1)

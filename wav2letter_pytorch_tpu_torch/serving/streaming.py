@@ -40,7 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from ..data.features import NORM_EPS, PREEMPH
-from ..ops.stft_mel import stft_mel_log
 from ..runtime import resolve_device
 from .fold import fold_batchnorm
 from .infer import (ACT_CLAMP, _materialize, conv_q8_valid,
@@ -159,9 +158,8 @@ class _FrontendStreaming:
         """K1 over ``n_frames`` frames of ``buf`` [B, P], then the DCT
         under MFCC: [B, n, feat_dim]."""
         fe = self.frontend
-        return fe.cepstra(stft_mel_log(buf.contiguous(), n_frames, self.hop,
-                                       fe.dft_re, fe.dft_im, fe.fb_t,
-                                       self._k1_tables))
+        return fe.cepstra(fe.mel(buf.contiguous(), n_frames,
+                                 self._k1_tables))
 
     def _normalize(self, feats, mask, count, nsum, nsumsq):
         """Masked normalisation; cumulative mode updates running stats

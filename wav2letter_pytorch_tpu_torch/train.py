@@ -17,9 +17,11 @@
 The counterpart of the JAX package's ``train.py``: dotted ``key=value``
 overrides and group swaps (``config.py``), WAV or FLAC manifests (CSV or
 JSON lines; ``data.cache_audio``, ``data.audio_dtype`` and
-``model.audio_conf.resample`` as there), and ``Trainer.fit`` with validation, checkpoints under
-``<trainer.default_root_dir>/checkpoints`` and ``metrics.csv`` beside
-them. ``--resume`` continues from the latest checkpoint; ``--cfg`` prints
+``model.audio_conf.resample`` as there), and ``Trainer.fit`` with
+validation (scored by ``model.decoder`` through ``build_decoder``:
+greedy, or a beam search on the host or on the device), checkpoints
+under ``<trainer.default_root_dir>/checkpoints`` and ``metrics.csv``
+beside them. ``--resume`` continues from the latest checkpoint; ``--cfg`` prints
 the composed config as JSON and exits. The device defaults to ``cuda``
 and raises when no card is present; ``--cpu`` is ``--device cpu``.
 
@@ -54,9 +56,8 @@ from . import parallel
 from .config import load_config
 from .data.dataset import BucketBatchLoader, ManifestDataset, resample_flag
 from .runtime import resolve_device
-from .decoding.decoder import GreedyDecoder
-from .training.build import (build_frontend, build_labels, build_model,
-                             build_optimizer)
+from .training.build import (build_decoder, build_frontend, build_labels,
+                             build_model, build_optimizer)
 from .training.trainer import Trainer
 
 
@@ -156,7 +157,8 @@ def main(argv=None) -> int:
     optimizer, schedule = build_optimizer(model.parameters(), cfg['model'],
                                           steps_per_epoch, total)
     trainer = Trainer(cfg, model, frontend, optimizer, schedule,
-                      GreedyDecoder(labels), device=dev)
+                      build_decoder(cfg['model'], labels, device=dev),
+                      device=dev)
     try:
         trainer.fit(train_loader, val_loader, resume='--resume' in flags)
     finally:

@@ -1,4 +1,4 @@
-"""Config -> objects: labels, model, frontend, optimizer.
+"""Config -> objects: labels, model, frontend, decoder, optimizer.
 
 The counterpart of ``wav2letter_pytorch_tpu.training.build``, with the
 same ``_target_`` tables: optimizer and scheduler names written for torch
@@ -14,8 +14,10 @@ import os
 import torch
 
 from .. import optim
-from ..config import check_supported, parse_value, set_path
+from ..config import DECODERS, check_supported, parse_value, set_path
 from ..data.features import AudioConfig, SpectrogramFrontend
+from ..decoding.beam_device import DeviceBeamDecoder
+from ..decoding.decoder import GreedyDecoder, PrefixBeamSearchLMDecoder
 from ..data.label_sets import resolve_labels
 from ..models.jasper import Jasper
 from ..models.wav2letter import Wav2Letter
@@ -144,8 +146,9 @@ def build_frontend(model_cfg, dither: float | None = None,
                    device='cpu', normalize: bool = True,
                    norm_stats=None) -> SpectrogramFrontend:
     """The config's frontend (``model.feature_type``: log-mel, or MFCC
-    with ``model.n_mfcc`` coefficients) on ``device``; ``normalize`` and
-    ``norm_stats`` as ``SpectrogramFrontend`` takes them (serving)."""
+    with ``model.n_mfcc`` coefficients; ``model.stft_method``: K1 or its
+    plain version) on ``device``; ``normalize`` and ``norm_stats`` as
+    ``SpectrogramFrontend`` takes them (serving)."""
     ac = model_cfg['audio_conf']
     conf = AudioConfig(sample_rate=int(ac['sample_rate']),
                        window_size=float(ac['window_size']),
@@ -157,7 +160,31 @@ def build_frontend(model_cfg, dither: float | None = None,
                                norm_stats=norm_stats,
                                feature_type=model_cfg.get('feature_type',
                                                           'logmel'),
-                               n_mfcc=model_cfg.get('n_mfcc'), **kwargs)
+                               n_mfcc=model_cfg.get('n_mfcc'),
+                               stft_method=model_cfg.get('stft_method')
+                               or 'auto', **kwargs)
+
+
+_DECODER_CLASSES = {cls.__name__: cls for cls in (
+    GreedyDecoder, PrefixBeamSearchLMDecoder, DeviceBeamDecoder)}
+
+
+def build_decoder(model_cfg, labels, device='cpu'):
+    """``model.decoder``: its ``_target_`` (a JAX package or reference
+    name, ``config.DECODERS``) instantiated with the config's other keys
+    and ``labels``, as the JAX package's ``build_decoder`` does. A
+    ``DeviceBeamDecoder`` searches on ``device`` unless the config names
+    one."""
+    dec_cfg = dict(model_cfg['decoder'])
+    target = dec_cfg.pop('_target_')
+    if target not in DECODERS:
+        raise ValueError(f'Unknown decoder _target_: {target!r}; one of '
+                         f'{sorted(DECODERS)}')
+    cls = _DECODER_CLASSES[DECODERS[target]]
+    dec_cfg['labels'] = list(labels)
+    if cls is DeviceBeamDecoder:
+        dec_cfg.setdefault('device', device)
+    return cls(**dec_cfg)
 
 
 def build_optimizer(params, model_cfg, steps_per_epoch: int,

@@ -1,9 +1,10 @@
 """String metrics (WER/CER/length ratio) and corpus-ratio accumulation.
 
 ``string_metrics`` is ``wav2letter_pytorch_tpu.training.metrics.
-string_metrics`` for pre-argmaxed ids (the port's trainer argmaxes on the
-device): per-batch corpus ratios over the unmasked rows, and a random
-(reference, decoded) pair printed with probability
+string_metrics``: per-batch corpus ratios over the unmasked rows of the
+decoding of pre-argmaxed ids (a greedy decoder: the port's trainer
+argmaxes on the device) or of probabilities (any other decoder), and a
+random (reference, decoded) pair printed with probability
 ``print_decoded_prob``.
 """
 
@@ -14,12 +15,16 @@ import random
 import numpy as np
 
 
-def string_sums(decoder, ids, output_lengths, texts, prefix: str,
+def string_sums(decoder, outputs, output_lengths, texts, prefix: str,
                 batch_mask=None, print_decoded_prob: float = 0.0):
     """The ``RatioAccumulator`` of ``string_metrics``: numerators and
     denominators of every key, zero where no row is real (a rank's rows
-    of a global batch can all be padding)."""
-    decoded = decoder.decode_ids(np.asarray(ids), np.asarray(output_lengths))
+    of a global batch can all be padding). ``outputs``: ids [B, T]
+    (``decoder.decode_ids``) or probabilities [B, T, V]
+    (``decoder.decode``)."""
+    outputs, sizes = np.asarray(outputs), np.asarray(output_lengths)
+    decoded = (decoder.decode_ids(outputs, sizes) if outputs.ndim == 2
+               else decoder.decode(outputs, sizes))
     if texts and random.random() < print_decoded_prob:
         print(f'reference: {texts[0]}')
         print(f'decoded  : {decoded[0]}')
@@ -35,12 +40,12 @@ def string_sums(decoder, ids, output_lengths, texts, prefix: str,
     return acc
 
 
-def string_metrics(decoder, ids, output_lengths, texts, prefix: str,
+def string_metrics(decoder, outputs, output_lengths, texts, prefix: str,
                    batch_mask=None, print_decoded_prob: float = 0.0) -> dict:
-    """{prefix}_cer / {prefix}_wer / {prefix}_len_ratio of the greedy
-    decoding of ``ids`` [B, T] against ``texts``; rows where
+    """{prefix}_cer / {prefix}_wer / {prefix}_len_ratio of the decoding of
+    ``outputs`` (``string_sums``) against ``texts``; rows where
     ``batch_mask`` is 0 (shape padding) are skipped."""
-    return string_sums(decoder, ids, output_lengths, texts, prefix,
+    return string_sums(decoder, outputs, output_lengths, texts, prefix,
                        batch_mask, print_decoded_prob).ratios(floor=1)
 
 

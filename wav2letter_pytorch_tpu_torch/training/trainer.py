@@ -2,6 +2,10 @@
 
 The counterpart of ``wav2letter_pytorch_tpu.training.trainer``:
 
+* ``trainer.ctc_impl`` picks the CTC (``CTC_IMPLS``: K2/K3 or the
+  plain recursion) and ``model.decoder`` the validation's decoding
+  (argmax ids on the device for a ``GreedyDecoder``, else
+  ``decoder.decode`` on the outputs' probabilities);
 * ``Trainer.train_step`` is ``_train_step``: the log-mel frontend with
   dither (kernel K1), optional SpecAugment/SpecCutout, the model
   (Wav2Letter, or Jasper with kernels K4-K7) in train mode (dropout,
@@ -21,7 +25,8 @@ The counterpart of ``wav2letter_pytorch_tpu.training.trainer``:
   ``log_every_n_steps`` (and at step 1), raises ``FloatingPointError`` on a
   non-finite logged loss, computes train WER/CER every
   ``string_metrics_interval`` steps from argmax ids fetched in one host
-  sync per ``string_metrics_flush`` steps, validates every
+  sync per ``string_metrics_flush`` steps (with a beam ``model.decoder``,
+  from the log-probs' exp, ROADMAP C.6), validates every
   ``val_every_n_epochs`` and checkpoints every ``checkpoint.every_n_epochs``
   with ``{'epoch'}``; ``resume`` replays the checkpointed epoch's shuffle;
 * the preemption signal (``trainer.preempt_signal``, SIGTERM) stops at the
@@ -93,6 +98,8 @@ import numpy as np
 import torch
 
 from ..data.augmentations import build_augment_fn
+from ..decoding.decoder import GreedyDecoder
+from ..ops.ctc import ctc_loss
 from ..ops.ctc_kernel import ctc_loss_kernel
 from ..parallel import mesh, sp, tp
 from ..runtime import resolve_device
@@ -101,13 +108,21 @@ from .logging import MetricLogger
 from .metrics import RatioAccumulator, string_sums
 
 
+# ``trainer.ctc_impl``: 'pallas' (and 'auto') the kernels K2 / K3 (their
+# plain versions on a CPU tensor), 'scan' the plain CTC on any device, as
+# the JAX package's 'scan' runs its lax.scan recursion on a TPU too
+CTC_IMPLS = {'auto': ctc_loss_kernel, 'pallas': ctc_loss_kernel,
+             'scan': ctc_loss}
+
+
 def masked_ctc_mean(log_probs, out_lens, targets, target_lengths,
-                    batch_mask, mask_sum=None):
+                    batch_mask, mask_sum=None, ctc=ctc_loss_kernel):
     """torch 'mean' CTC reduction restricted to real (unmasked) rows.
     ``mask_sum``: the denominator, when the batch is a rank's rows of a
-    global batch (its ``sum(batch_mask)``); this batch's own by default."""
-    per = ctc_loss_kernel(log_probs, out_lens, targets, target_lengths,
-                          reduction='none')
+    global batch (its ``sum(batch_mask)``); this batch's own by default.
+    ``ctc``: one of ``CTC_IMPLS``."""
+    per = ctc(log_probs, out_lens, targets, target_lengths,
+              reduction='none')
     tl = torch.clamp(target_lengths, min=1).to(torch.float32)
     weighted = per / tl * batch_mask
     if mask_sum is None:
@@ -125,7 +140,8 @@ def global_mask_sum(batch_mask):
 
 
 @torch.no_grad()
-def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
+def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None,
+              ctc=ctc_loss_kernel):
     """One batch of tensors on the device -> (loss, out, out_lens [B]).
     ``output='ids'``: ``out`` is the argmax ids [B, T'] int32 (greedy
     decoding: only they cross to the host); ``'model'``: the model's own
@@ -133,7 +149,7 @@ def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
     probabilities), for beam decoding. One forward either way. The caller
     puts the model in eval mode. A model that emits probabilities in eval
     mode (Jasper) is scored on log(max(probs, 1e-30)), as the JAX trainer
-    does. ``mask_sum`` as ``masked_ctc_mean`` takes it."""
+    does. ``mask_sum`` and ``ctc`` as ``masked_ctc_mean`` takes them."""
     if output not in ('ids', 'model'):
         raise ValueError(f"output must be 'ids' or 'model', got {output!r}")
     feats, flens = frontend(batch['audio'], batch['audio_lengths'])
@@ -142,7 +158,7 @@ def eval_step(model, frontend, batch, output: str = 'ids', mask_sum=None):
                  if getattr(model, 'eval_emits_probs', False) else out)
     loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
                            batch['target_lengths'], batch['batch_mask'],
-                           mask_sum)
+                           mask_sum, ctc)
     if output == 'ids':
         out = torch.argmax(out, dim=-1).to(torch.int32)
     return loss, out, out_lens
@@ -202,7 +218,17 @@ class Trainer:
         self.optimizer = optimizer
         self.schedule = schedule
         self.decoder = decoder
+        # greedy decoding needs only the argmax ids, taken on the device;
+        # any other decoder scores the outputs (JAX's ``greedy_metrics``)
+        self.greedy = type(decoder) is GreedyDecoder
         tcfg = cfg['trainer']
+        impl = tcfg.get('ctc_impl', 'auto') or 'auto'   # config.CHOICES
+        self.ctc = CTC_IMPLS[impl]
+        if mesh.is_main():
+            print(f'trainer.ctc_impl={impl}: '
+                  + ('the plain CTC (ops/ctc.py)' if impl == 'scan' else
+                     'K2/K3 (ops/ctc_kernel.py)')
+                  + f' on {self.device.type}', flush=True)
         self.clip = float(tcfg.get('gradient_clip_val') or 0.0)
         self.accum = int(tcfg.get('accumulate_grad_batches', 1) or 1)
         self.max_epochs = int(tcfg.get('max_epochs', 5))
@@ -325,7 +351,8 @@ class Trainer:
     # ---------------------------------------------------------------- steps
     def train_step(self, batch: dict, reduce_loss: bool = True):
         """One micro-step on a batch of device tensors; returns (loss,
-        argmax ids [B, T'] int32, out_lens [B]). Every
+        argmax ids [B, T'] int32 (a greedy decoder) or the log-probs [B,
+        T', V] (any other), out_lens [B]). Every
         ``accumulate_grad_batches``-th call applies the update. Under a
         process group the loss is the global batch's, or with
         ``reduce_loss=False`` this rank's share of it (the ranks' shares
@@ -342,16 +369,18 @@ class Trainer:
         log_probs, out_lens = seq_forward(self.model, feats, flens, g_drop)
         loss = masked_ctc_mean(log_probs, out_lens, batch['targets'],
                                batch['target_lengths'], batch['batch_mask'],
-                               global_mask_sum(batch['batch_mask']))
+                               global_mask_sum(batch['batch_mask']), self.ctc)
         loss.backward()
         self.step += 1
         if self.step % self.accum == 0:
             self._update()
-        ids = torch.argmax(log_probs.detach(), dim=-1).to(torch.int32)
+        out = log_probs.detach()
+        if self.greedy:
+            out = torch.argmax(out, dim=-1).to(torch.int32)
         loss = loss.detach()
         if self.distributed and reduce_loss:
             loss = mesh.all_reduce_sum(loss.reshape(1), mesh.data_group())[0]
-        return loss, ids, out_lens
+        return loss, out, out_lens
 
     def _update(self) -> None:
         if self._grads is not None:
@@ -373,22 +402,32 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit
     def _flush_metrics(self, pending: list) -> None:
-        """WER/CER of the pending steps, from one device-to-host copy (and,
-        under a process group, one reduction of their sums)."""
+        """WER/CER of the pending steps, from one device-to-host copy of
+        their ids (a greedy decoder; else of each step's log-probs, scored
+        as probabilities) and, under a process group, one reduction of
+        their sums."""
         if not pending:
             return
-        flat = torch.cat([t.reshape(-1).to(torch.int32) for p in pending
-                          for t in (p[1], p[2])]).cpu().numpy()
-        off = 0
         accs = []
-        for m_step, ids, lens, texts, mask in pending:
-            n_ids, n_lens = ids.numel(), lens.numel()
-            ids_np = flat[off:off + n_ids].reshape(ids.shape)
-            lens_np = flat[off + n_ids:off + n_ids + n_lens]
-            off += n_ids + n_lens
-            accs.append(string_sums(
-                self.decoder, ids_np, lens_np, texts, 'train',
-                batch_mask=mask, print_decoded_prob=self.print_decoded_prob))
+        if self.greedy:
+            flat = torch.cat([t.reshape(-1).to(torch.int32) for p in pending
+                              for t in (p[1], p[2])]).cpu().numpy()
+            off = 0
+            for m_step, ids, lens, texts, mask in pending:
+                n_ids, n_lens = ids.numel(), lens.numel()
+                ids_np = flat[off:off + n_ids].reshape(ids.shape)
+                lens_np = flat[off + n_ids:off + n_ids + n_lens]
+                off += n_ids + n_lens
+                accs.append(string_sums(
+                    self.decoder, ids_np, lens_np, texts, 'train',
+                    batch_mask=mask,
+                    print_decoded_prob=self.print_decoded_prob))
+        else:
+            for m_step, out, lens, texts, mask in pending:
+                accs.append(string_sums(
+                    self.decoder, self.probabilities(out, log=True),
+                    lens.cpu().numpy(), texts, 'train', batch_mask=mask,
+                    print_decoded_prob=self.print_decoded_prob))
         self._reduce_sums(accs)
         for (m_step, *_), acc in zip(pending, accs):
             self._log(m_step, acc.ratios(floor=1))
@@ -546,11 +585,22 @@ class Trainer:
             self._log(step, logs)
 
     # ------------------------------------------------------------- validate
+    def probabilities(self, out: torch.Tensor, log: bool) -> np.ndarray:
+        """A batch's outputs as the probabilities [B, T', V] a beam
+        decoder takes, on the host: ``exp`` of log-probs (``log``:
+        Wav2Letter's eval and every train-mode output). The JAX trainer
+        hands log-probs to the decoder as they are, which its own
+        ``test.py`` does not (ROADMAP C.6)."""
+        out = out.float().cpu().numpy()
+        return np.exp(out) if log else out
+
     def validate(self, val_loader) -> dict:
         """val_loss (the mean of the batches' losses), val_cer, val_wer and
         val_len_ratio over the loader; under a process group each rank
         scores its rows and the sums are reduced, so every rank returns
-        the one-process numbers."""
+        the one-process numbers. A greedy decoder decodes the argmax ids
+        taken on the device; any other scores the outputs
+        (``probabilities``) with ``decoder.decode``."""
         self.model.eval()
         acc = RatioAccumulator()
         losses = []
@@ -559,12 +609,18 @@ class Trainer:
                 acc.add(key, 0.0, 0.0)
         for batch in val_loader:
             b = to_device(batch, self.device)
-            loss, ids, out_lens = eval_step(
+            loss, out, out_lens = eval_step(
                 self.model, self.frontend, b,
-                mask_sum=global_mask_sum(b['batch_mask']))
+                'ids' if self.greedy else 'model',
+                mask_sum=global_mask_sum(b['batch_mask']), ctc=self.ctc)
             losses.append(loss.reshape(1))
-            decoded = self.decoder.decode_ids(ids.cpu().numpy(),
-                                              out_lens.cpu().numpy())
+            sizes = out_lens.cpu().numpy()
+            if self.greedy:
+                decoded = self.decoder.decode_ids(out.cpu().numpy(), sizes)
+            else:
+                decoded = self.decoder.decode(self.probabilities(
+                    out, not getattr(self.model, 'eval_emits_probs',
+                                     False)), sizes)
             for j, expected in enumerate(batch['texts']):
                 if not batch['batch_mask'][j]:
                     continue
